@@ -1,0 +1,9 @@
+from repro_torch.streams.arena import CounterArena, EndStats, default_arena
+from repro_torch.streams.queue import InstrumentedQueue
+from repro_torch.streams.monitor_thread import (QueueMonitor, MonitorThread,
+                                                FleetMonitorThread)
+from repro_torch.streams.fleet import FleetMonitorService
+
+__all__ = ["CounterArena", "EndStats", "default_arena", "InstrumentedQueue",
+           "QueueMonitor", "MonitorThread", "FleetMonitorThread",
+           "FleetMonitorService"]
