@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the fleet monitor on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor and
+the serving path of internlm2-1.8b at full width.
 
     python3 chip_smoke.py [--seed 0]
 
 Run from the repository root on a machine with the card and the CUDA
-toolkit.  It builds the port's kernels from ``src/repro_torch`` with nvcc,
-then runs these phases (any failed check raises and exits non-zero):
+toolkit.  It builds the port's kernels from ``src/repro_torch`` with nvcc
+(one nvcc per source, started together), then runs these phases (any
+failed check raises and exits non-zero):
 
 1. the card's name and power limit, and the kernels' build time;
 2. ``batched_monitor`` at Q = 2e5 windows of w = 32, f32 and bf16, against
@@ -26,8 +28,23 @@ then runs these phases (any failed check raises and exits non-zero):
    dispatch plus the warm-up;
 5. the per-tick path: ``fleet_monitor_step`` over 2e5 windows for 64 ticks,
    one ``batched_monitor`` launch per tick;
-6. each kernel timed with CUDA events at its path's shape beside its plain
-   version, its bound and its launches, as one JSON line.
+6. ``flash_attention`` against its plain version on the card: the JAX
+   package's kernel-test shapes in f32, causal and not (2e-4), and the
+   serving path's shape in bf16 with S = 1000, a masked tail (1e-3);
+7. the full-width model: internlm2-1.8b (24 layers, d 2048, 16/8 heads,
+   hd 128, d_ff 8192, vocab 92 672) with random bf16 weights from
+   ``--seed``; a prefill of 8 prompts of 1024 tokens through the kernel
+   and again through the plain attention (relative L2 of the last
+   logits <= 1e-2, 24 kernel launches per prefill);
+8. the serving path: ``serve.Engine`` with the default (blocking,
+   nonblocking) lanes answers 16 requests (prompts of 512-1536 tokens,
+   16 new tokens each) with no worker crash, ``flash_attention``
+   launched 24 times per prefill round and ``monitor_fleet`` on the
+   lanes; one request served alone equals a direct prefill + greedy
+   decode of its round (the request replicated to the batch of 8);
+9. each kernel timed with CUDA events at its path's shape beside its plain
+   version, its bound, the PyTorch library call where there is one and
+   its launches, as one JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -36,10 +53,12 @@ Inputs come from ``--seed`` through numpy.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,10 +66,11 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth and
-# the float32 rate outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth, the
+# float32 rate outside the tensor cores and the bf16 tensor-core rate
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 N_STREAMS = 200_000          # the repo's realistic fleet size (ends)
 N_PERIODS = 4096
@@ -59,6 +79,15 @@ SVC_CHUNK = 32
 SVC_TICKS = 640
 STEP_TICKS = 64
 WINDOW_Q = 200_000
+
+ARCH = "internlm2-1.8b"      # the model of the JAX package's serving test
+SERVE_B = 8                  # batch of a generation round
+PREFILL_S = 1024             # prompt length of the model phase
+SERVE_MAX_SEQ = 2048
+SERVE_REQS = 16              # half per QoS class
+SERVE_NEW = 16               # new tokens per request
+PROMPT_LENS = (512, 1536)    # served prompt lengths, uniform
+FLASH_SHAPE = (8, 1024, 16, 8, 128)   # the prefill's attention (B,S,H,K,hd)
 
 
 class CheckFailed(AssertionError):
@@ -413,6 +442,365 @@ def phase_step_path(torch, K, O, M, rng, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving path: flash attention, the full-width model, the engine
+
+
+def _qkv(torch, rng, shape, dtype, dev):
+    B, S, H, K, hd = shape
+    mk = lambda *sh: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(sh).astype(np.float32), device=dev).to(dtype)
+    return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd)
+
+
+def phase_flash(torch, AK, AR, rng, dev):
+    """Kernel against its plain version on the card: the JAX package's
+    kernel-test shapes in f32 (2e-4), the path's shape in bf16 with a
+    masked tail (1e-3: the same bf16 inputs on both sides)."""
+    cases = [((1, 128, 2, 2, 32), torch.float32, 2e-4),
+             ((2, 256, 4, 2, 32), torch.float32, 2e-4),
+             ((1, 256, 8, 8, 64), torch.float32, 2e-4),
+             ((8, 1000, 16, 8, 128), torch.bfloat16, 1e-3)]
+    path_err = 0.0
+    for shape, dtype, tol in cases:
+        q, k, v = _qkv(torch, rng, shape, dtype, dev)
+        for causal in (True, False):
+            got = AK.flash_attention(q, k, v, causal=causal)
+            want = AR.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"flash_attention {shape}: non-finite output")
+            err = float((got - want).abs().max())
+            check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+                  f"flash_attention {shape} {dtype} causal={causal}: max "
+                  f"abs err {err} over tol {tol}")
+            log(f"flash_attention {shape} {str(dtype)[6:]} causal={causal}: "
+                f"max abs err {err:.3e} (tol {tol})")
+            if dtype == torch.bfloat16:
+                path_err = max(path_err, err)
+    return path_err
+
+
+def flash_bound(shape):
+    """Least time of one causal GQA forward at ``shape`` (bf16 in, f32
+    out): each input read once and the output written once, against the
+    FLOPs of the unmasked score pairs (QK^T and P.V, 2 each)."""
+    B, S, H, K, hd = shape
+    nbytes = 2 * (B * S * H * hd + 2 * B * S * K * hd) + 4 * B * S * H * hd
+    pairs = S * (S + 1) // 2
+    flops = 4.0 * B * H * hd * pairs
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        nbytes, flops
+
+
+def kernel_flash_at_path(torch, AK, AR, rng, dev, err):
+    """The prefill's attention at B 8, S = T 1024: the kernel, its plain
+    version and PyTorch's scaled_dot_product_attention (the library
+    yardstick, never called by the port), bf16 in, causal."""
+    import torch.nn.functional as F
+    q, k, v = _qkv(torch, rng, FLASH_SHAPE, torch.bfloat16, dev)
+    ms = event_ms(torch, lambda: AK.flash_attention(q, k, v), reps=20)
+    plain_ms = event_ms(torch, lambda: AR.attention_ref(q, k, v), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    bound_ms, bound_by, nbytes, flops = flash_bound(FLASH_SHAPE)
+    log(f"flash_attention timing {FLASH_SHAPE} bf16 causal: {ms:.4f} ms "
+        f"(bound {bound_ms:.4f} ms by {bound_by}, {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP; {flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def perturbed_plain_attention(torch, ops, rel, seed, dev):
+    """The plain attention with its float32 output multiplied by
+    1 + u, u uniform in [-rel, rel]: a control for how far a difference
+    of that size in the attention alone moves the model's logits."""
+    orig = ops.attention_ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(*a, **k):
+        out = orig(*a, **k)
+        u = torch.rand(out.shape, generator=g, device=out.device)
+        return out * (1.0 + rel * (2.0 * u - 1.0))
+
+    ops.attention_ref = noisy
+    try:
+        yield
+    finally:
+        ops.attention_ref = orig
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_model(torch, AK, AO, cfgs, models, rng, seed, dev):
+    """The full-width model: random weights, a prefill of 8 x 1024 tokens
+    through the kernel and through the plain attention, in bf16 (the
+    path) and in float32 on the same weights."""
+    cfg = cfgs.get_config(ARCH)
+    model = models.build_model(cfg, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_B, PREFILL_S)), device=dev)
+    batch = {"tokens": toks}
+    plain = models.build_model(cfg, torch.bfloat16, attn_impl="plain")
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        AK.reset_launch_counts()
+        (lk, cache), ms_k = _sync_ms(torch, lambda: model.prefill(params,
+                                                                  batch))
+        launches = AK.launch_counts()["flash_attention"]
+        (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params, batch))
+        with perturbed_plain_attention(torch, AO, 2.0 ** -23, seed, dev):
+            lc, _ = plain.prefill(params, batch)
+        # float32 on the same (bf16-valued) weights: the kernel's f32 path
+        p32 = _map(params, lambda t: t.float())
+        m32 = models.build_model(cfg, torch.float32)
+        plain32 = models.build_model(cfg, torch.float32, attn_impl="plain")
+        lk32, _ = m32.prefill(p32, batch)
+        lp32, _ = plain32.prefill(p32, batch)
+        del p32
+    check(launches == cfg.n_layers,
+          f"flash_attention launched {launches} times in a "
+          f"{cfg.n_layers}-layer prefill")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(lk32).all()),
+          "non-finite prefill logits")
+    rel16, ctrl16 = _rel_l2(lk, lp), _rel_l2(lc, lp)
+    rel32 = _rel_l2(lk32, lp32)
+    check(rel32 <= 1e-2, f"f32 prefill logits: kernel vs plain attention "
+          f"rel L2 {rel32}")
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    log(f"model {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab}; weights {w_bytes / 1e9:.3f} "
+        f"GB bf16 (init {t_init:.1f} s)")
+    log(f"prefill {SERVE_B} x {PREFILL_S}: kernel {ms_k:.1f} ms, plain "
+        f"attention {ms_p:.1f} ms (host clock, synchronized), "
+        f"{launches} flash launches; KV cache {kv_bytes / 1e6:.1f} MB")
+    log(f"last logits, kernel vs plain attention: rel L2 {rel32:.3e} in f32 "
+        f"(gate 1e-2), {rel16:.3e} in bf16; control: the bf16 plain path "
+        f"with its attention output moved by <= 1 f32 ulp (2^-23 "
+        f"relative) differs from itself by {ctrl16:.3e}")
+    return model, params, {"prefill_8x1024_ms": ms_k,
+                           "prefill_8x1024_plain_attn_ms": ms_p,
+                           "logits_rel_l2_f32": rel32,
+                           "logits_rel_l2_bf16": rel16,
+                           "logits_rel_l2_bf16_1ulp_control": ctrl16,
+                           "weight_bytes": w_bytes,
+                           "kv_bytes_8x1024": kv_bytes}
+
+
+def _map(tree, fn):
+    return {k: (_map(v, fn) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def direct_generate(torch, model, params, rows, dev):
+    """Greedy prefill + decode of one round, as the engine runs it (the
+    rows at equal length here): (tokens (B, SERVE_NEW), prefill ms,
+    decode ms per token)."""
+    B, L = rows.shape
+    with torch.inference_mode():
+        (logits, c), pre_ms = _sync_ms(torch, lambda: model.prefill(
+            params, {"tokens": torch.as_tensor(rows, device=dev)}))
+        cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
+        for n in cache:
+            cache[n][:, :, :L] = c[n]
+        cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        pos = torch.full((B,), L, device=dev)
+        outs = [cur]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_NEW - 1):
+            cur, cache = model.decode_step(params, cache, cur, pos)
+            pos = pos + 1
+            outs.append(cur)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_NEW - 1)
+    return torch.stack(outs, 1).cpu().numpy(), pre_ms, dec_ms
+
+
+_CATEGORIES = (("flash_attention", ("flash_fwd_kernel",)),
+               ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
+               ("softmax", ("softmax",)),
+               ("copy", ("memcpy", "memset", "copy")),
+               ("reduce", ("reduce",)))
+
+
+def _trace_split(torch, prof, wall_ms, steps):
+    """Device time per kernel category from a torch.profiler trace, per
+    step: the sum of kernel durations (one stream), their count, and the
+    card's idle share of the host wall time (the profiler's own overhead
+    included in the wall)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    split = {c: 0.0 for c, _ in _CATEGORIES}
+    split["other"] = 0.0
+    n = 0
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        n += 1
+        us = e.time_range.elapsed_us()
+        name = e.name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        split[cat] += us / 1e3
+    if n == 0:
+        return None
+    busy = sum(split.values())
+    return {"wall_ms": wall_ms / steps, "device_ms": busy / steps,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "kernels": n / steps,
+            **{f"{c}_ms": v / steps for c, v in split.items()}}
+
+
+def phase_profile(torch, model, params, rows, dev):
+    """One prefill round and 8 decode steps of the serving path under
+    torch.profiler: where the device time goes, and how idle the card
+    is."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    B, L = rows.shape
+    toks = torch.as_tensor(rows, device=dev)
+    out = {}
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": toks})            # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            (logits, c), ms = _sync_ms(torch, lambda: model.prefill(
+                params, {"tokens": toks}))
+        out["prefill"] = _trace_split(torch, prof, ms, 1)
+        cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
+        for n in cache:
+            cache[n][:, :, :L] = c[n]
+        cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        pos = torch.full((B,), L, device=dev)
+        cur, cache = model.decode_step(params, cache, cur, pos)   # warm-up
+        steps = 8
+
+        def decode():
+            nonlocal cur, cache, pos
+            for _ in range(steps):
+                pos = pos + 1
+                cur, cache = model.decode_step(params, cache, cur, pos)
+
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            _, ms = _sync_ms(torch, decode)
+        out["decode_step"] = _trace_split(torch, prof, ms, steps)
+    for k, v in out.items():
+        if v is None:
+            log(f"profile {k}: no device events in the trace (not measured)")
+        else:
+            log(f"profile {k} ({B} x {L}, cache {SERVE_MAX_SEQ}): "
+                + ", ".join(f"{n} {x:.3f}" for n, x in v.items()))
+    return out
+
+
+def phase_serve(torch, AK, MK, serve, model, params, rng, dev):
+    """The main path of this slice: requests through the engine's QoS
+    lanes, batched prefill through the kernel, greedy decode."""
+    eng = serve.Engine(model, params, serve.ServeConfig(
+        batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
+        device=dev)
+    rounds = []
+    prefill = eng._prefill
+
+    def counted_prefill(p, batch):
+        rounds.append(batch["tokens"].shape)
+        return prefill(p, batch)
+
+    eng._prefill = counted_prefill
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, SERVE_REQS)
+    reqs = [serve.Request(rid=i, tokens=rng.integers(
+        0, model.cfg.vocab_size, int(n)).astype(np.int32), max_new=SERVE_NEW,
+        qos=("blocking", "nonblocking")[i % 2]) for i, n in enumerate(lens)]
+    AK.reset_launch_counts()
+    MK.reset_launch_counts()
+    eng.start()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(eng.submit(r, timeout=60.0), f"request {r.rid} not admitted")
+    for r in reqs:
+        check(r.done.wait(timeout=600), f"request {r.rid} timed out")
+    wall = time.perf_counter() - t0
+    n_rounds = len(rounds)
+    flash = AK.launch_counts()["flash_attention"]
+    crashes = list(eng._crashes)
+    check(not crashes, f"serve worker crashed: {crashes}")
+    for r in reqs:
+        check(r.out is not None and r.out.shape == (SERVE_NEW,),
+              f"request {r.rid} answered {r.out}")
+    check(flash == model.cfg.n_layers * n_rounds,
+          f"flash_attention launched {flash} times in {n_rounds} rounds")
+    # one request alone: its round is the request replicated to the batch
+    solo = serve.Request(rid=SERVE_REQS, tokens=reqs[0].tokens,
+                         max_new=SERVE_NEW)
+    check(eng.submit(solo, timeout=60.0), "solo request not admitted")
+    check(solo.done.wait(timeout=600), "solo request timed out")
+    time.sleep(0.5)                # let the lanes' monitor dispatch again
+    rates = eng.class_rates()
+    monitor = MK.launch_counts()["monitor_fleet"]
+    crashes = list(eng._crashes)
+    eng.stop()
+    check(not crashes, f"serve worker crashed: {crashes}")
+    check(monitor > 0, "monitor_fleet never launched on the lanes")
+    check(all(np.isfinite(v) for d in rates.values() for v in d.values()),
+          f"class_rates not finite: {rates}")
+    rows = np.repeat(solo.tokens[None], SERVE_B, axis=0)
+    direct, pre_ms, dec_ms = direct_generate(torch, model, params, rows, dev)
+    trace = phase_profile(torch, model, params, rows, dev)
+    check(np.array_equal(solo.out, direct[0]),
+          f"engine tokens {solo.out} != direct decode {direct[0]}")
+    new_tokens = SERVE_REQS * SERVE_NEW
+    kv_bytes = (2 * model.cfg.n_layers * SERVE_B * SERVE_MAX_SEQ
+                * model.cfg.n_kv_heads * model.cfg.head_dim * 2)
+    log(f"serve: {SERVE_REQS} requests (prompts {int(lens.min())}-"
+        f"{int(lens.max())} tokens, {SERVE_NEW} new each) in {n_rounds} "
+        f"rounds {[tuple(s) for s in rounds[:n_rounds]]}, {wall:.2f} s wall, "
+        f"{new_tokens / wall:.1f} new tokens/s, "
+        f"{int(lens.sum() + new_tokens) / wall:.0f} prompt+new tokens/s; "
+        f"flash launches {flash}, monitor_fleet launches {monitor}, no "
+        f"crash; class rates {rates}")
+    log(f"round of {SERVE_B} x {len(solo.tokens)}: prefill {pre_ms:.1f} ms, "
+        f"decode {dec_ms:.2f} ms per token (host clock, synchronized); "
+        f"KV cache {kv_bytes / 1e9:.3f} GB at max_seq {SERVE_MAX_SEQ}; "
+        f"engine tokens equal the direct decode")
+    return flash, {"serve_wall_s": wall, "serve_rounds": n_rounds,
+                   "new_tokens_per_s": new_tokens / wall,
+                   "round_prefill_ms": pre_ms, "round_prompt_len":
+                   len(solo.tokens), "decode_ms_per_token": dec_ms,
+                   "kv_cache_bytes": kv_bytes, "monitor_launches": monitor,
+                   "trace": trace}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -427,8 +815,14 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch import configs as C
+    from repro_torch import models as MD
+    from repro_torch import serve as SV
     from repro_torch.core import monitor as M
     from repro_torch import streams as S
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.attention import ops as AO
+    from repro_torch.kernels.attention import ref as AR
     from repro_torch.kernels.monitor import kernel as K
     from repro_torch.kernels.monitor import ops as O
     from repro_torch.kernels.monitor import ref as R
@@ -440,12 +834,15 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    lib = K.build()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    ptxas = [ln for ln in Path(str(lib) + ".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in ptxas[:8]:
-        log("  ptxas:", ln.strip())
+    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
+        libs = list(pool.map(lambda mod: mod.build(), (K, AK)))
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
+        f"{[lib.name for lib in libs]}")
+    for lib in libs:
+        ptxas = [ln for ln in Path(str(lib) + ".log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for ln in ptxas[:16]:
+            log(f"  ptxas {lib.name[:12]}:", ln.strip())
 
     b_err = phase_batched(torch, K, R, rng, dev)
     st_seed = phase_fleet(torch, K, M, R, rng, dev)
@@ -455,6 +852,13 @@ def main() -> int:
     step_launches = phase_step_path(torch, K, O, M, rng, dev)
     batched = kernel_batched_at_path(torch, K, R, rng, dev,
                                      max(b_err.values()))
+    flash_err = phase_flash(torch, AK, AR, rng, dev)
+    flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
+    model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
+                                             args.seed, dev)
+    flash_launches, serve_stats = phase_serve(torch, AK, K, SV, model,
+                                              params, rng, dev)
+    del model, params
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -470,12 +874,20 @@ def main() -> int:
          "ms": batched["ms"], "plain_ms": batched["plain_ms"],
          "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"],
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
+         "replaces": "src/repro/kernels/attention/kernel.py:25",
+         "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"]},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     extra = {"monitor_fleet_T256_ms": fleet["ms_T256"],
              "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"], **svc}
     log(json.dumps({"service": extra}))
+    log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

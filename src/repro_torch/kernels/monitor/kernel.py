@@ -21,11 +21,6 @@ it launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +28,7 @@ import torch
 
 from repro_torch.core.filters import gaussian_kernel
 from repro_torch.core.monitor import FleetMonitorState, MonitorConfig, Z_95
+from repro_torch.kernels._build import COMMON_FLAGS, NvccLibrary
 from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
                                              carry_of_state,
                                              fleet_static_params,
@@ -42,72 +38,38 @@ __all__ = ["monitor_fleet", "batched_monitor", "build", "reset_launch_counts",
            "launch_counts", "SOURCE", "NVCC_FLAGS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "monitor.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+# -fmad=false: the kernels repeat the plain version's operations in its
+# order, unfused, so the two agree bit for bit
+NVCC_FLAGS = COMMON_FLAGS + ("-fmad=false",)
 
-
-def _build_dir() -> Path:
-    # src/repro_torch/kernels/monitor/kernel.py -> <repo>/build/repro_torch
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-_LIB = None
-_LIB_LOCK = threading.Lock()
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the monitor kernels are built from "
-                       f"{SOURCE} with the CUDA toolkit")
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.repro_monitor_fleet.argtypes = (
+        [_VP, _LL, _VP, _I, _I] + [_VP] * 16
+        + [_I, _I, _I, _I, _VP, _VP, _F, _F, _F, _I, _I, _VP])
+    lib.repro_monitor_fleet.restype = _I
+    lib.repro_monitor_fleet_supported.argtypes = [_I, _I, _I]
+    lib.repro_monitor_fleet_supported.restype = _I
+    lib.repro_batched_monitor.argtypes = [_VP, _I, _I, _I, _VP, _I, _F,
+                                          _VP, _VP, _VP, _VP]
+    lib.repro_batched_monitor.restype = _I
+
+
+_LIBRARY = NvccLibrary(SOURCE, NVCC_FLAGS, _bind)
 
 
 def build() -> Path:
     """Compile the kernels (once per source/flags hash) and load them.
     Returns the shared library's path; ``<path>.log`` holds nvcc's
     ``-Xptxas -v`` report (registers, spills) of that build."""
-    global _LIB
-    with _LIB_LOCK:
-        digest = hashlib.sha256(SOURCE.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = _build_dir() / f"libmonitor-{digest[:16]}.so"
-        if _LIB is not None and _LIB[0] == out:
-            return out
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            Path(str(out) + ".log").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        lib.repro_monitor_fleet.argtypes = (
-            [_VP, _LL, _VP, _I, _I] + [_VP] * 16
-            + [_I, _I, _I, _I, _VP, _VP, _F, _F, _F, _I, _I, _VP])
-        lib.repro_monitor_fleet.restype = _I
-        lib.repro_monitor_fleet_supported.argtypes = [_I, _I, _I]
-        lib.repro_monitor_fleet_supported.restype = _I
-        lib.repro_batched_monitor.argtypes = [_VP, _I, _I, _I, _VP, _I, _F,
-                                              _VP, _VP, _VP, _VP]
-        lib.repro_batched_monitor.restype = _I
-        _LIB = (out, lib)
-        return out
+    return _LIBRARY.build()
 
 
 def _lib():
-    if _LIB is None:
-        build()
-    return _LIB[1]
+    return _LIBRARY.lib()
 
 
 def _check(rc: int, what: str) -> None:

@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.core.monitor import (MonitorConfig, fleet_monitor_init,
                                       run_monitor_fleet)
+from repro_torch.kernels.attention import kernel as AK
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.monitor import kernel as K
 from repro_torch.kernels.monitor.ref import batched_monitor_ref
 
@@ -27,6 +29,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     K.build()
+    AK.build()
     return torch.device("cuda")
 
 
@@ -125,3 +128,65 @@ def test_cuda_tensor_never_falls_back(cuda):
     cfg = MonitorConfig(window=24)
     with pytest.raises(NotImplementedError):
         run_monitor_fleet(cfg, np.ones((4, 64), np.float32), device=cuda)
+
+
+def _qkv(shape, seed, dtype, device, T=None):
+    B, S, H, K_, hd = shape
+    T = S if T is None else T
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(sh).astype(np.float32), device=device).to(dtype)
+    return mk(B, S, H, hd), mk(B, T, K_, hd), mk(B, T, K_, hd)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 32),
+                                   (1, 256, 8, 8, 64), (2, 100, 4, 1, 16),
+                                   (1, 77, 8, 2, 128), (3, 1, 4, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_ref_f32(cuda, shape, causal):
+    """f32 inputs: the kernel against the plain version at the JAX
+    package's flash-attention tolerance (2e-4), tails included."""
+    q, k, v = _qkv(shape, sum(shape), torch.float32, cuda)
+    before = AK.flash_attention.launches
+    out = AK.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert AK.flash_attention.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape,T", [((8, 1000, 16, 8, 128), None),
+                                     ((2, 64, 4, 2, 64), 200),
+                                     ((2, 200, 4, 2, 64), 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_ref_bf16(cuda, shape, T, causal):
+    """bf16 inputs (the serving path's, at its shape with a masked tail,
+    and S != T): the same bf16 values on both sides, so only the
+    summation order differs (1e-3)."""
+    q, k, v = _qkv(shape, 7, torch.bfloat16, cuda, T=T)
+    out = AK.flash_attention(q, k, v, causal=causal, scale=0.1)
+    ref = attention_ref(q, k, v, causal=causal, scale=0.1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_flash_attention_cuda_launches_or_raises(cuda):
+    """A CUDA tensor launches the kernel or raises: never the plain
+    version."""
+    q, k, v = _qkv((1, 64, 2, 1, 32), 1, torch.float32, cuda)
+    before = AK.flash_attention.launches
+    AK.flash_attention(q, k, v)
+    assert AK.flash_attention.launches == before + 1
+    with pytest.raises(TypeError):
+        AK.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        AK.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(NotImplementedError):
+        q48, k48, v48 = _qkv((1, 64, 2, 1, 48), 1, torch.float32, cuda)
+        AK.flash_attention(q48, k48, v48)
+    assert AK.flash_attention.launches == before + 1
