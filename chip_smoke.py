@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor and
-the serving path of internlm2-1.8b at full width.
+the serving paths of internlm2-1.8b and mamba2-2.7b at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -41,8 +41,24 @@ failed check raises and exits non-zero):
    16 new tokens each) with no worker crash, ``flash_attention``
    launched 24 times per prefill round and ``monitor_fleet`` on the
    lanes; one request served alone equals a direct prefill + greedy
-   decode of its round (the request replicated to the batch of 8);
-9. each kernel timed with CUDA events at its path's shape beside its plain
+   decode of its round (the request replicated to the batch of 8); a
+   torch.profiler trace of one round splits the device time;
+9. ``ssd_chunk`` against its plain version on the card: the chunked op
+   on the JAX package's kernel-test shapes and chunks and the chunk
+   kernel at odd shapes (rtol = atol = 1e-4), then at the mamba2
+   prefill's shape (B 8, c 4, Q 256, H 80, P 64, N 128), where
+   max |kernel - plain| <= 1e-4 * max(1, max |plain|) per output;
+10. the full-width ssm model: mamba2-2.7b (64 layers, d 2560, d_inner
+   5120, 80 SSD heads x 64, N 128, conv 4, chunk 256, vocab 50 432,
+   tied embeddings) with random bf16 weights from ``--seed``; a prefill
+   of 8 x 1024 tokens through the kernel and again through the plain
+   SSD (relative L2 of the last logits <= 1e-3 in f32, 64 kernel
+   launches per prefill), then greedy decode at batch 8;
+11. the ssm serving path: phase 8's traffic through ``serve.Engine`` on
+   mamba2-2.7b, with ``ssd_chunk`` launched 64 times per prefill round
+   and the same checks, and its trace (SSD kernel, GEMMs, conv, copies,
+   other);
+12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line.
 
@@ -67,10 +83,16 @@ HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth, the
-# float32 rate outside the tensor cores and the bf16 tensor-core rate
+# float32 rate outside the tensor cores and the bf16 and TF32 tensor-core
+# rates
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+# float32 products on the tensor cores to about 2^-16 relative: each
+# operand split into a bf16 high and low part, three bf16 products
+# (hi.hi + hi.lo + lo.hi) accumulated in float32
+PEAK_SPLIT_BF16_FLOPS = PEAK_BF16_FLOPS / 3
 
 N_STREAMS = 200_000          # the repo's realistic fleet size (ends)
 N_PERIODS = 4096
@@ -88,6 +110,8 @@ SERVE_REQS = 16              # half per QoS class
 SERVE_NEW = 16               # new tokens per request
 PROMPT_LENS = (512, 1536)    # served prompt lengths, uniform
 FLASH_SHAPE = (8, 1024, 16, 8, 128)   # the prefill's attention (B,S,H,K,hd)
+SSM_ARCH = "mamba2-2.7b"     # the repo's pure-ssm configuration
+SSD_SHAPE = (8, 4, 256, 80, 64, 128)  # its prefill's chunk step (B,c,Q,H,P,N)
 
 
 class CheckFailed(AssertionError):
@@ -561,7 +585,7 @@ def phase_model(torch, AK, AO, cfgs, models, rng, seed, dev):
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (SERVE_B, PREFILL_S)), device=dev)
     batch = {"tokens": toks}
-    plain = models.build_model(cfg, torch.bfloat16, attn_impl="plain")
+    plain = models.build_model(cfg, torch.bfloat16, kernel_impl="plain")
     with torch.inference_mode():
         model.prefill(params, batch)                      # warm-up
         AK.reset_launch_counts()
@@ -574,7 +598,7 @@ def phase_model(torch, AK, AO, cfgs, models, rng, seed, dev):
         # float32 on the same (bf16-valued) weights: the kernel's f32 path
         p32 = _map(params, lambda t: t.float())
         m32 = models.build_model(cfg, torch.float32)
-        plain32 = models.build_model(cfg, torch.float32, attn_impl="plain")
+        plain32 = models.build_model(cfg, torch.float32, kernel_impl="plain")
         lk32, _ = m32.prefill(p32, batch)
         lp32, _ = plain32.prefill(p32, batch)
         del p32
@@ -621,6 +645,24 @@ def _leaves(tree):
             yield v
 
 
+def decode_cache(model, c, B, L, dev):
+    """The cache a round decodes from, as the engine builds it: the KV
+    cache padded to max_seq (dense), the prefill's states as they are
+    (ssm: the round's prompt length is neither ssm_conv - 1 nor H)."""
+    if model.cfg.family == "ssm":
+        return c
+    cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
+    for n in cache:
+        cache[n][:, :, :L] = c[n]
+    return cache
+
+
+def cache_bytes(model, batch, max_seq):
+    spec, _ = model.cache_spec(batch, max_seq)
+    return sum(int(np.prod(shape)) * dtype.itemsize
+               for shape, dtype in spec.values())
+
+
 def direct_generate(torch, model, params, rows, dev):
     """Greedy prefill + decode of one round, as the engine runs it (the
     rows at equal length here): (tokens (B, SERVE_NEW), prefill ms,
@@ -629,9 +671,7 @@ def direct_generate(torch, model, params, rows, dev):
     with torch.inference_mode():
         (logits, c), pre_ms = _sync_ms(torch, lambda: model.prefill(
             params, {"tokens": torch.as_tensor(rows, device=dev)}))
-        cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
-        for n in cache:
-            cache[n][:, :, :L] = c[n]
+        cache = decode_cache(model, c, B, L, dev)
         cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
         pos = torch.full((B,), L, device=dev)
         outs = [cur]
@@ -647,30 +687,74 @@ def direct_generate(torch, model, params, rows, dev):
 
 
 _CATEGORIES = (("flash_attention", ("flash_fwd_kernel",)),
+               ("ssd_chunk", ("ssd_chunk_kernel",)),
                ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
                ("softmax", ("softmax",)),
                ("copy", ("memcpy", "memset", "copy")),
                ("reduce", ("reduce",)))
 
 
+CONV_SPAN = "repro.causal_conv"     # profiler range around the ssm conv
+
+
+@contextlib.contextmanager
+def conv_spans(torch, ssm):
+    """Wrap the mamba block's depthwise conv (prefill and decode) in a
+    profiler range, so that a trace can attribute its kernels."""
+    orig = ssm.causal_conv1d, ssm.conv_decode_step
+
+    def spanned(fn):
+        def run(*a, **k):
+            with torch.profiler.record_function(CONV_SPAN):
+                return fn(*a, **k)
+        return run
+
+    ssm.causal_conv1d, ssm.conv_decode_step = map(spanned, orig)
+    try:
+        yield
+    finally:
+        ssm.causal_conv1d, ssm.conv_decode_step = orig
+
+
+def _conv_kernels(torch, events):
+    """(name, µs) of the device kernels launched inside CONV_SPAN ranges:
+    the kernels of every CPU op below such a range."""
+    cpu = torch.autograd.DeviceType.CPU
+    out, stack = [], [e for e in events
+                      if e.device_type == cpu and e.name == CONV_SPAN]
+    while stack:
+        e = stack.pop()
+        out.extend((k.name, k.duration) for k in e.kernels)
+        stack.extend(e.cpu_children)
+    return out
+
+
+def _category(name: str) -> str:
+    name = name.lower()
+    return next((c for c, keys in _CATEGORIES
+                 if any(k in name for k in keys)), "other")
+
+
 def _trace_split(torch, prof, wall_ms, steps):
     """Device time per kernel category from a torch.profiler trace, per
     step: the sum of kernel durations (one stream), their count, and the
     card's idle share of the host wall time (the profiler's own overhead
-    included in the wall)."""
+    included in the wall).  Kernels launched inside a CONV_SPAN range
+    move from their category to "conv"; the range's own device
+    annotation is no kernel."""
     cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
     split = {c: 0.0 for c, _ in _CATEGORIES}
-    split["other"] = 0.0
+    split["conv"] = split["other"] = 0.0
     n = 0
-    for e in prof.events():
-        if e.device_type != cuda:
+    for e in events:
+        if e.device_type != cuda or e.name == CONV_SPAN:
             continue
         n += 1
-        us = e.time_range.elapsed_us()
-        name = e.name.lower()
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in name for k in keys)), "other")
-        split[cat] += us / 1e3
+        split[_category(e.name)] += e.time_range.elapsed_us() / 1e3
+    for name, us in _conv_kernels(torch, events):
+        split[_category(name)] -= us / 1e3
+        split["conv"] += us / 1e3
     if n == 0:
         return None
     busy = sum(split.values())
@@ -696,9 +780,7 @@ def phase_profile(torch, model, params, rows, dev):
             (logits, c), ms = _sync_ms(torch, lambda: model.prefill(
                 params, {"tokens": toks}))
         out["prefill"] = _trace_split(torch, prof, ms, 1)
-        cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
-        for n in cache:
-            cache[n][:, :, :L] = c[n]
+        cache = decode_cache(model, c, B, L, dev)
         cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
         pos = torch.full((B,), L, device=dev)
         cur, cache = model.decode_step(params, cache, cur, pos)   # warm-up
@@ -723,9 +805,11 @@ def phase_profile(torch, model, params, rows, dev):
     return out
 
 
-def phase_serve(torch, AK, MK, serve, model, params, rng, dev):
-    """The main path of this slice: requests through the engine's QoS
-    lanes, batched prefill through the kernel, greedy decode."""
+def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
+                spans=contextlib.nullcontext):
+    """A serving path: requests through the engine's QoS lanes, batched
+    prefill through the kernel ``kname`` of module ``KK`` (one launch
+    per layer per round), greedy decode.  ``spans`` wraps the trace."""
     eng = serve.Engine(model, params, serve.ServeConfig(
         batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
         device=dev)
@@ -741,7 +825,7 @@ def phase_serve(torch, AK, MK, serve, model, params, rng, dev):
     reqs = [serve.Request(rid=i, tokens=rng.integers(
         0, model.cfg.vocab_size, int(n)).astype(np.int32), max_new=SERVE_NEW,
         qos=("blocking", "nonblocking")[i % 2]) for i, n in enumerate(lens)]
-    AK.reset_launch_counts()
+    KK.reset_launch_counts()
     MK.reset_launch_counts()
     eng.start()
     t0 = time.perf_counter()
@@ -751,14 +835,14 @@ def phase_serve(torch, AK, MK, serve, model, params, rng, dev):
         check(r.done.wait(timeout=600), f"request {r.rid} timed out")
     wall = time.perf_counter() - t0
     n_rounds = len(rounds)
-    flash = AK.launch_counts()["flash_attention"]
+    launched = KK.launch_counts()[kname]
     crashes = list(eng._crashes)
     check(not crashes, f"serve worker crashed: {crashes}")
     for r in reqs:
         check(r.out is not None and r.out.shape == (SERVE_NEW,),
               f"request {r.rid} answered {r.out}")
-    check(flash == model.cfg.n_layers * n_rounds,
-          f"flash_attention launched {flash} times in {n_rounds} rounds")
+    check(launched == model.cfg.n_layers * n_rounds,
+          f"{kname} launched {launched} times in {n_rounds} rounds")
     # one request alone: its round is the request replicated to the batch
     solo = serve.Request(rid=SERVE_REQS, tokens=reqs[0].tokens,
                          max_new=SERVE_NEW)
@@ -775,29 +859,270 @@ def phase_serve(torch, AK, MK, serve, model, params, rng, dev):
           f"class_rates not finite: {rates}")
     rows = np.repeat(solo.tokens[None], SERVE_B, axis=0)
     direct, pre_ms, dec_ms = direct_generate(torch, model, params, rows, dev)
-    trace = phase_profile(torch, model, params, rows, dev)
+    with spans():
+        trace = phase_profile(torch, model, params, rows, dev)
     check(np.array_equal(solo.out, direct[0]),
           f"engine tokens {solo.out} != direct decode {direct[0]}")
     new_tokens = SERVE_REQS * SERVE_NEW
-    kv_bytes = (2 * model.cfg.n_layers * SERVE_B * SERVE_MAX_SEQ
-                * model.cfg.n_kv_heads * model.cfg.head_dim * 2)
+    c_bytes = cache_bytes(model, SERVE_B, SERVE_MAX_SEQ)
     log(f"serve: {SERVE_REQS} requests (prompts {int(lens.min())}-"
         f"{int(lens.max())} tokens, {SERVE_NEW} new each) in {n_rounds} "
         f"rounds {[tuple(s) for s in rounds[:n_rounds]]}, {wall:.2f} s wall, "
         f"{new_tokens / wall:.1f} new tokens/s, "
         f"{int(lens.sum() + new_tokens) / wall:.0f} prompt+new tokens/s; "
-        f"flash launches {flash}, monitor_fleet launches {monitor}, no "
-        f"crash; class rates {rates}")
+        f"{kname} launches {launched}, monitor_fleet launches {monitor}, "
+        f"no crash; class rates {rates}")
     log(f"round of {SERVE_B} x {len(solo.tokens)}: prefill {pre_ms:.1f} ms, "
         f"decode {dec_ms:.2f} ms per token (host clock, synchronized); "
-        f"KV cache {kv_bytes / 1e9:.3f} GB at max_seq {SERVE_MAX_SEQ}; "
+        f"cache {c_bytes / 1e9:.3f} GB at max_seq {SERVE_MAX_SEQ}; "
         f"engine tokens equal the direct decode")
-    return flash, {"serve_wall_s": wall, "serve_rounds": n_rounds,
+    return launched, {"serve_wall_s": wall, "serve_rounds": n_rounds,
                    "new_tokens_per_s": new_tokens / wall,
                    "round_prefill_ms": pre_ms, "round_prompt_len":
                    len(solo.tokens), "decode_ms_per_token": dec_ms,
-                   "kv_cache_bytes": kv_bytes, "monitor_launches": monitor,
+                   "cache_bytes": c_bytes, "monitor_launches": monitor,
                    "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# the ssm serving path: the SSD chunk kernel, mamba2 at full width
+
+
+def _ssd_inputs(torch, rng, lead, H, P, N, dev, init=False):
+    """Drawn as the JAX package's SSD kernel test draws them: normal x, B
+    and C; softplus-normal dt; A = -exp(normal).  With ``init`` dt and A
+    come from Mamba-2's published initialisation instead (dt log-uniform
+    on [1e-3, 0.1], A uniform on [-16, -1]), whose chunk decays stay in
+    float32's normal range."""
+    mk = lambda a: torch.as_tensor(a.astype(np.float32),  # noqa: E731
+                                   device=dev)
+    x = rng.standard_normal(lead + (H, P))
+    if init:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), lead + (H,)))
+        A = -rng.uniform(1.0, 16.0, H)
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal(lead + (H,))))
+        A = -np.exp(rng.standard_normal(H))
+    return (mk(x), mk(dt), mk(A), mk(rng.standard_normal(lead + (N,))),
+            mk(rng.standard_normal(lead + (N,))))
+
+
+# per output of the chunk step, the dims of one (b, c, h) slice: y and
+# state are gated against their own slice's largest value, decay entry by
+# entry, so a head whose values are small is held as tightly as any other
+_SSD_SLICE = (("y", (2, 4)), ("state", (3, 4)), ("decay", ()))
+
+
+def phase_ssd(torch, SK, SR, SO, rng, dev):
+    """Kernel against its plain version on the card: the chunked op on
+    the JAX package's kernel-test shapes and chunks, and the chunk kernel
+    at odd shapes (rtol = atol = 1e-4); then at the path's shape, with
+    the test's draws and with Mamba-2's initialisation, where each
+    output's error is at most 1e-4 of the largest |plain| in its
+    (b, c, h) slice (y, state) or of |plain| itself (decay; entries
+    below 1e-30 are held to 1e-34 absolute)."""
+    tol = 1e-4
+    for shape in ((1, 32, 2, 8, 8), (2, 64, 4, 8, 16), (2, 128, 2, 16, 32)):
+        B, S, H, P, N = shape
+        ins = _ssd_inputs(torch, rng, (B, S), H, P, N, dev)
+        for chunk in (8, 16, 32):
+            got = SO.ssd_chunked(*ins, chunk, impl="kernel")
+            want = SO.ssd_chunked(*ins, chunk, impl="plain")
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check(bool(((g - w).abs() <= tol + tol * w.abs()).all()),
+                      f"ssd_chunked {shape} chunk {chunk}: max abs err "
+                      f"{float((g - w).abs().max())}")
+        log(f"ssd_chunked {shape} chunks 8/16/32: kernel = plain within "
+            f"{tol}")
+    for lead, H, P, N in (((2, 3, 37), 3, 32, 16), ((1, 2, 100), 9, 64, 64),
+                          ((1, 1, 1), 2, 8, 8)):
+        ins = _ssd_inputs(torch, rng, lead, H, P, N, dev)
+        for g, w in zip(SK.ssd_chunk(*ins), SR.ssd_chunk_batched_ref(*ins)):
+            check(bool(((g - w).abs() <= tol + tol * w.abs()).all()),
+                  f"ssd_chunk {lead} H {H} P {P} N {N}: max abs err "
+                  f"{float((g - w).abs().max())}")
+    B, c, Q, H, P, N = SSD_SHAPE
+    err = 0.0
+    for init in (False, True):
+        draw = "Mamba-2 init" if init else "test draws"
+        ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev, init=init)
+        got = SK.ssd_chunk(*ins)
+        want = SR.ssd_chunk_batched_ref(*ins)
+        torch.cuda.synchronize()
+        for (name, dims), g, w in zip(_SSD_SLICE, got, want):
+            check(bool(torch.isfinite(g).all()),
+                  f"ssd_chunk {name}: non-finite")
+            d = (g - w).abs()
+            scale = (w.abs().amax(dim=dims, keepdim=True) if dims
+                     else w.abs()).clamp_min(1e-30)
+            rel = float((d / scale).max())
+            e = float(d.max())
+            check(rel <= tol, f"ssd_chunk {name} at {SSD_SHAPE} ({draw}): "
+                  f"error {rel} of its scale > {tol} (max abs err {e})")
+            live = float((w.abs() > 1e-30).float().mean())
+            log(f"ssd_chunk {name} at {SSD_SHAPE} ({draw}): max abs err "
+                f"{e:.3e}, {rel:.3e} of its scale (gate {tol}); "
+                f"{live:.4f} of |plain| above 1e-30")
+            err = max(err, e)
+    return err
+
+
+def ssd_bound(shape):
+    """Least time of one chunk step at ``shape`` (float32 in and out):
+    each input read once and each output written once, against the
+    least work -- C.B^T once per chunk and the causal half of the
+    products (2 FLOP per multiply-add) -- at the fastest rate that holds
+    the 1e-4 gate, the tensor cores' split-bf16 products."""
+    B, c, Q, H, P, N = shape
+    rows, pairs = B * c * Q, B * c * Q * (Q + 1) // 2
+    nbytes = 4 * (rows * H * P * 2 + rows * H + H + 2 * rows * N
+                  + B * c * H * P * N + B * c * H)
+    flops = 2.0 * (pairs * N + pairs * H * P + rows * H * P * N)
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_o = flops / PEAK_SPLIT_BF16_FLOPS * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        nbytes, flops
+
+
+def kernel_ssd_at_path(torch, SK, SR, rng, dev, err):
+    """The prefill's chunk step at B 8, S 1024 (Q 256, c 4), H 80, P 64,
+    N 128: the kernel and its plain version.  No single PyTorch call
+    computes this function."""
+    B, c, Q, H, P, N = SSD_SHAPE
+    ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev)
+    ms = event_ms(torch, lambda: SK.ssd_chunk(*ins), reps=10)
+    plain_ms = event_ms(torch, lambda: SR.ssd_chunk_batched_ref(*ins),
+                        reps=3, warm=1)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(SSD_SHAPE)
+    log(f"ssd_chunk timing {SSD_SHAPE} f32: {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {nbytes / 1e6:.1f} MB is "
+        f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP is "
+        f"{flops / PEAK_SPLIT_BF16_FLOPS * 1e3:.4f} ms as split-bf16 tensor-"
+        f"core products, {3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms as "
+        f"3xTF32, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 rate; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+@contextlib.contextmanager
+def perturbed_plain_ssd(torch, ops, rel, seed, dev):
+    """The plain SSD chunk step with its float32 outputs multiplied by
+    1 + u, u uniform in [-rel, rel]: a control for how far a difference
+    of that size in the SSD alone moves the model's logits."""
+    orig = ops.ssd_chunk_batched_ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(*a, **k):
+        return tuple(o * (1.0 + rel * (2.0 * torch.rand(
+            o.shape, generator=g, device=o.device) - 1.0))
+            for o in orig(*a, **k))
+
+    ops.ssd_chunk_batched_ref = noisy
+    try:
+        yield
+    finally:
+        ops.ssd_chunk_batched_ref = orig
+
+
+def mamba2_decay_init(torch, blocks, g):
+    """Mamba-2's published initialisation of the decay parameters, in
+    place: A uniform on [1, 16] (A_log = log A) and dt log-uniform on
+    [1e-3, 0.1] (dt_bias = softplus^-1(dt)).  The model's own init
+    leaves both zero, so A = -1, dt ~ softplus(projection) and every
+    chunk of 256 tokens decays its state to about exp(-200): the SSD's
+    carried state would then not reach the logits at all."""
+    A, bias = blocks["A_log"], blocks["dt_bias"]
+    u = lambda t: torch.rand(t.shape, generator=g,  # noqa: E731
+                             device=t.device)
+    A.copy_(torch.log(1.0 + 15.0 * u(A)))
+    dt = torch.exp(np.log(1e-3) + (np.log(0.1) - np.log(1e-3)) * u(bias))
+    bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def phase_ssm_model(torch, SK, SO, cfgs, models, rng, seed, dev):
+    """mamba2-2.7b at its published widths: random bf16 weights with
+    Mamba-2's decay initialisation, a prefill of 8 x 1024 tokens through
+    the SSD kernel and through the plain SSD, in bf16 (the path) and in
+    float32 on the same weights, then greedy decode steps at batch 8."""
+    cfg = cfgs.get_config(SSM_ARCH)
+    model = models.build_model(cfg, torch.bfloat16)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(g, device=dev)
+    mamba2_decay_init(torch, params["blocks"], g)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_B, PREFILL_S)), device=dev)
+    batch = {"tokens": toks}
+    plain = models.build_model(cfg, torch.bfloat16, kernel_impl="plain")
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        SK.reset_launch_counts()
+        (lk, cache), ms_k = _sync_ms(torch, lambda: model.prefill(params,
+                                                                  batch))
+        launches = SK.launch_counts()["ssd_chunk"]
+        (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params, batch))
+        with perturbed_plain_ssd(torch, SO, 2.0 ** -23, seed, dev):
+            lc, _ = plain.prefill(params, batch)
+        cur = torch.argmax(lk[:, -1], -1).to(torch.int32)
+        pos = torch.full((SERVE_B,), PREFILL_S, device=dev)
+        cur, cache = model.decode_step(params, cache, cur, pos)   # warm-up
+        steps = 8
+
+        def decode():
+            nonlocal cur, cache, pos
+            for _ in range(steps):
+                pos = pos + 1
+                cur, cache = model.decode_step(params, cache, cur, pos)
+
+        _, dec_ms = _sync_ms(torch, decode)
+        dec_ms /= steps
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in cache.values())
+        del cache
+        # float32 on the same (bf16-valued) weights: the kernel's f32 path
+        p32 = _map(params, lambda t: t.float())
+        m32 = models.build_model(cfg, torch.float32)
+        plain32 = models.build_model(cfg, torch.float32, kernel_impl="plain")
+        lk32, _ = m32.prefill(p32, batch)
+        lp32, _ = plain32.prefill(p32, batch)
+        del p32
+    check(launches == cfg.n_layers,
+          f"ssd_chunk launched {launches} times in a {cfg.n_layers}-layer "
+          f"prefill")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(lk32).all()),
+          "non-finite prefill logits")
+    rel16, ctrl16 = _rel_l2(lk, lp), _rel_l2(lc, lp)
+    rel32 = _rel_l2(lk32, lp32)
+    check(rel32 <= 1e-3, f"f32 prefill logits: SSD kernel vs plain rel L2 "
+          f"{rel32}")
+    log(f"model {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_nheads} SSD heads x "
+        f"{cfg.ssm_headdim}, N {cfg.ssm_state}, conv {cfg.ssm_conv}, chunk "
+        f"{cfg.ssm_chunk}, vocab {cfg.padded_vocab}; {n_params / 1e9:.3f} B "
+        f"parameters, {w_bytes / 1e9:.3f} GB (init {t_init:.1f} s)")
+    log(f"prefill {SERVE_B} x {PREFILL_S}: SSD kernel {ms_k:.1f} ms, plain "
+        f"SSD {ms_p:.1f} ms (host clock, synchronized), {launches} "
+        f"ssd_chunk launches; decode {dec_ms:.2f} ms per token at batch "
+        f"{SERVE_B}; state {state_bytes / 1e9:.3f} GB")
+    log(f"last logits, SSD kernel vs plain: rel L2 {rel32:.3e} in f32 "
+        f"(gate 1e-3), {rel16:.3e} in bf16; control: the bf16 plain path "
+        f"with its SSD outputs moved by <= 1 f32 ulp (2^-23 relative) "
+        f"differs from itself by {ctrl16:.3e}")
+    return model, params, {"prefill_8x1024_ms": ms_k,
+                           "prefill_8x1024_plain_ssd_ms": ms_p,
+                           "decode_ms_per_token_8x1024": dec_ms,
+                           "logits_rel_l2_f32": rel32,
+                           "logits_rel_l2_bf16": rel16,
+                           "logits_rel_l2_bf16_1ulp_control": ctrl16,
+                           "n_params": n_params, "weight_bytes": w_bytes,
+                           "state_bytes": state_bytes}
 
 
 
@@ -826,6 +1151,10 @@ def main() -> int:
     from repro_torch.kernels.monitor import kernel as K
     from repro_torch.kernels.monitor import ops as O
     from repro_torch.kernels.monitor import ref as R
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ops as SO
+    from repro_torch.kernels.ssd import ref as SR
+    from repro_torch.models import ssm as SSM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -834,8 +1163,8 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
-        libs = list(pool.map(lambda mod: mod.build(), (K, AK)))
+    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, together
+        libs = list(pool.map(lambda mod: mod.build(), (K, AK, SK)))
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
         f"{[lib.name for lib in libs]}")
     for lib in libs:
@@ -856,8 +1185,17 @@ def main() -> int:
     flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
     model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
                                              args.seed, dev)
-    flash_launches, serve_stats = phase_serve(torch, AK, K, SV, model,
-                                              params, rng, dev)
+    flash_launches, serve_stats = phase_serve(
+        torch, AK, "flash_attention", K, SV, model, params, rng, dev)
+    del model, params
+    torch.cuda.empty_cache()
+    ssd_err = phase_ssd(torch, SK, SR, SO, rng, dev)
+    ssd = kernel_ssd_at_path(torch, SK, SR, rng, dev, ssd_err)
+    model, params, ssm_model_stats = phase_ssm_model(
+        torch, SK, SO, C, MD, rng, args.seed, dev)
+    ssd_launches, ssm_serve_stats = phase_serve(
+        torch, SK, "ssd_chunk", K, SV, model, params, rng, dev,
+        spans=lambda: conv_spans(torch, SSM))
     del model, params
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
@@ -881,6 +1219,13 @@ def main() -> int:
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:25",
+         "launches": ssd_launches, "max_abs_err": ssd["max_abs_err"],
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "library_ms": ssd["library_ms"]},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -888,6 +1233,8 @@ def main() -> int:
              "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"], **svc}
     log(json.dumps({"service": extra}))
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
+    log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,
+                              **ssm_serve_stats}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

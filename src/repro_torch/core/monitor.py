@@ -142,8 +142,9 @@ class MonitorOutput(NamedTuple):
 
 
 def monitor_init(cfg: MonitorConfig, dtype=torch.float32, batch=(),
-                 device="cpu") -> MonitorState:
+                 device="cuda") -> MonitorState:
     batch = tuple(batch)
+    device = resolve_device(device)
 
     def i0():
         return torch.zeros(batch, dtype=torch.int32, device=device)

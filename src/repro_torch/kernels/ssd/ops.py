@@ -1,0 +1,62 @@
+"""Public op: the chunked SSD built on the intra-chunk kernel.
+
+The counterpart of the JAX package's ``kernels/ssd/ops.py::
+ssd_chunked_pallas``.  ``impl="kernel"`` (the default) computes the
+intra-chunk step with ``kernel.ssd_chunk``: on CUDA tensors the Hopper
+kernel, on CPU tensors its plain version.  ``impl="plain"`` always runs
+the plain version; it exists for the tests and for ``chip_smoke.py``'s
+comparison on the card.  The inter-chunk state recurrence is a short
+loop over the chunks and the inter-chunk output an einsum, as the JAX
+package keeps both outside its kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd import kernel as _kernel
+from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref, ssd_chunk_ref
+
+__all__ = ["ssd_chunked", "ssd_chunk_ref", "IMPLS"]
+
+IMPLS = ("kernel", "plain")
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
+                impl: str = "kernel"):
+    """x: (B,S,H,P) dt: (B,S,H) A: (H,) Bm/Cm: (B,S,N) -> (y (B,S,H,P),
+    hT (B,H,P,N)), float32.  S must be a multiple of Q = min(chunk, S);
+    ``models.ssm.ssd_chunked`` pads to one.  ``h0`` (B,H,P,N) is the
+    state carried in from an earlier segment."""
+    if impl == "kernel":
+        chunk_fn = _kernel.ssd_chunk
+    elif impl == "plain":
+        chunk_fn = ssd_chunk_batched_ref
+    else:
+        raise ValueError(f"bad impl {impl!r}; expected one of {IMPLS}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"S {S} is not a multiple of the chunk {Q}")
+    c = S // Q
+    f32 = torch.float32
+
+    xc = x.reshape(B, c, Q, H, P)
+    dtc = dt.reshape(B, c, Q, H)
+    Bc = Bm.reshape(B, c, Q, N)
+    Cc = Cm.reshape(B, c, Q, N)
+    y_intra, sstate, decay = chunk_fn(xc, dtc, A, Bc, Cc)
+
+    h = (torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    h_prevs = []
+    for k in range(c):
+        h_prevs.append(h)
+        h = h * decay[:, k, :, None, None] + sstate[:, k]
+    h_prevs = torch.stack(h_prevs, dim=1)               # (B,c,H,P,N)
+
+    acum = torch.cumsum(dtc.to(f32) * A.to(f32), dim=2)
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", Cc.to(f32),
+                           torch.exp(acum), h_prevs)
+    return (y_intra + y_inter).reshape(B, S, H, P), h

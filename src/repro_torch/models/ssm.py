@@ -1,0 +1,235 @@
+"""Mamba2 / SSD (state-space duality) block, chunked.
+
+Prefill uses the chunked SSD form: within a chunk a masked (Q x Q)
+product pair, which the SSD op (``kernels.ssd``) computes — on the card
+the hand-written Hopper kernel, on the CPU its plain version — and
+chunks exchange an (H, P, N) state through a short loop.  Decode is the
+O(1) recurrent update in plain PyTorch, as the JAX package leaves it to
+XLA.  The casts follow the JAX package step for step: projections in the
+compute dtype (dt's with float32 accumulation in prefill), the SSD and
+the gated RMSNorm in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models.layers import _mm
+
+__all__ = ["mamba_param_defs", "mamba_block", "mamba_decode_step",
+           "ssd_chunked", "ssd_reference", "causal_conv1d",
+           "conv_decode_step", "init_ssm_cache_spec", "F32_LEAVES"]
+
+# parameters the block reads in float32 (the model holds them so)
+F32_LEAVES = ("A_log", "dt_bias", "D_skip", "gnorm")
+
+
+def mamba_param_defs(mk, prefix: str, cfg: ArchConfig, *, layers: int = 0):
+    L = (layers,) if layers else ()
+    lax_ = ("layers",) if layers else ()
+    d, di = cfg.d_model, cfg.d_inner
+    n, h, kc = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_conv
+    return {
+        "w_x": mk(f"{prefix}.w_x", L + (d, di), lax_ + ("d_model",
+                                                        "ssm_inner"), d),
+        "w_z": mk(f"{prefix}.w_z", L + (d, di), lax_ + ("d_model",
+                                                        "ssm_inner"), d),
+        "w_B": mk(f"{prefix}.w_B", L + (d, n), lax_ + ("d_model",
+                                                       "ssm_state"), d),
+        "w_C": mk(f"{prefix}.w_C", L + (d, n), lax_ + ("d_model",
+                                                       "ssm_state"), d),
+        "w_dt": mk(f"{prefix}.w_dt", L + (d, h), lax_ + ("d_model",
+                                                         "ssm_heads"), d),
+        "dt_bias": mk(f"{prefix}.dt_bias", L + (h,), lax_ + ("ssm_heads",),
+                      kind="zeros"),
+        "A_log": mk(f"{prefix}.A_log", L + (h,), lax_ + ("ssm_heads",),
+                    kind="zeros"),
+        "D_skip": mk(f"{prefix}.D_skip", L + (h,), lax_ + ("ssm_heads",),
+                     kind="ones"),
+        "conv_x": mk(f"{prefix}.conv_x", L + (kc, di), lax_ + ("conv",
+                                                               "ssm_inner"),
+                     kc),
+        "conv_B": mk(f"{prefix}.conv_B", L + (kc, n), lax_ + ("conv",
+                                                              "ssm_state"),
+                     kc),
+        "conv_C": mk(f"{prefix}.conv_C", L + (kc, n), lax_ + ("conv",
+                                                              "ssm_state"),
+                     kc),
+        "gnorm": mk(f"{prefix}.gnorm", L + (di,), lax_ + ("ssm_inner",),
+                    kind="zeros"),
+        "w_out": mk(f"{prefix}.w_out", L + (di, d), lax_ + ("ssm_inner",
+                                                            "d_model"), di),
+    }
+
+
+def causal_conv1d(x, w):
+    """Depthwise causal conv. x: (B, S, C); w: (K, C)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    acc = torch.zeros_like(x)
+    for i in range(K):
+        acc = acc + pad[:, i:i + S] * w[i]
+    return acc
+
+
+def conv_decode_step(x_t, conv_state, w):
+    """One-token causal conv. x_t: (B, C); conv_state: (B, K-1, C)."""
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)    # (B,K,C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    return y, window[:, 1:]
+
+
+def ssd_reference(x, dt, A, Bm, Cm):
+    """Sequential SSD oracle (a loop over time).
+
+    x: (B,S,H,P) dt: (B,S,H) A: (H,)<=0 exponent coeff  Bm/Cm: (B,S,N).
+    h_t = h_{t-1} * exp(dt_t A) + dt_t * B_t (x) x_t ;  y_t = C_t . h_t
+    Returns (y (B,S,H,P), final state (B,H,P,N)), float32.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    x, dt, Bm, Cm = (t.float() for t in (x, dt, Bm, Cm))
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A)                       # (B,H)
+        upd = torch.einsum("bn,bhp,bh->bhpn", Bm[:, t], x[:, t], dt[:, t])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None,
+                impl: str = "kernel"):
+    """Chunked SSD (Mamba-2 paper section 6) through the SSD op.  S is
+    zero-padded to a multiple of Q = min(chunk, S): dt = 0 at the padded
+    steps gives decay 1 and no state update, so the tail is inert.
+    Returns (y (B,S,H,P), final_state (B,H,P,N)), float32."""
+    S = x.shape[1]
+    Q = min(chunk, S)
+    if S % Q:
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    f32 = torch.float32
+    y, hT = ssd_ops.ssd_chunked(
+        x.to(f32).contiguous(), dt.to(f32).contiguous(), A.to(f32),
+        Bm.to(f32).contiguous(), Cm.to(f32).contiguous(), Q, h0=h0,
+        impl=impl)
+    return y[:, :S], hT
+
+
+def _gated_rmsnorm(y, z, gnorm, compute_dtype):
+    """mamba2's norm(y * silu(z)) in float32 with weight 1 + gnorm."""
+    y = y * F.silu(z)
+    yf = y.float()
+    y = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+    return (y * (1.0 + gnorm.float())).to(compute_dtype)
+
+
+def _split_conv(conv_out, di: int, n: int):
+    return (conv_out[..., :di], conv_out[..., di:di + n],
+            conv_out[..., di + n:])
+
+
+def _conv_weight(p, compute_dtype):
+    return torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]],
+                     dim=-1).to(compute_dtype)
+
+
+def mamba_block(x, p, cfg: ArchConfig, compute_dtype=torch.bfloat16,
+                conv_state=None, ssm_state=None, ssd_impl: str = "kernel"):
+    """Full Mamba2 block over a sequence (prefill; with ``conv_state`` and
+    ``ssm_state`` it continues an earlier segment).
+
+    x: (B, S, D) -> (B, S, D).  Returns (out, (conv_state, ssm_state)).
+    ``ssd_impl`` selects the SSD op (``kernels.ssd.ops``).
+    """
+    B, S, D = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    H, P = cfg.ssm_nheads, cfg.ssm_headdim
+    cdt = compute_dtype
+
+    xin = _mm(x, p["w_x"], cdt)
+    z = _mm(x, p["w_z"], cdt)
+    Bm = _mm(x, p["w_B"], cdt)
+    Cm = _mm(x, p["w_C"], cdt)
+    # bf16 products accumulated in float32 (preferred_element_type)
+    dt = x.to(cdt).float() @ p["w_dt"].to(cdt).float()
+
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_w = _conv_weight(p, cdt)
+    new_conv_state = conv_in[:, -(cfg.ssm_conv - 1):, :]
+    if conv_state is not None:
+        ext = torch.cat([conv_state.to(cdt), conv_in], dim=1)
+        conv_out = causal_conv1d(ext, conv_w)[:, cfg.ssm_conv - 1:]
+    else:
+        conv_out = causal_conv1d(conv_in, conv_w)
+    xin, Bm, Cm = _split_conv(F.silu(conv_out), di, n)
+
+    dt = F.softplus(dt + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+
+    xh = xin.reshape(B, S, H, P)
+    y, hT = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, h0=ssm_state,
+                        impl=ssd_impl)
+    y = y + xh.float() * p["D_skip"].float()[None, None, :, None]
+    y = y.reshape(B, S, di).to(cdt)
+    y = _gated_rmsnorm(y, z, p["gnorm"], cdt)
+    out = _mm(y, p["w_out"], cdt)
+    return out, (new_conv_state.to(cdt), hT)
+
+
+def mamba_decode_step(x, p, cfg: ArchConfig, conv_state, ssm_state,
+                      compute_dtype=torch.bfloat16):
+    """One-token recurrent update. x: (B, 1, D); states carried (new
+    tensors are returned, the inputs are not written)."""
+    B = x.shape[0]
+    di, n = cfg.d_inner, cfg.ssm_state
+    H, P = cfg.ssm_nheads, cfg.ssm_headdim
+    cdt = compute_dtype
+    xt = x[:, 0]
+
+    xin = _mm(xt, p["w_x"], cdt)
+    z = _mm(xt, p["w_z"], cdt)
+    Bm = _mm(xt, p["w_B"], cdt)
+    Cm = _mm(xt, p["w_C"], cdt)
+    dt = _mm(xt, p["w_dt"], cdt).float()
+
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, new_conv_state = conv_decode_step(
+        conv_in, conv_state.to(cdt), _conv_weight(p, cdt))
+    xin, Bm, Cm = _split_conv(F.silu(conv_out), di, n)
+
+    dt = F.softplus(dt + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    decay = torch.exp(dt * A)                                  # (B,H)
+
+    xh = xin.reshape(B, H, P).float()
+    upd = torch.einsum("bn,bhp,bh->bhpn", Bm.float(), xh, dt)
+    h = ssm_state * decay[..., None, None] + upd               # (B,H,P,N)
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
+    y = y + xh * p["D_skip"].float()[None, :, None]
+    y = y.reshape(B, di).to(cdt)
+    y = _gated_rmsnorm(y, z, p["gnorm"], cdt)
+    out = _mm(y, p["w_out"], cdt)[:, None, :]
+    return out, (new_conv_state.to(cdt), h)
+
+
+def init_ssm_cache_spec(cfg: ArchConfig, batch: int, n_layers: int,
+                        state_dtype=torch.float32,
+                        conv_dtype=torch.bfloat16) -> dict:
+    """Cache leaf (shape, dtype): ``conv`` (L, B, K-1, d_inner + 2N) and
+    ``ssm`` (L, B, H, P, N)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return {
+        "conv": ((n_layers, batch, cfg.ssm_conv - 1, di + 2 * n),
+                 conv_dtype),
+        "ssm": ((n_layers, batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                 cfg.ssm_state), state_dtype),
+    }

@@ -1,12 +1,13 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly, dense and SSM families.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package, so
 the parameter trees carry across unchanged; the JAX package's
-``lax.scan`` over that axis is a Python loop here.  The KV cache rides
-the same loop, one layer slice at a time.
+``lax.scan`` over that axis is a Python loop here.  The KV cache (dense)
+or the conv and SSM states (ssm) ride the same loop, one layer slice at
+a time.
 
-Ported: the dense family.  Not yet: MoE blocks, the SSM and hybrid
-stacks, the vlm and encoder-decoder families (ROADMAP.md, Queue 1
+Ported: the dense and ssm families.  Not yet: MoE blocks, the hybrid
+stack, the vlm and encoder-decoder families (ROADMAP.md, Queue 1
 item 9), and training with ``lm_loss`` (Queue 1 item 10).
 """
 
@@ -19,6 +20,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
 from repro_torch.models.attention import attention, attn_param_defs
+from repro_torch.models.ssm import (mamba_block, mamba_decode_step,
+                                    mamba_param_defs)
 
 __all__ = ["lm_param_defs", "lm_forward", "norm_def", "apply_norm",
            "mlp_param_defs", "check_family"]
@@ -34,15 +37,16 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, "
             "Queue 1 item 9)")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} stack waits for the SSD kernel "
-            "(ROADMAP.md, Queue 1 item 9 and Queue 2 item 4)")
+            f"{cfg.name}: the hybrid stack is not ported yet: its shared "
+            f"attention needs a head_dim {cfg.head_dim} instance of the "
+            "flash kernel (ROADMAP.md, Queue 1 item 9)")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and embedding inputs are not ported yet "
             "(ROADMAP.md, Queue 1 item 9)")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise ValueError(cfg.family)
 
 
@@ -100,6 +104,12 @@ def _attn_mlp_block_defs(mk, prefix: str, cfg: ArchConfig, *,
     return p
 
 
+def _mamba_defs_with_ln(mk, prefix: str, cfg: ArchConfig, *, layers: int):
+    p = mamba_param_defs(mk, prefix, cfg, layers=layers)
+    p["ln"] = norm_def(mk, f"{prefix}.ln", cfg, layers=layers)
+    return p
+
+
 def lm_param_defs(cfg: ArchConfig, mk):
     check_family(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
@@ -109,8 +119,12 @@ def lm_param_defs(cfg: ArchConfig, mk):
     }
     if not cfg.tie_embeddings:
         p["unembed"] = mk("unembed", (D, V), ("d_model", "vocab"), D)
-    p["blocks"] = _attn_mlp_block_defs(mk, "blocks", cfg,
-                                       layers=cfg.n_layers)
+    if cfg.family == "ssm":
+        p["blocks"] = _mamba_defs_with_ln(mk, "blocks", cfg,
+                                          layers=cfg.n_layers)
+    else:
+        p["blocks"] = _attn_mlp_block_defs(mk, "blocks", cfg,
+                                           layers=cfg.n_layers)
     return p
 
 
@@ -136,6 +150,19 @@ def _attn_mlp_layer(cfg: ArchConfig, x, bp, positions, cache_k, cache_v,
     if cfg.post_block_norm:
         m_out = apply_norm(m_out, bp["ln2_post"], cfg)
     return x + m_out, new_kv
+
+
+def _mamba_layer(cfg: ArchConfig, x, bp, conv_state, ssm_state, decode,
+                 compute_dtype, ssd_impl):
+    h = apply_norm(x, bp["ln"], cfg)
+    if decode:
+        out, states = mamba_decode_step(h, bp, cfg, conv_state, ssm_state,
+                                        compute_dtype)
+    else:
+        out, states = mamba_block(h, bp, cfg, compute_dtype,
+                                  conv_state=conv_state,
+                                  ssm_state=ssm_state, ssd_impl=ssd_impl)
+    return x + out, states
 
 
 def _layer_slice(tree, i: int):
@@ -168,6 +195,33 @@ def _run_attn_stack(params, cfg, x, positions, cache, pos_offset, mode,
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def _run_ssm_stack(params, cfg, x, cache, mode, compute_dtype, ssd_impl):
+    """The mamba layers in order.  Prefill stacks every layer's fresh
+    conv and SSM states into the cache; decode reads each layer's slice
+    of ``cache`` and writes the new states back in place.  A prefill
+    given a cache continues from its states and returns new ones."""
+    decode = mode == "decode"
+    convs, ssms = [], []
+    for i in range(cfg.n_layers):
+        bp = _layer_slice(params["blocks"], i)
+        conv_s = ssm_s = None
+        if cache is not None:
+            conv_s, ssm_s = cache["conv"][i], cache["ssm"][i]
+        x, (conv_new, ssm_new) = _mamba_layer(
+            cfg, x, bp, conv_s, ssm_s, decode, compute_dtype, ssd_impl)
+        if decode:
+            cache["conv"][i] = conv_new
+            cache["ssm"][i] = ssm_new
+        else:
+            convs.append(conv_new)
+            ssms.append(ssm_new)
+    if mode not in ("prefill", "decode"):
+        return x, None
+    if decode:
+        return x, cache
+    return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+
+
 # ---------------------------------------------------------------------------
 # top level
 # ---------------------------------------------------------------------------
@@ -182,15 +236,16 @@ def _positions_for(B: int, S: int, pos_offset, device):
 def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                cache=None, pos_offset=None, mode: str = "train",
                compute_dtype=torch.bfloat16, logits_mode: str = "full",
-               attn_impl: str = "kernel"):
+               kernel_impl: str = "kernel"):
     """Run the LM.  Returns (logits, new_cache, aux_loss); aux_loss is
-    the MoE router loss, zero for the dense family.
+    the MoE router loss, zero for the dense and ssm families.
 
     logits_mode: 'full' (B,S,V) | 'last' (B,1,V) | 'none' (hidden only).
     mode: 'prefill' (returns the fresh cache), 'decode' (writes ``cache``
     in place at ``pos_offset``) or 'train' (no cache; a forward pass —
-    the training step itself is not ported yet).  ``attn_impl`` selects
-    the prefill attention (``kernels.attention.ops``).
+    the training step itself is not ported yet).  ``kernel_impl``
+    ("kernel" | "plain") selects the family's prefill op: the attention
+    (``kernels.attention.ops``) or the SSD (``kernels.ssd.ops``).
     """
     check_family(cfg)
     if embeds is not None:
@@ -198,11 +253,15 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     else:
         x = ll.take_embedding(params["embed"], tokens, cfg.embed_scale,
                               compute_dtype)
-    B, S = x.shape[:2]
-    positions = _positions_for(B, S, pos_offset, x.device)
-    x, new_cache = _run_attn_stack(params, cfg, x, positions, cache,
-                                   pos_offset, mode, compute_dtype,
-                                   attn_impl)
+    if cfg.family == "ssm":
+        x, new_cache = _run_ssm_stack(params, cfg, x, cache, mode,
+                                      compute_dtype, kernel_impl)
+    else:
+        B, S = x.shape[:2]
+        positions = _positions_for(B, S, pos_offset, x.device)
+        x, new_cache = _run_attn_stack(params, cfg, x, positions, cache,
+                                       pos_offset, mode, compute_dtype,
+                                       kernel_impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(x, params["final_norm"], cfg)
     if logits_mode == "none":

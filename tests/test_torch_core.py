@@ -230,6 +230,25 @@ def test_entry_points_refuse_missing_card():
         t_mon.fleet_monitor_init(cfg, 4)
 
 
+def test_monitor_init_defaults_to_the_card():
+    """``monitor_init`` defaults to the card like every other entry
+    point: without one it raises, and ``device="cpu"`` runs on the host
+    with the JAX package's state layout."""
+    cfg = t_mon.MonitorConfig()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_mon.monitor_init(cfg)
+    st = t_mon.monitor_init(cfg, device="cpu")
+    assert st.s_buf.device.type == "cpu"
+    js = j_mon.monitor_init(j_mon.MonitorConfig())
+    for a, b in zip(st, js):
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                assert tuple(x.shape) == tuple(y.shape)
+        else:
+            assert tuple(a.shape) == tuple(b.shape)
+
+
 def test_fleet_state_numpy_round_trip():
     cfg = t_mon.MonitorConfig()
     js = j_mon.fleet_monitor_init(j_mon.MonitorConfig(), 5)

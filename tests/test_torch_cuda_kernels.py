@@ -20,6 +20,9 @@ from repro_torch.kernels.attention import kernel as AK
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.monitor import kernel as K
 from repro_torch.kernels.monitor.ref import batched_monitor_ref
+from repro_torch.kernels.ssd import kernel as SK
+from repro_torch.kernels.ssd import ops as SO
+from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +33,7 @@ def cuda():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     K.build()
     AK.build()
+    SK.build()
     return torch.device("cuda")
 
 
@@ -190,3 +194,85 @@ def test_flash_attention_cuda_launches_or_raises(cuda):
         q48, k48, v48 = _qkv((1, 64, 2, 1, 48), 1, torch.float32, cuda)
         AK.flash_attention(q48, k48, v48)
     assert AK.flash_attention.launches == before + 1
+
+
+def _ssd_inputs(lead, H, P, N, seed, device):
+    """Drawn as the JAX package's SSD kernel test draws them: normal x,
+    B and C; softplus-normal dt; A = -exp(normal)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.as_tensor(a.astype(np.float32),  # noqa: E731
+                                   device=device)
+    return (mk(rng.standard_normal(lead + (H, P))),
+            mk(np.log1p(np.exp(rng.standard_normal(lead + (H,))))),
+            mk(-np.exp(rng.standard_normal(H))),
+            mk(rng.standard_normal(lead + (N,))),
+            mk(rng.standard_normal(lead + (N,))))
+
+
+def _ssd_close(got, want, tol=1e-4):
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,c,Q,H,P,N", [
+    (1, 4, 8, 2, 8, 8), (2, 4, 16, 4, 8, 16), (2, 4, 32, 2, 16, 32),
+    (2, 3, 37, 3, 32, 16), (1, 2, 100, 9, 64, 64), (2, 1, 256, 5, 64, 128),
+    (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128)])
+def test_ssd_chunk_kernel_matches_ref(cuda, B, c, Q, H, P, N):
+    """The chunk kernel against its plain version (1e-4): the JAX test
+    shapes' chunks, odd Q, ragged head groups and the path's P/N 64/128."""
+    ins = _ssd_inputs((B, c, Q), H, P, N, seed=B + c + Q + H, device=cuda)
+    before = SK.ssd_chunk.launches
+    got = SK.ssd_chunk(*ins)
+    torch.cuda.synchronize()
+    assert SK.ssd_chunk.launches == before + 1
+    assert [tuple(g.shape) for g in got] == [
+        (B, c, Q, H, P), (B, c, H, P, N), (B, c, H)]
+    _ssd_close(got, ssd_chunk_batched_ref(*ins))
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 2, 8, 8), (2, 64, 4, 8, 16),
+                                   (2, 128, 2, 16, 32)])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+def test_ssd_chunked_kernel_matches_plain(cuda, shape, chunk):
+    B, S, H, P, N = shape
+    ins = _ssd_inputs((B, S), H, P, N, seed=S + chunk, device=cuda)
+    _ssd_close(SO.ssd_chunked(*ins, chunk, impl="kernel"),
+               SO.ssd_chunked(*ins, chunk, impl="plain"))
+
+
+def test_ssd_chunked_kernel_carries_h0(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs((1, 64), 2, 8, 16, seed=1, device=cuda)
+    y_full, h_full = SO.ssd_chunked(x, dt, A, Bm, Cm, 16)
+    _, h1 = SO.ssd_chunked(x[:, :32], dt[:, :32], A, Bm[:, :32],
+                           Cm[:, :32], 16)
+    y2, h2 = SO.ssd_chunked(x[:, 32:].contiguous(), dt[:, 32:].contiguous(),
+                            A, Bm[:, 32:].contiguous(),
+                            Cm[:, 32:].contiguous(), 16, h0=h1)
+    _ssd_close((y2, h2), (y_full[:, 32:], h_full))
+
+
+def test_ssd_chunk_cuda_launches_or_raises(cuda):
+    """A CUDA tensor launches the kernel or raises: never the plain
+    version.  bf16 is cast to float32 first; other dtypes, mixed devices
+    and shapes without an instance raise."""
+    ins = _ssd_inputs((1, 2, 16), 2, 16, 16, seed=3, device=cuda)
+    before = SK.ssd_chunk.launches
+    got = SK.ssd_chunk(*(t.bfloat16() for t in ins))
+    assert SK.ssd_chunk.launches == before + 1
+    _ssd_close(got, ssd_chunk_batched_ref(*(t.bfloat16() for t in ins)))
+    with pytest.raises(TypeError):
+        SK.ssd_chunk(*(t.half() for t in ins))
+    with pytest.raises(ValueError):
+        SK.ssd_chunk(ins[0], ins[1], ins[2].cpu(), ins[3], ins[4])
+    with pytest.raises(ValueError):
+        x = ins[0].transpose(3, 4).contiguous().transpose(3, 4)
+        SK.ssd_chunk(x, *ins[1:])
+    with pytest.raises(NotImplementedError):
+        SK.ssd_chunk(*_ssd_inputs((1, 1, 8), 2, 24, 8, seed=4, device=cuda))
+    with pytest.raises(NotImplementedError):
+        SK.ssd_chunk(*_ssd_inputs((1, 1, 300), 2, 8, 8, seed=4,
+                                  device=cuda))
+    assert SK.ssd_chunk.launches == before + 1
