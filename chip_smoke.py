@@ -29,8 +29,13 @@ failed check raises and exits non-zero):
 5. the per-tick path: ``fleet_monitor_step`` over 2e5 windows for 64 ticks,
    one ``batched_monitor`` launch per tick;
 6. ``flash_attention`` against its plain version on the card: the JAX
-   package's kernel-test shapes in f32, causal and not (2e-4), and the
-   serving path's shape in bf16 with S = 1000, a masked tail (1e-3);
+   package's kernel-test shapes in f32, causal and not (2e-4), and in
+   bf16 (the tensor-core kernel; 1e-3) the serving path's shape with
+   S = 1000, a masked tail, every head dim, S and T that no tile divides
+   with S < T and S > T, GQA groups 1-4, and large scores (q x 4, scale
+   1); then timed at the path's shape in turns with PyTorch's
+   scaled_dot_product_attention (the kernel must take at most 3x its
+   time), and the f32 instance at that shape;
 7. the full-width model: internlm2-1.8b (24 layers, d 2048, 16/8 heads,
    hd 128, d_ff 8192, vocab 92 672) with random bf16 weights from
    ``--seed``; a prefill of 8 prompts of 1024 tokens through the kernel
@@ -470,37 +475,52 @@ def phase_step_path(torch, K, O, M, rng, dev):
 # the serving path: flash attention, the full-width model, the engine
 
 
-def _qkv(torch, rng, shape, dtype, dev):
+def _qkv(torch, rng, shape, dtype, dev, T=None, qmul=1.0):
     B, S, H, K, hd = shape
+    T = S if T is None else T
     mk = lambda *sh: torch.as_tensor(  # noqa: E731
-        rng.standard_normal(sh).astype(np.float32), device=dev).to(dtype)
-    return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd)
+        rng.standard_normal(sh).astype(np.float32), device=dev)
+    return ((mk(B, S, H, hd) * qmul).to(dtype), mk(B, T, K, hd).to(dtype),
+            mk(B, T, K, hd).to(dtype))
 
 
-def phase_flash(torch, AK, AR, rng, dev):
+def phase_flash(torch, AK, AR, rng, dev, seed):
     """Kernel against its plain version on the card: the JAX package's
-    kernel-test shapes in f32 (2e-4), the path's shape in bf16 with a
-    masked tail (1e-3: the same bf16 inputs on both sides)."""
-    cases = [((1, 128, 2, 2, 32), torch.float32, 2e-4),
-             ((2, 256, 4, 2, 32), torch.float32, 2e-4),
-             ((1, 256, 8, 8, 64), torch.float32, 2e-4),
-             ((8, 1000, 16, 8, 128), torch.bfloat16, 1e-3)]
+    kernel-test shapes in f32 (2e-4); in bf16 (1e-3: the same bf16
+    inputs on both sides) the path's shape with a masked tail, every
+    head dim, ragged S != T both ways, GQA groups 1-4 and large scores
+    (q x 4 at scale 1, so the running max moves between tiles).  The
+    cases after the path's draw from a generator of their own, so the
+    later phases' requests do not depend on how many run here."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    own = np.random.default_rng((seed, 6))
+    # (shape (B,S,H,K,hd), T or None for S, dtype, tol, q multiplier, rng)
+    cases = [((1, 128, 2, 2, 32), None, f32, 2e-4, 1.0, rng),
+             ((2, 256, 4, 2, 32), None, f32, 2e-4, 1.0, rng),
+             ((1, 256, 8, 8, 64), None, f32, 2e-4, 1.0, rng),
+             ((8, 1000, 16, 8, 128), None, bf16, 1e-3, 1.0, rng),
+             ((2, 77, 4, 2, 16), 1341, bf16, 1e-3, 1.0, own),
+             ((2, 1341, 4, 1, 32), 77, bf16, 1e-3, 1.0, own),
+             ((1, 1341, 8, 4, 64), None, bf16, 1e-3, 1.0, own),
+             ((2, 1000, 16, 8, 128), None, bf16, 1e-3, 4.0, own)]
     path_err = 0.0
-    for shape, dtype, tol in cases:
-        q, k, v = _qkv(torch, rng, shape, dtype, dev)
+    for shape, T, dtype, tol, qmul, gen in cases:
+        q, k, v = _qkv(torch, gen, shape, dtype, dev, T, qmul)
+        scale = 1.0 if qmul != 1.0 else None
         for causal in (True, False):
-            got = AK.flash_attention(q, k, v, causal=causal)
-            want = AR.attention_ref(q, k, v, causal=causal)
+            got = AK.flash_attention(q, k, v, causal=causal, scale=scale)
+            want = AR.attention_ref(q, k, v, causal=causal, scale=scale)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   f"flash_attention {shape}: non-finite output")
             err = float((got - want).abs().max())
+            what = (f"flash_attention {shape} T={T or shape[1]} "
+                    f"{str(dtype)[6:]} causal={causal} scale="
+                    f"{scale or 'hd^-0.5'}")
             check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
-                  f"flash_attention {shape} {dtype} causal={causal}: max "
-                  f"abs err {err} over tol {tol}")
-            log(f"flash_attention {shape} {str(dtype)[6:]} causal={causal}: "
-                f"max abs err {err:.3e} (tol {tol})")
-            if dtype == torch.bfloat16:
+                  f"{what}: max abs err {err} over tol {tol}")
+            log(f"{what}: max abs err {err:.3e} (tol {tol})")
+            if dtype == bf16:
                 path_err = max(path_err, err)
     return path_err
 
@@ -518,24 +538,52 @@ def flash_bound(shape):
         nbytes, flops
 
 
+def flash_tile_flops(shape):
+    """The bf16 kernel's own tensor-core work at ``shape`` (causal, S =
+    T): QK^T and the split P.V (two bf16 products) over whole 64 x 64
+    tiles (its q and kv blocks) up to the diagonal."""
+    B, S, H, K, hd = shape
+    tiles = sum(-(-min(q0 + 64, S) // 64) for q0 in range(0, S, 64))
+    return 3 * 2.0 * 64 * 64 * hd * tiles * B * H
+
+
 def kernel_flash_at_path(torch, AK, AR, rng, dev, err):
-    """The prefill's attention at B 8, S = T 1024: the kernel, its plain
-    version and PyTorch's scaled_dot_product_attention (the library
-    yardstick, never called by the port), bf16 in, causal."""
+    """The prefill's attention at B 8, S = T 1024, bf16 in, causal: the
+    kernel and PyTorch's scaled_dot_product_attention (the library
+    yardstick, never called by the port) timed in turns (kernel, SDPA,
+    SDPA, kernel), the plain version, and the f32 instance at the same
+    shape."""
     import torch.nn.functional as F
     q, k, v = _qkv(torch, rng, FLASH_SHAPE, torch.bfloat16, dev)
-    ms = event_ms(torch, lambda: AK.flash_attention(q, k, v), reps=20)
-    plain_ms = event_ms(torch, lambda: AR.attention_ref(q, k, v), reps=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    kern = lambda: AK.flash_attention(q, k, v)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    turns = [event_ms(torch, fn, reps=50) for fn in (kern, sdpa, sdpa, kern)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    plain_ms = event_ms(torch, lambda: AR.attention_ref(q, k, v), reps=5)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = event_ms(torch, lambda: AK.flash_attention(q32, k32, v32),
+                      reps=5)
     bound_ms, bound_by, nbytes, flops = flash_bound(FLASH_SHAPE)
-    log(f"flash_attention timing {FLASH_SHAPE} bf16 causal: {ms:.4f} ms "
-        f"(bound {bound_ms:.4f} ms by {bound_by}, {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP; {flops / ms / 1e9:.1f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+    tile_flops = flash_tile_flops(FLASH_SHAPE)
+    log(f"flash_attention timing {FLASH_SHAPE} bf16 causal, in turns "
+        f"kernel/SDPA/SDPA/kernel: {turns[0]:.4f} / {turns[1]:.4f} / "
+        f"{turns[2]:.4f} / {turns[3]:.4f} ms")
+    log(f"flash_attention {FLASH_SHAPE} bf16 causal: {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP: {flops / ms / 1e9:.1f} TFLOP/s; the "
+        f"kernel's own tensor-core work {tile_flops / 1e9:.2f} GFLOP: "
+        f"{tile_flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib_ms:.4f} ms "
+        f"({flops / lib_ms / 1e9:.1f} TFLOP/s, kernel/SDPA "
+        f"{ms / lib_ms:.2f}), plain {plain_ms:.4f} ms, the f32 instance "
+        f"{f32_ms:.4f} ms")
+    check(ms <= 3 * lib_ms, f"flash_attention {ms:.4f} ms is over 3x "
+          f"SDPA's {lib_ms:.4f} ms: the tensor-core path is not running")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "turns_ms": turns, "f32_ms": f32_ms,
+            "tflops": flops / ms / 1e9, "tile_tflops": tile_flops / ms / 1e9}
 
 
 def _sync_ms(torch, fn):
@@ -686,7 +734,7 @@ def direct_generate(torch, model, params, rows, dev):
     return torch.stack(outs, 1).cpu().numpy(), pre_ms, dec_ms
 
 
-_CATEGORIES = (("flash_attention", ("flash_fwd_kernel",)),
+_CATEGORIES = (("flash_attention", ("flash_fwd",)),
                ("ssd_chunk", ("ssd_chunk_kernel",)),
                ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
                ("softmax", ("softmax",)),
@@ -1145,6 +1193,7 @@ def main() -> int:
     from repro_torch import serve as SV
     from repro_torch.core import monitor as M
     from repro_torch import streams as S
+    from repro_torch.kernels._build import ptxas_report
     from repro_torch.kernels.attention import kernel as AK
     from repro_torch.kernels.attention import ops as AO
     from repro_torch.kernels.attention import ref as AR
@@ -1168,10 +1217,15 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
         f"{[lib.name for lib in libs]}")
     for lib in libs:
-        ptxas = [ln for ln in Path(str(lib) + ".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for ln in ptxas[:16]:
-            log(f"  ptxas {lib.name[:12]}:", ln.strip())
+        for r in ptxas_report(Path(str(lib) + ".log").read_text()):
+            log(f"  ptxas {lib.name.split('-')[0][3:]} {r['kernel']}: "
+                f"{r['registers']} registers, {r['spill_stores']}/"
+                f"{r['spill_loads']} B spill stores/loads, {r['stack']} B "
+                f"stack, {r['smem']} B static smem")
+    log("  flash_attention dynamic smem (B): " + ", ".join(
+        f"hd {hd} bf16 {AK.shared_memory_bytes(hd, torch.bfloat16)} f32 "
+        f"{AK.shared_memory_bytes(hd, torch.float32)}"
+        for hd in AK.HEAD_DIMS))
 
     b_err = phase_batched(torch, K, R, rng, dev)
     st_seed = phase_fleet(torch, K, M, R, rng, dev)
@@ -1181,7 +1235,7 @@ def main() -> int:
     step_launches = phase_step_path(torch, K, O, M, rng, dev)
     batched = kernel_batched_at_path(torch, K, R, rng, dev,
                                      max(b_err.values()))
-    flash_err = phase_flash(torch, AK, AR, rng, dev)
+    flash_err = phase_flash(torch, AK, AR, rng, dev, args.seed)
     flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
     model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
                                              args.seed, dev)
@@ -1229,6 +1283,8 @@ def main() -> int:
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    log(json.dumps({"flash": {k: flash[k] for k in (
+        "ms", "library_ms", "turns_ms", "f32_ms", "tflops", "tile_tflops")}}))
     extra = {"monitor_fleet_T256_ms": fleet["ms_T256"],
              "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"], **svc}
     log(json.dumps({"service": extra}))

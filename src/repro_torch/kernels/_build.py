@@ -5,7 +5,8 @@ The library lands in ``build/repro_torch/`` at the repository root,
 named after the source and a hash of its text and flags, so a changed
 source or flag builds anew and an unchanged one loads what is there.
 nvcc's report (``-Xptxas -v``: registers, shared memory, spills) is kept
-beside the library as ``<library>.log``.  Nothing is built at import.
+beside the library as ``<library>.log``; ``ptxas_report`` reads it per
+kernel.  Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -13,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Sequence
 
-__all__ = ["NvccLibrary", "COMMON_FLAGS"]
+__all__ = ["NvccLibrary", "COMMON_FLAGS", "ptxas_report"]
 
 # sm_90a: the Hopper target with wgmma/setmaxnreg (plain sm_90 refuses them)
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -89,3 +91,51 @@ class NvccLibrary:
         if self._loaded is None:
             self.build()
         return self._loaded[1]
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last length-prefixed name of an Itanium-mangled symbol that
+    names a kernel, with its template arguments (``Li128E`` -> 128, a
+    type letter as it is): ``flash_fwd_kernel<128,f>``."""
+    pos, name, rest = 0, mangled, ""
+    for m in re.finditer(r"\d+", mangled):
+        if m.start() < pos:
+            continue
+        n = int(m.group())
+        ident = mangled[m.end():m.end() + n]
+        pos = m.end() + n
+        if "kernel" in ident:
+            name, rest = ident, mangled[pos:]
+    args = re.match(r"I((?:Li-?\d+E|[a-z])+)E", rest)
+    if args:
+        name += "<" + ",".join(a or b for a, b in re.findall(
+            r"Li(-?\d+)E|([a-z])", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel entry of nvcc's ``-Xptxas -v`` report: registers,
+    spill stores and loads, stack frame and static shared memory, in
+    bytes.  Dynamic shared memory is set at launch and is not in it."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None,
+                   "spill_stores": 0, "spill_loads": 0, "stack": 0,
+                   "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out

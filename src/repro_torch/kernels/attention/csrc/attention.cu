@@ -5,35 +5,66 @@
 // (pallas_call in flash_attention_pallas): q (B,S,H,hd), k/v (B,T,K,hd)
 // with kv head = h / (H/K), online softmax with float32 accumulation,
 // float32 output (B,S,H,hd), causal (aligned at the first position, as
-// attention_ref masks) or not.
+// attention_ref masks) or not.  Any S and T (tails are masked), hd 16,
+// 32, 64 or 128.
 //
 // What bounds it on the card: at the serving path's prefill shape
-// (B 8, S = T 1024, H 16, K 8, hd 128, bf16) the work is ~34 GFLOP
-// against ~134 MB of traffic, so the tensor-core bound (bf16, 989
-// TFLOP/s) and the bytes bound (3.35 TB/s) are both ~0.04 ms.  This
-// first version does the products on the CUDA cores in float32 (67
-// TFLOP/s peak), so it is compute-bound far above that line; its design
-// aims at being right at every length and at the stated tolerances
-// (2e-4 for f32 inputs, 1e-3 for bf16 against the float32 plain
-// version), which a bf16 P in a tensor-core P.V product would miss.
-// wgmma, TMA and warp specialisation are later work.
+// (B 8, S = T 1024, H 16, K 8, hd 128, bf16, causal) the function does
+// ~34 GFLOP against ~134 MB of traffic, so the tensor-core bound (bf16,
+// 989 TFLOP/s) and the bytes bound (3.35 TB/s) are both ~0.04 ms.  Two
+// designs, one per input type:
 //
-// Design: one CTA of 128 threads per (64-row q block, q head, batch);
-// heaviest causal blocks are scheduled first.  The q tile is staged once
-// in shared memory as float32, pre-scaled by `scale` (the Pallas kernel
-// scales q before its dot).  K and V tiles of 64 rows stream through
-// shared memory in the input type; rows past T are zero-filled.  Thread
-// (ty, tx) = (tid / 8, tid % 8) owns q rows ty + 16 i (i < 4) and, for
-// scores, kv columns tx + 8 j (j < 8); the row max and sum are reduced
-// across the 8 tx lanes with shuffles.  P goes through shared memory for
-// P.V, where the thread owns its 4 rows and hd/8 interleaved head dims.
-// Padded row strides keep every shared-memory access conflict-free.
-// Masked scores (causal, or past T) contribute p = 0 exactly and do not
-// enter the row max; the running max starts at the finite -1e30 and the
-// output divides by max(l, 1e-30), so a wholly masked row yields 0, not
-// NaN.  Causal blocks stop at the diagonal.  Any S and T: tails are
-// masked, no divisibility is assumed.
+// bf16 inputs (the serving path): flash_fwd_wgmma_kernel, on the tensor
+// cores.  One CTA of 160 threads per (64-row q block, q head, batch),
+// heaviest causal blocks first; two CTAs share an SM (81 KB of shared
+// memory and <= 168 registers a thread each at hd 128), so one CTA's
+// loads and stores overlap the other's products.  Warp 4 is the producer:
+// one thread issues TMA loads, Q once and K and V tiles of 64 rows into a
+// ring of two stages, K and V each with a "full" mbarrier (TMA bytes) and
+// an "empty" one (the four consumer warps' releases), since a K tile is
+// free as soon as its scores are in and a V tile only a step later.  The
+// tensor maps are 4-d (hd, heads, seq, batch), so rows past S or T arrive
+// as zeros, never as the next batch's rows; rows are cut into 64-column
+// panels with the 128-byte swizzle (32- and 64-byte swizzles for hd 16
+// and 32).  Warps 0-3 are the consumer warpgroup:
+//   S = Q.K^T   wgmma m64n64k16, Q and K from shared memory (K-major),
+//               bf16 products exact, float32 sums;
+//   softmax     in registers on the accumulator layout (a thread holds
+//               rows r and r + 8); `scale` applied to the float32 scores
+//               as attention_ref does, exponentials in base 2; only the
+//               diagonal and T-tail tiles are masked, tiles above the
+//               diagonal are never loaded;
+//   O += P.V    P split as P_hi = bf16(p), P_lo = bf16(p - P_hi), each fed
+//               from registers (the accumulator layout is the A fragment)
+//               to wgmma m64n{hd}k16 with V from shared memory as an
+//               MN-major (transposed) operand: two bf16 products bring P's
+//               rounding from 2^-9 (which misses the 1e-3 gate against the
+//               float32 plain version) to ~2^-17, at twice P.V's work.
+// Step j issues S_j and then P_{j-1}.V_{j-1} and runs tile j's softmax
+// while the second product is in flight.  With one producer warp every
+// thread has the registers it needs, so no setmaxnreg.  The output,
+// acc / max(l, 1e-30), is stored straight from the accumulator (each
+// warp store fills whole 32-byte sectors), rows past S dropped.
+//
+// float32 inputs: flash_fwd_kernel, on the CUDA cores
+// in float32 FMAs (67 TFLOP/s peak), which holds the 2e-4 float32 gate.
+// One CTA of 128 threads per (64-row q block, q head, batch).  The q tile
+// is staged once in shared memory, pre-scaled by `scale` (the Pallas
+// kernel scales q before its dot).  K and V tiles of 64 rows stream
+// through shared memory; rows past T are zero-filled.  Thread (ty, tx) =
+// (tid / 8, tid % 8) owns q rows ty + 16 i (i < 4) and, for scores, kv
+// columns tx + 8 j (j < 8); the row max and sum are reduced across the 8
+// tx lanes with shuffles.  P goes through shared memory for P.V, where
+// the thread owns its 4 rows and hd/8 interleaved head dims.  Padded row
+// strides keep every shared-memory access conflict-free.
+//
+// Both: masked scores (causal, or past T) contribute p = 0 exactly and do
+// not enter the row max; the running max starts at the finite -1e30 and
+// the output divides by max(l, 1e-30), so a wholly masked row yields 0,
+// not NaN.  Causal blocks stop at the diagonal.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through
+                   // cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -63,23 +94,6 @@ __device__ __forceinline__ FV<4> loadv<4, float>(const float* p) {
 template <>
 __device__ __forceinline__ FV<2> loadv<2, float>(const float* p) {
   const float2 a = *reinterpret_cast<const float2*>(p);
-  return FV<2>{{a.x, a.y}};
-}
-
-template <>
-__device__ __forceinline__ FV<4> loadv<4, __nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return FV<4>{{a.x, a.y, b.x, b.y}};
-}
-
-template <>
-__device__ __forceinline__ FV<2> loadv<2, __nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   return FV<2>{{a.x, a.y}};
 }
 
@@ -313,6 +327,559 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA (see the note at the top)
+
+namespace tc {
+
+constexpr int BQ = 64;       // q rows per CTA: one consumer warpgroup
+constexpr int BK = 64;       // kv rows per tile
+constexpr int STAGES = 2;    // K/V ring depth
+constexpr int NT = 160;      // the consumer warpgroup, then a producer warp
+constexpr int CTAS_PER_SM = 2;
+
+template <int HD>
+struct Geo {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle bytes
+  static constexpr int PC = SW / 2;        // head dims per panel (a row of
+  static constexpr int NP = HD / PC;       // SW bytes); panels per row
+  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
+  static constexpr uint32_t KV_BYTES = BK * HD * 2;   // one K or V tile
+  // 1024 bytes of alignment slack, Q, the K and V rings, the mbarriers
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (4 * STAGES + 1);
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  static_assert(HD % 16 == 0 && HD <= 128 && NP * PC == HD, "head dim");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed; a wait that has
+// not ended after 10 s traps (a launch error) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const uint64_t t0 = global_ns();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (global_ns() - t0 > 10000000000ull) asm volatile("trap;");
+  }
+}
+
+// box (c0.., c1, c2.., c3) of a 4-d tensor map -> shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout
+template <int HD>
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (Geo<HD>::LAYOUT << 62);
+}
+
+// K-major operand (Q as A, K as B): rows of SW bytes, 8-row groups SW * 8
+// bytes apart; the leading offset is unused with a swizzle
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return gmma_desc<HD>(addr, 16, Geo<HD>::SW * 8);
+}
+
+// MN-major operand (V as B): head-dim panels `panel` bytes apart (leading),
+// 8-row groups along the kv (K) dimension SW * 8 bytes apart (stride)
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t panel) {
+  return gmma_desc<HD>(addr, panel, Geo<HD>::SW * 8);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma region
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi): hi + lo
+// equals (a, b) to ~2^-17 relative, where hi alone is 2^-9
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The wgmma instructions, register lists spelled out as PTX needs them.
+
+// d (64 x 64, f32) = (acc ? d : 0) + A . B; A and B from shared memory
+// (K-major descriptors)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 16, f32) += A . B; A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B from shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += A . B; A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B from shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A . B; A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B from shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A . B; A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B from shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, CTAS_PER_SM)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, int S, int Tn, int H,
+                           int KH, int causal, float scale_log2) {
+  using G = Geo<HD>;
+  constexpr int SW = G::SW, PC = G::PC, NP = G::NP;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // the swizzles repeat every 1024 bytes of shared-memory address
+  const uint32_t sQ = (smem_addr(tc_smem) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + G::Q_BYTES;                 // STAGES K tiles
+  const uint32_t sV = sK + STAGES * G::KV_BYTES;       // STAGES V tiles
+  const uint32_t bars = sV + STAGES * G::KV_BYTES;
+  // K and V have a full/empty pair each per stage: K is free once S is in,
+  // V only after the P.V of the next step
+  const auto full_k = [bars](int s) { return bars + 8u * s; };
+  const auto full_v = [bars](int s) { return bars + 8u * (STAGES + s); };
+  const auto empty_k = [bars](int s) { return bars + 8u * (2 * STAGES + s); };
+  const auto empty_v = [bars](int s) { return bars + 8u * (3 * STAGES + s); };
+  const uint32_t qbar = bars + 32u * STAGES;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int q0 = qb * BQ;
+  const int kv_end = causal ? min(q0 + BQ, Tn) : Tn;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);  // the producer's expect_tx arrival
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4);  // one arrival per consumer warp
+      mbar_init(empty_v(s), 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // producer: one thread keeps the rings full
+    if (tid == 128) {
+      mbar_expect_tx(qbar, G::Q_BYTES);
+      for (int p = 0; p < NP; ++p)
+        tma_load(sQ + p * BQ * SW, &tq, qbar, p * PC, h, q0, b);
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int s = jt % STAGES;
+        const uint32_t free_parity = ((jt / STAGES) & 1) ^ 1;  // 1st: free
+        const uint32_t k_s = sK + s * G::KV_BYTES, v_s = sV + s * G::KV_BYTES;
+        mbar_wait(empty_k(s), free_parity);
+        mbar_expect_tx(full_k(s), G::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load(k_s + p * BK * SW, &tk, full_k(s), p * PC, kh, jt * BK, b);
+        mbar_wait(empty_v(s), free_parity);
+        mbar_expect_tx(full_v(s), G::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load(v_s + p * BK * SW, &tv, full_v(s), p * PC, kh, jt * BK, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: step j issues S_j = Q.K_j^T, then O += P_{j-1}.V_{j-1}, and
+  // runs the softmax of tile j while that second product is in flight.
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;  // and row0 + 8
+  const int cq = 2 * (lane % 4);  // column pair within each 8 columns
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};  // this thread's part of the running sum
+  float alpha[2];
+  float sc[BK / 2];
+  uint32_t phi[BK / 4], plo[BK / 4];  // P of the previous step, bf16 pairs
+
+  // S = Q.K^T of the tile in K stage s, over hd in k-steps of 16 (32 bytes
+  // of a panel row), issued and committed
+  const auto issue_qk = [&](int s) {
+    const uint32_t ka = sK + s * G::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk * 16) / PC * BQ * SW + (kk * 16) % PC * 2;
+      const uint32_t offk = (kk * 16) / PC * BK * SW + (kk * 16) % PC * 2;
+      wgmma_ss(sc, desc_k<HD>(sQ + off), desc_k<HD>(ka + offk), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += P_hi.V + P_lo.V with V in stage s, issued and committed; the pairs
+  // 4 kk .. 4 kk + 3 are the A fragment of k-step kk
+  const auto issue_pv = [&](int s) {
+    const uint32_t va = sV + s * G::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = desc_mn<HD>(va + kk * 16 * SW, BK * SW);
+      wgmma_rs(acc, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
+               phi[4 * kk + 3], dv);
+      wgmma_rs(acc, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+               plo[4 * kk + 3], dv);
+    }
+    wg_commit();
+  };
+  // tile scores -> p = 2^(scale_log2 s - m) in place, masked entries 0
+  // (element i: row row0 + 8 ((i >> 1) & 1), column t0 + 8 (i >> 2) + cq
+  // + (i & 1)); m and l updated, alpha the rescale of the earlier sums
+  const auto softmax = [&](int t0) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+    if (t0 + BK > Tn || (causal && t0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = t0 + 8 * (i >> 2) + cq + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (col >= Tn || (causal && col > row))
+          sc[i] = __int_as_float(0xff800000);  // -inf: p = 0
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+  const auto split = [&]() {
+#pragma unroll
+    for (int j = 0; j < BK / 4; ++j)
+      split_bf16(sc[2 * j], sc[2 * j + 1], phi[j], plo[j]);
+  };
+  const auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);  // this warp is done with the stage
+  };
+
+  mbar_wait(qbar, 0);
+  mbar_wait(full_k(0), 0);
+  wg_fence();
+  issue_qk(0);
+  wg_wait<0>();
+  reg_fence(sc);
+  release(empty_k(0));
+  softmax(0);
+  split();
+  for (int jt = 1; jt < n_tiles; ++jt) {
+    const int s = jt % STAGES, sp = (jt - 1) % STAGES;
+    mbar_wait(full_k(s), (jt / STAGES) & 1);
+    mbar_wait(full_v(sp), ((jt - 1) / STAGES) & 1);
+    reg_fence(acc);
+    wg_fence();
+    issue_qk(s);
+    issue_pv(sp);
+    wg_wait<1>();  // S_j is in; P_{j-1}.V_{j-1} may still run
+    reg_fence(sc);
+    release(empty_k(s));
+    softmax(jt * BK);
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(sc);
+    release(empty_v(sp));
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    split();
+  }
+  const int sl = (n_tiles - 1) % STAGES;
+  mbar_wait(full_v(sl), ((n_tiles - 1) / STAGES) & 1);
+  reg_fence(acc);
+  wg_fence();
+  issue_pv(sl);
+  wg_wait<0>();
+  reg_fence(acc);
+  release(empty_v(sl));
+
+  // out = acc / max(l, 1e-30), rows past S dropped
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* orow = o + ((size_t)(b * (size_t)S + row) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + cq) =
+          make_float2(acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// (B, L, NH, HD) bf16 as the 4-d map (HD, NH, L, B) with boxes of one
+// panel (PC head dims) x `rows` rows of one head; out-of-bounds reads as 0
+template <int HD>
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
+                int rows) {
+  using G = Geo<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)NH, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)NH * HD * 2,
+                                 (cuuint64_t)L * NH * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::PC, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const EncodeTiledFn enc = encoder();
+  return enc != nullptr &&
+         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             G::TMA_SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int Tn, int H, int KH, int causal, float scale,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode_map<HD>(&mq, q, B, S, H, BQ) ||
+      !encode_map<HD>(&mk, k, B, Tn, KH, BK) ||
+      !encode_map<HD>(&mv, v, B, Tn, KH, BK))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Geo<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_fwd_wgmma_kernel<HD><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), S, Tn, H, KH, causal,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
+             int B, int S, int Tn, int H, int KH, int causal, float scale,
+             cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch<16>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+    case 32:
+      return launch<32>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+template <int HD>
+int smem_bytes(int is_bf16) {
+  return is_bf16 ? tc::Geo<HD>::SMEM : (int)Layout<HD, float>::SMEM;
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,6 +887,17 @@ extern "C" {
 // 1 when the kernel has an instance for this head dim
 int repro_flash_attention_supported(int hd) {
   return hd == 16 || hd == 32 || hd == 64 || hd == 128;
+}
+
+// dynamic shared memory of the instance for (hd, input type), bytes
+int repro_flash_attention_smem(int hd, int is_bf16) {
+  switch (hd) {
+    case 16: return smem_bytes<16>(is_bf16);
+    case 32: return smem_bytes<32>(is_bf16);
+    case 64: return smem_bytes<64>(is_bf16);
+    case 128: return smem_bytes<128>(is_bf16);
+    default: return 0;
+  }
 }
 
 // q (B,S,H,hd), k/v (B,T,KH,hd) contiguous, f32 (is_bf16 = 0) or bf16,
@@ -330,8 +908,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, Tn, H, KH, causal,
-                                   scale, st);
+    return tc::dispatch(hd, q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
   return dispatch<float>(hd, q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
 }
 

@@ -1,10 +1,12 @@
 """Hopper CUDA flash-attention forward: build, binding and wrapper.
 
-The kernel is ``csrc/attention.cu`` (see the note there for what it
-replaces, what bounds it on the card and what its design does about
-that).  It is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface (``build/repro_torch/``, keyed by a hash of the
-source and flags) and bound with ``ctypes``.  ``flash_attention``
+The kernels are in ``csrc/attention.cu`` (see the note there for what
+they replace, what bounds them on the card and what their designs do
+about that): bf16 inputs run on the tensor cores (wgmma, TMA, a split
+bf16 P), float32 inputs on the CUDA cores.  The source is compiled at
+first use with ``nvcc`` into a shared library with a plain C interface
+(``build/repro_torch/``, keyed by a hash of the source and flags) and
+bound with ``ctypes``.  ``flash_attention``
 launches on ``torch.cuda.current_stream()`` and counts its launches in
 ``flash_attention.launches``.  On CPU tensors it runs the plain PyTorch
 version from ``ref.py``; on CUDA tensors it launches the kernel or
@@ -23,7 +25,8 @@ from repro_torch.kernels._build import COMMON_FLAGS, NvccLibrary
 from repro_torch.kernels.attention.ref import attention_ref
 
 __all__ = ["flash_attention", "build", "launch_counts",
-           "reset_launch_counts", "SOURCE", "NVCC_FLAGS", "HEAD_DIMS"]
+           "reset_launch_counts", "shared_memory_bytes", "SOURCE",
+           "NVCC_FLAGS", "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
 NVCC_FLAGS = COMMON_FLAGS
@@ -38,6 +41,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_attention_supported.argtypes = [_I]
     lib.repro_flash_attention_supported.restype = _I
+    lib.repro_flash_attention_smem.argtypes = [_I, _I]
+    lib.repro_flash_attention_smem.restype = _I
 
 
 _LIBRARY = NvccLibrary(SOURCE, NVCC_FLAGS, _bind)
@@ -49,6 +54,14 @@ def build() -> Path:
     Returns the shared library's path; ``<path>.log`` holds nvcc's
     ``-Xptxas -v`` report."""
     return _LIBRARY.build()
+
+
+def shared_memory_bytes(hd: int, dtype) -> int:
+    """Dynamic shared memory of the kernel instance for ``hd`` and the
+    input type, in bytes (builds the library; ptxas's report does not
+    hold it, as it is set at launch)."""
+    return _LIBRARY.lib().repro_flash_attention_smem(
+        hd, int(dtype == torch.bfloat16))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):

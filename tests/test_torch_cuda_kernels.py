@@ -178,6 +178,89 @@ def test_flash_attention_kernel_matches_ref_bf16(cuda, shape, T, causal):
                                rtol=1e-3, atol=1e-3)
 
 
+def _launch_once(q, k, v, **kw):
+    before = AK.flash_attention.launches
+    out = AK.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert AK.flash_attention.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    return out
+
+
+def _close_bf16(out, ref):
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_every_head_dim(cuda, hd, causal):
+    """The tensor-core kernel at each head dim: the 32-, 64- and 128-byte
+    swizzles, one and two panels a row (1e-3)."""
+    q, k, v = _qkv((2, 300, 4, 2, hd), hd, torch.bfloat16, cuda)
+    _close_bf16(_launch_once(q, k, v, causal=causal),
+                attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("S,T", [(1, 1), (77, 77), (1000, 1000),
+                                 (1341, 1341), (77, 1341), (1341, 77),
+                                 (1, 1000), (1000, 1)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_ragged_lengths(cuda, S, T, group, causal):
+    """S and T that no 128-row tile divides, S < T and S > T, GQA groups
+    of 1, 2 and 4 at the path's head dim: rows past S or T arrive from
+    the tensor maps as zeros and are masked or dropped (1e-3)."""
+    q, k, v = _qkv((1, S, 2 * group, 2, 128), S + T + group,
+                   torch.bfloat16, cuda, T=T)
+    _close_bf16(_launch_once(q, k, v, causal=causal),
+                attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_large_scores(cuda, causal):
+    """q x 4 at scale 1: scores in the hundreds, whose row maximum lies
+    past the first tile for most rows, so the running max moves between
+    tiles and the rescale of the accumulator and the sum is exercised."""
+    q, k, v = _qkv((2, 1000, 8, 4, 128), 3, torch.bfloat16, cuda)
+    q = (q.float() * 4).to(torch.bfloat16)
+    s = torch.einsum("sh,th->st", q[0, :, 0].float(), k[0, :, 0].float())
+    if causal:
+        s = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    assert float((s[256:].argmax(-1) >= 128).float().mean()) > 0.5
+    assert float(s.abs().max()) > 100
+    _close_bf16(_launch_once(q, k, v, causal=causal, scale=1.0),
+                attention_ref(q, k, v, causal=causal, scale=1.0))
+
+
+def test_flash_attention_bf16_first_rows_of_causal_blocks(cuda):
+    """Rows 0-7 of every 128-row causal block at the path's shape, where a
+    row sums the fewest keys of its tiles.  In the first block a P
+    rounded to bf16 alone (the plain version with its weights so
+    rounded) misses 1e-3; the kernel's split P holds it."""
+    shape = (8, 1024, 16, 8, 128)
+    B, S, H, K_, hd = shape
+    q, k, v = _qkv(shape, 5, torch.bfloat16, cuda)
+    out = _launch_once(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    rows = [b0 + r for b0 in range(0, S, 128) for r in range(8)]
+    _close_bf16(out[:, rows], ref[:, rows])
+    # the control: unnormalised weights rounded to bf16, as one bf16 P.V
+    # would take them
+    qg = q.reshape(B, S, K_, H // K_, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * hd ** -0.5
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=cuda)
+                      .triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p_bf16 = p.to(torch.bfloat16).float() / p.sum(-1, keepdim=True)
+    ctrl = torch.einsum("bkgst,btkh->bskgh", p_bf16, v.float()).reshape(
+        B, S, H, hd)
+    first = (ctrl[:, :8] - ref[:, :8]).abs() > 1e-3 + 1e-3 * ref[:, :8].abs()
+    assert bool(first.any())
+
+
 def test_flash_attention_cuda_launches_or_raises(cuda):
     """A CUDA tensor launches the kernel or raises: never the plain
     version."""
