@@ -94,10 +94,6 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
-# float32 products on the tensor cores to about 2^-16 relative: each
-# operand split into a bf16 high and low part, three bf16 products
-# (hi.hi + hi.lo + lo.hi) accumulated in float32
-PEAK_SPLIT_BF16_FLOPS = PEAK_BF16_FLOPS / 3
 
 N_STREAMS = 200_000          # the repo's realistic fleet size (ends)
 N_PERIODS = 4096
@@ -1021,37 +1017,67 @@ def ssd_bound(shape):
     each input read once and each output written once, against the
     least work -- C.B^T once per chunk and the causal half of the
     products (2 FLOP per multiply-add) -- at the fastest rate that holds
-    the 1e-4 gate, the tensor cores' split-bf16 products."""
+    every SSD gate: 3xTF32 on the tensor cores, three TF32 products per
+    float32 product at 495 TFLOP/s (a bf16 split with three products
+    misses the element-wise 1e-4 gate: tests/test_torch_ssd.py)."""
     B, c, Q, H, P, N = shape
     rows, pairs = B * c * Q, B * c * Q * (Q + 1) // 2
     nbytes = 4 * (rows * H * P * 2 + rows * H + H + 2 * rows * N
                   + B * c * H * P * N + B * c * H)
     flops = 2.0 * (pairs * N + pairs * H * P + rows * H * P * N)
     t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_o = flops / PEAK_SPLIT_BF16_FLOPS * 1e3
+    t_o = 3 * flops / PEAK_TF32_FLOPS * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
         nbytes, flops
 
 
+def ssd_kernel_flops(shape):
+    """The kernel's own tensor-core work at ``shape``, as ssd.cu issues
+    it: scores over whole 64 x 64 tiles up to the diagonal once per
+    group of 8 heads, y over 8-row k-steps up to each 32-row warp tile's
+    last row, the states over 8-row k-steps, P padded to 16 rows and N
+    to 64 columns; three TF32 products each, 2 FLOP per multiply-add."""
+    B, c, Q, H, P, N = shape
+    nb, groups = -(-Q // 64), -(-H // 8)
+    k_n = sum(-(-min(32, N - n0) // 8) * 8 for n0 in range(0, N, 32))
+    scores = sum(ib + 1 for ib in range(nb)) * 64 * 64 * k_n * groups
+    y = 0
+    for ib in range(nb):
+        for jt in range(ib + 1):
+            ks = -(-min(64, Q - 64 * jt) // 8)
+            y += sum(min(ks, 4 * w + 4) if jt == ib else ks
+                     for w in range(2)) * 8 * 32 * P
+    state = -(-Q // 8) * 8 * max(P, 16) * 64 * -(-N // 64)
+    return 3 * 2.0 * B * c * (scores + H * (y + state))
+
+
 def kernel_ssd_at_path(torch, SK, SR, rng, dev, err):
     """The prefill's chunk step at B 8, S 1024 (Q 256, c 4), H 80, P 64,
-    N 128: the kernel and its plain version.  No single PyTorch call
-    computes this function."""
+    N 128: the kernel and its plain version, the kernel's rate of its
+    own 3xTF32 work and its registers and spills as ptxas reported them.
+    No single PyTorch call computes this function."""
+    from repro_torch.kernels._build import ptxas_report
     B, c, Q, H, P, N = SSD_SHAPE
     ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev)
     ms = event_ms(torch, lambda: SK.ssd_chunk(*ins), reps=10)
     plain_ms = event_ms(torch, lambda: SR.ssd_chunk_batched_ref(*ins),
                         reps=3, warm=1)
     bound_ms, bound_by, nbytes, flops = ssd_bound(SSD_SHAPE)
+    own = ssd_kernel_flops(SSD_SHAPE)
     log(f"ssd_chunk timing {SSD_SHAPE} f32: {ms:.4f} ms (bound "
         f"{bound_ms:.4f} ms by {bound_by}: {nbytes / 1e6:.1f} MB is "
         f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP is "
-        f"{flops / PEAK_SPLIT_BF16_FLOPS * 1e3:.4f} ms as split-bf16 tensor-"
-        f"core products, {3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms as "
-        f"3xTF32, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 rate; "
-        f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+        f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms as 3xTF32 tensor-core "
+        f"products, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 rate; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the function; the kernel's own "
+        f"3xTF32 work {own / 1e9:.2f} GFLOP: {own / ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain_ms:.4f} ms")
+    for r in ptxas_report(Path(str(SK.build()) + ".log").read_text()):
+        log(f"ssd_chunk ptxas {r['kernel']}: {r['registers']} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} B spill stores/loads")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tflops": flops / ms / 1e9, "own_tflops": own / ms / 1e9}
 
 
 @contextlib.contextmanager
@@ -1285,6 +1311,8 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     log(json.dumps({"flash": {k: flash[k] for k in (
         "ms", "library_ms", "turns_ms", "f32_ms", "tflops", "tile_tflops")}}))
+    log(json.dumps({"ssd": {k: ssd[k] for k in (
+        "ms", "bound_ms", "plain_ms", "tflops", "own_tflops")}}))
     extra = {"monitor_fleet_T256_ms": fleet["ms_T256"],
              "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"], **svc}
     log(json.dumps({"service": extra}))

@@ -12,103 +12,220 @@
 //
 // What bounds it on the card: at the mamba2-2.7b prefill shape (B 8,
 // S 1024, Q 256, c 4, H 80, P 64, N 128) the kernel must move ~431 MB
-// (x and y 168 MB each, the states 84 MB), 0.129 ms at 3.35 TB/s, while
-// its least arithmetic (C.B^T once per chunk, the causal half of the
-// products) is ~21.5 GFLOP.  This first version does every product in
-// float32 FMAs on the CUDA cores, so it is compute-bound well above the
-// bytes bound; tensor cores (TF32 or split bf16 at this tolerance), TMA
-// and a persistent schedule are later work.
+// (x and y 168 MB each, the states 84 MB), 0.129 ms at 3.35 TB/s.  Its
+// least arithmetic (C.B^T once per chunk, the causal half of the
+// products) is ~21.8 GFLOP; the outputs are held to 1e-4 of float32, so
+// a product on the tensor cores needs three TF32 products (3xTF32), 65
+// GFLOP, 0.132 ms at the 495 TFLOP/s TF32 peak: the two bounds are level.
+// mma.sync reaches about 300 TFLOP/s of TF32 on the card, and what this
+// kernel spends per product is mostly elsewhere: reading fragments from
+// shared memory, splitting them and building W.
 //
-// Design.  One CTA of 128 threads per (block of 64 output rows, group of
-// HG = 8 heads, (b, c)), plus one CTA per (head group, (b, c)) for the
-// chunk states and decays (blockIdx.x == 0, scheduled first; the heaviest
-// causal row blocks follow).
+// Products.  Every product (the scores C.B^T, y = W.x and the states)
+// runs on the tensor cores as warp-level
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 with float32 accumulators,
+// 3xTF32 as in CUTLASS: each operand a splits into big = tf32(a) and
+// small = tf32(a - big), both rounded to nearest, ties away from zero
+// (the bit form of cvt.rna.tf32.f32 for finite values, two integer
+// operations), and each k-step accumulates small_A.big_B, big_A.small_B,
+// then big_A.big_B.  The split is made when a fragment is read from
+// shared memory.  The lost small.small term and the roundings leave
+// ~2^-22 of each product, well inside the 1e-4 gates; a bf16 split with
+// three products does not hold them.  Fragments (lane = 4 g + t): A (g,t)
+// (g+8,t) (g,t+4) (g+8,t+4); B (k t, n g) (k t+4, n g); C (g,2t)
+// (g,2t+1) (g+8,2t) (g+8,2t+1).  Each is read with plain 32-bit shared
+// loads: a row-read fragment from a tile whose row stride is 4 mod 32
+// floats, a fragment whose k runs down the rows from one whose stride is
+// 8 mod 32, both free of bank conflicts.  Shared-memory traffic per
+// product is what a k-step costs, so every warp owns a 32-wide warp tile
+// (2 x 8 or 4 x 4 mma tiles at P 64): each fragment element it reads
+// feeds 4 to 8 products.
+//
+// Design.  CTAs of 128 threads (4 warps) per (group of HG = 8 heads,
+// (b, c)): first ceil(N / 64) state CTAs, each the chunk states of its 8
+// heads for 64 state columns (the first also writes the decays), then one
+// CTA per block of 64 output rows, heaviest causal block first.  Tiles
+// reach shared memory by cp.async (16 bytes a thread, zero-filled past Q
+// and N) into two buffers: a step starts the next step's copies, waits
+// for its own, computes, and ends at a barrier.
 // * Every CTA computes acum for its heads over the whole chunk: a = dt*A
 //   in shared memory, then one thread per head sums it in order.  The
 //   decay exponents are differences of sums of up to 256 terms of
 //   magnitude ~1, so the order of the sum shows in them at ~1e-4
 //   relative; summing in row order reproduces the plain version's
 //   cumsum, which sums in order too.
-// * Row-block CTAs first compute the head-independent scores
-//   S = C_i . B_j for the block's 64 rows and every source row up to the
-//   diagonal (64 x 64 tiles, N in chunks of 32 through padded shared
-//   memory) and keep them in shared memory: C.B^T is computed once for 8
-//   heads, not once per head as on the TPU.  Then for each head and each
-//   source tile up to the diagonal: W = S * exp(acum_i - acum_j) where
-//   j <= i and exactly 0 elsewhere (the exponential is never evaluated
-//   above the diagonal, where it could overflow and make inf * 0 = NaN),
-//   the source tile of x scaled by dt goes to shared memory, and the
-//   thread's 4 rows x P/8 columns accumulate W . (dt x) in registers.
-// * State CTAs accumulate (x dt exp(acum_last - acum))^T . B per head in
-//   32-row steps, 64 state columns per pass, 8 x 16 threads over (P, 64).
-// Thread (ty, tx) = (tid / 8, tid % 8) owns rows ty + 16 i (i < 4) and
-// score columns tx + 8 j (j < 8), as in attention.cu; padded row strides
-// keep the shared-memory accesses conflict-free.  Rows past Q are
-// zero-filled and never written.  Any Q in 1..256, P in {8,16,32,64},
-// N a multiple of 4.  Shared memory at Q 256, P 64: 111.6 KB, two CTAs
-// per SM.
+// * Row-block CTAs compute the head-independent scores S = C_i . B_j for
+//   their 64 rows and every source row up to the diagonal (C and B copied
+//   in chunks of 32 state columns; warp tile 32 rows x 32 source rows) and
+//   keep them in shared memory: C.B^T is computed once for 8 heads.  Then
+//   for each head and each source tile up to the diagonal, x and dt of
+//   the tile are copied, and each warp builds its A fragments of
+//   W = S * exp(acum_i - acum_j) * dt_j straight from S where j <= i
+//   (exactly 0 elsewhere: exp is taken of 0 there, never of an argument
+//   above the diagonal, where it could overflow and make inf * 0 = NaN)
+//   and accumulates y over its warp tile, 32 rows x P columns, for one
+//   half of the tile's k-steps; k-steps wholly above a warp's rows are
+//   skipped.  The two halves' sums meet in shared memory once per head.
+// * State CTAs accumulate X^T . B, X = x dt exp(acum_last - acum), in
+//   64-row steps, the scores' space serving as their buffers; warp tile
+//   P rows x 32 state columns, one half of each step's k-steps.
+// Rows past Q and state columns past N are zero-filled in shared memory
+// (so Q and N need not be multiples of 8) and never written.  Any Q in
+// 1..256, P in {8,16,32,64}, N a multiple of 4.  Shared memory at Q 256,
+// P 64: 109 KB, two CTAs per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 128;       // threads per CTA
+constexpr int NT = 128;       // threads per CTA: 4 warps
 constexpr int BQ = 64;        // output rows per CTA, source rows per tile
 constexpr int HG = 8;         // heads per CTA
 constexpr int NCH = 32;       // state-dim chunk of the score product
 constexpr int CST = NCH + 4;  // row stride of the C and B chunks
-constexpr int WST = BQ + 8;   // row stride of the weight tile
-constexpr int SQ = 32;        // rows per step of the state product
-constexpr int SN = 64;        // state columns per pass
-constexpr int BST = SN + 4;   // row stride of the B tile (states)
+constexpr int SQ = 64;        // rows per step of the state product
+constexpr int SN = 64;        // state columns per state CTA
+constexpr int BST = SN + 8;   // row stride of the B tile (states)
 constexpr int QMAX = 256;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int P>
 struct Lay {
-  static constexpr int VW = P >= 32 ? 4 : P / 8;  // columns per x load
-  static constexpr int NC = P / (8 * VW);         // x loads per row
-  static constexpr int XST = P + 4;               // row stride of x tiles
-  static constexpr int PI = P / 8;                // state rows per thread
+  static constexpr int XST = P + 8;                // row stride of x tiles
+  static constexpr int NTY = P / 8;                // n-tiles of y
+  static constexpr int MT = P >= 16 ? P / 16 : 1;  // m-tiles of a state
+  // floats of a row-block CTA's stage buffer (a score step's C and B
+  // chunks, or a y step's x tile and dt), and of a state CTA's (x rows, B
+  // rows and dt), which takes the place of the scores
+  static constexpr int BUF = (cmax(2 * BQ * CST, BQ * (XST + 1)) + 3) / 4 * 4;
+  static constexpr int SBUF = (SQ * (XST + BST + 1) + 3) / 4 * 4;
   static_assert(P % 8 == 0 && P <= 64, "P must be 8, 16, 32 or 64");
 };
 
 __host__ __device__ inline int score_stride(int Q) {
-  return ((Q + BQ - 1) / BQ) * BQ + 8;
+  return ((Q + BQ - 1) / BQ) * BQ + 4;
 }
 
 template <int P>
 size_t smem_floats(int Q) {
   using L = Lay<P>;
-  int work = 2 * BQ * CST;
-  work = work > BQ * WST + BQ * L::XST ? work : BQ * WST + BQ * L::XST;
-  work = work > SQ * L::XST + SQ * BST ? work : SQ * L::XST + SQ * BST;
-  return (size_t)HG * Q + (size_t)BQ * score_stride(Q) + work;
+  return (size_t)HG * Q +
+         (size_t)cmax(BQ * score_stride(Q) + 2 * L::BUF, 2 * L::SBUF);
 }
 
-template <int W>
-__device__ __forceinline__ void load_vec(const float* p, float* o) {
-  if constexpr (W == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    o[0] = a.x;
-    o[1] = a.y;
-    o[2] = a.z;
-    o[3] = a.w;
-  } else if constexpr (W == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    o[0] = a.x;
-    o[1] = a.y;
-  } else {
-    o[0] = p[0];
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// a TF32 value: float32 rounded to 10 mantissa bits, to nearest, ties
+// away from zero (cvt.rna.tf32.f32 for finite a), low 13 bits zero
+__device__ __forceinline__ uint32_t tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float a, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(a);
+  small = tf32(a - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A (MTL m-tiles) and B (NTL n-tiles) fragments of one k-step, split
+template <int MTL, int NTL>
+struct Frags {
+  uint32_t ab[MTL][4], as[MTL][4];   // A big, small
+  uint32_t bb[NTL][2], bs[NTL][2];   // B big, small
+};
+
+// d[m][n] += a[m] . b[n] in 3xTF32, the small terms first; each product
+// runs over the whole warp tile before the next, so that the
+// accumulators' dependent mma chains interleave
+template <int MTL, int NTL>
+__device__ __forceinline__ void mma3(float (&d)[MTL][NTL][4],
+                                     const Frags<MTL, NTL>& f) {
+#pragma unroll
+  for (int m = 0; m < MTL; ++m)
+#pragma unroll
+    for (int n = 0; n < NTL; ++n) mma_tf32(d[m][n], f.as[m], f.bb[n]);
+#pragma unroll
+  for (int m = 0; m < MTL; ++m)
+#pragma unroll
+    for (int n = 0; n < NTL; ++n) mma_tf32(d[m][n], f.ab[m], f.bs[n]);
+#pragma unroll
+  for (int m = 0; m < MTL; ++m)
+#pragma unroll
+    for (int n = 0; n < NTL; ++n) mma_tf32(d[m][n], f.ab[m], f.bb[n]);
+}
+
+// B fragments of NTL n-tiles whose element (k, n) lies at p[k * ld + n],
+// p at (k0, n0)
+template <int MTL, int NTL>
+__device__ __forceinline__ void load_b_kn(const float* p, int ld, int g,
+                                          int t, Frags<MTL, NTL>& f) {
+#pragma unroll
+  for (int i = 0; i < NTL; ++i) {
+    split(p[t * ld + i * 8 + g], f.bb[i][0], f.bs[i][0]);
+    split(p[(t + 4) * ld + i * 8 + g], f.bb[i][1], f.bs[i][1]);
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// acc += the products of k-steps k0..k1-1 over a warp tile of MTL x NTL
+// mma tiles (3xTF32); frag(ks, f) reads and splits k-step ks's fragments.
+// Each fragment element read from shared memory feeds NTL (A) or MTL (B)
+// products: shared-memory traffic, not the tensor cores, bounds a k-step.
+template <int MTL, int NTL, typename Frag>
+__device__ __forceinline__ void kloop(float (&acc)[MTL][NTL][4], int k0,
+                                      int k1, Frag&& frag) {
+  for (int ks = k0; ks < k1; ++ks) {
+    Frags<MTL, NTL> f;
+    frag(ks, f);
+    mma3(acc, f);
+  }
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+template <int MTL, int NTL>
+__device__ __forceinline__ void zero(float (&acc)[MTL][NTL][4]) {
+#pragma unroll
+  for (int m = 0; m < MTL; ++m)
+#pragma unroll
+    for (int n = 0; n < NTL; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+}
+
+// cp.async of 16 (or 4) bytes into shared memory; zero-fills the
+// destination when ok is false (the source, clamped in range by the
+// caller, is then not read)
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `pending` of this thread's copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
 }
 
 template <int P>
@@ -119,23 +236,93 @@ __global__ void __launch_bounds__(NT)
                      float* __restrict__ st, float* __restrict__ decay,
                      int Q, int H, int N) {
   using L = Lay<P>;
-  constexpr int VW = L::VW, NC = L::NC, XST = L::XST, PI = L::PI;
+  constexpr int XST = L::XST, NTY = L::NTY, MT = L::MT;
+  constexpr int BUF = L::BUF;
   extern __shared__ __align__(16) float smem[];
   const int SST = score_stride(Q);
   float* acum = smem;               // [HG][Q]
   float* S = acum + HG * Q;         // [BQ][SST] scores of the row block
-  float* work = S + BQ * SST;       // phase buffers (aliased)
+  float* work = S + BQ * SST;       // two stage buffers of BUF floats
 
   const int bc = blockIdx.z;        // b * c + chunk
   const int h0 = blockIdx.y * HG;
   const int ng = min(HG, H - h0);
   const int tid = threadIdx.x;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int warp = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const int n_state = (N + SN - 1) / SN;
+  const bool is_state = blockIdx.x < n_state;
+  const size_t row0 = (size_t)bc * Q;   // the chunk's first row
+
+  // ---- the stages: what each step copies into its buffer ---------------
+  auto buf = [&](int s) {
+    return is_state ? S + (s & 1) * L::SBUF : work + (s & 1) * BUF;
+  };
+  // state CTA, step s = (head, 64-row step): x rows [SQ][XST] raw, B rows
+  // [SQ][BST] of its 64 state columns, dt [SQ]
+  const int nb0 = blockIdx.x * SN;
+  const int n_q = (Q + SQ - 1) / SQ;
+  auto issue_state = [&](int s) {
+    float* b = buf(s);
+    const int h = h0 + s / n_q, q0 = (s % n_q) * SQ;
+    for (int idx = tid; idx < SQ * (P / 4); idx += NT) {
+      const int r = idx / (P / 4), c = (idx % (P / 4)) * 4, q = q0 + r;
+      cp16(b + r * XST + c, x + ((row0 + min(q, Q - 1)) * H + h) * P + c,
+           q < Q);
+    }
+    for (int idx = tid; idx < SQ * (SN / 4); idx += NT) {
+      const int r = idx / (SN / 4), c = (idx % (SN / 4)) * 4, q = q0 + r;
+      const int n = nb0 + c;
+      cp16(b + SQ * XST + r * BST + c,
+           Bm + (row0 + min(q, Q - 1)) * N + min(n, N - 4), q < Q && n < N);
+    }
+    if (tid < SQ)
+      cp4(b + SQ * (XST + BST) + tid,
+          dt + (row0 + min(q0 + tid, Q - 1)) * H + h, q0 + tid < Q);
+    cp_commit();
+  };
+  // row-block CTA: steps [0, n_score) are score steps (source tile jt,
+  // 32 state columns: C rows [BQ][CST], B rows [BQ][CST]), then one step
+  // per (head, source tile): x rows [BQ][XST] raw, dt [BQ]
+  const int ib = (gridDim.x - 1) - blockIdx.x;  // heaviest blocks first
+  const int i0 = ib * BQ;
+  const int n_tiles = ib + 1;                   // causal: up to the diagonal
+  const int n_chunks = (N + NCH - 1) / NCH;
+  const int n_score = n_tiles * n_chunks;
+  auto issue_rows = [&](int s) {
+    float* b = buf(s);
+    if (s < n_score) {
+      const int jt = s / n_chunks, n0 = (s % n_chunks) * NCH;
+      for (int idx = tid; idx < BQ * (NCH / 4); idx += NT) {
+        const int r = idx / (NCH / 4), c = (idx % (NCH / 4)) * 4;
+        const int qi = i0 + r, qj = jt * BQ + r, n = n0 + c;
+        const int nn = min(n, N - 4);
+        cp16(b + r * CST + c, Cm + (row0 + min(qi, Q - 1)) * N + nn,
+             qi < Q && n < N);
+        cp16(b + BQ * CST + r * CST + c,
+             Bm + (row0 + min(qj, Q - 1)) * N + nn, qj < Q && n < N);
+      }
+    } else {
+      const int u = s - n_score;
+      const int h = h0 + u / n_tiles, q0 = (u % n_tiles) * BQ;
+      for (int idx = tid; idx < BQ * (P / 4); idx += NT) {
+        const int r = idx / (P / 4), c = (idx % (P / 4)) * 4, q = q0 + r;
+        cp16(b + r * XST + c, x + ((row0 + min(q, Q - 1)) * H + h) * P + c,
+             q < Q);
+      }
+      if (tid < BQ)
+        cp4(b + BQ * XST + tid, dt + (row0 + min(q0 + tid, Q - 1)) * H + h,
+            q0 + tid < Q);
+    }
+    cp_commit();
+  };
+  const int n_steps = is_state ? ng * n_q : n_score + ng * n_tiles;
+  // the first stage's copies fly while acum is summed
+  if (is_state) issue_state(0); else issue_rows(0);
 
   // ---- acum = inclusive cumsum of dt * A over the chunk, per head ------
   for (int idx = tid; idx < ng * Q; idx += NT) {
-    const int g = idx / Q, q = idx - g * Q;
-    acum[g * Q + q] = dt[((size_t)bc * Q + q) * H + h0 + g] * A[h0 + g];
+    const int q = idx / ng, hg = idx - q * ng;
+    acum[hg * Q + q] = dt[(row0 + q) * H + h0 + hg] * A[h0 + hg];
   }
   __syncthreads();
   // in order, one thread per head: the rounding of the plain version's
@@ -143,214 +330,236 @@ __global__ void __launch_bounds__(NT)
   if (tid < ng) {
     float* a = acum + tid * Q;
     float run = 0.f;
+#pragma unroll 8
     for (int q = 0; q < Q; ++q) {
       run += a[q];
       a[q] = run;
     }
   }
-  __syncthreads();
+  // (the first step's barrier publishes acum)
 
-  // ---- chunk states and decays ------------------------------------------
-  if (blockIdx.x == 0) {
-    float* XW = work;                 // [SQ][XST] x * dt * exp(last - acum)
-    float* Bs = work + SQ * XST;      // [SQ][BST]
-    const int tp = tid >> 4, tn = tid & 15;
-    for (int g = 0; g < ng; ++g) {
-      const int h = h0 + g;
-      const float* ag = acum + g * Q;
+  // Each step: start the next step's copies into the other buffer, wait
+  // for this step's, compute, and let every warp finish reading before
+  // the buffer is filled again.
+  auto advance = [&](int s) {
+    if (s + 1 < n_steps) {
+      if (is_state) issue_state(s + 1); else issue_rows(s + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    return buf(s);
+  };
+
+  // Warp tiles: a warp owns 32 rows or columns (w1) of a 64-wide tile;
+  // in y and the states it takes one half (kh) of each step's k-steps,
+  // the two halves' sums meeting through shared memory once per head; in
+  // the scores kh picks the half of the source rows.
+  const int w1 = warp & 1, kh = warp >> 1;
+  const int k_lo = 4 * kh, k_hi = 4 * kh + 4;
+
+  // ---- chunk states (64 columns a CTA) and decays ------------------------
+  if (is_state) {
+    // warp tile: all P rows x state columns nb0 + 32 w1 .. + 31
+    float acc[MT][4][4];
+    for (int s = 0; s < n_steps; ++s) {
+      const float* b = advance(s);
+      const int hg = s / n_q, qs = s % n_q, q0 = qs * SQ;
+      const float* ag = acum + hg * Q;
       const float alast = ag[Q - 1];
-      if (tid == 0) decay[(size_t)bc * H + h] = expf(alast);
-      for (int n0 = 0; n0 < N; n0 += SN) {
-        float acc[PI][4];
+      if (qs == 0) zero(acc);
+      const float* Xh = b;                     // x rows, raw
+      const float* Bs = b + SQ * XST;
+      const float* dts = b + SQ * (XST + BST);
+      const int ksteps = (min(SQ, Q - q0) + 7) / 8;
+      // A (m = p, k = q) = x_q[p] dt_q exp(acum_last - acum_q), read down
+      // the staged rows; rows past Q weigh 0 (exp of 0 there)
+      kloop(acc, k_lo, min(ksteps, k_hi), [&](int ks, Frags<MT, 4>& f) {
+        const int ka = ks * 8 + t, kb = ka + 4;
+        const bool ma = q0 + ka < Q, mb = q0 + kb < Q;
+        const float ea = expf(ma ? alast - ag[q0 + ka] : 0.f);
+        const float eb = expf(mb ? alast - ag[q0 + kb] : 0.f);
+        const float wa = ma ? dts[ka] * ea : 0.f;
+        const float wb = mb ? dts[kb] * eb : 0.f;
 #pragma unroll
-        for (int i = 0; i < PI; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        for (int q0 = 0; q0 < Q; q0 += SQ) {
-          __syncthreads();  // the last step's reads are done
-          for (int idx = tid; idx < SQ * (P / 4); idx += NT) {
-            const int r = idx / (P / 4), c = (idx % (P / 4)) * 4;
-            const int q = q0 + r;
-            float4 v = zero4;
-            if (q < Q) {
-              const size_t row = (size_t)bc * Q + q;
-              const float w = dt[row * H + h] * expf(alast - ag[q]);
-              v = ld4(x + (row * H + h) * P + c);
-              v = make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
-            }
-            st4(XW + r * XST + c, v);
-          }
-          for (int idx = tid; idx < SQ * (SN / 4); idx += NT) {
-            const int r = idx / (SN / 4), c = (idx % (SN / 4)) * 4;
-            const int q = q0 + r, n = n0 + c;
-            float4 v = zero4;
-            if (q < Q && n < N) v = ld4(Bm + ((size_t)bc * Q + q) * N + n);
-            st4(Bs + r * BST + c, v);
-          }
-          __syncthreads();
-          const int kmax = min(SQ, Q - q0);
-          for (int k = 0; k < kmax; ++k) {
-            float xv[PI], bv[4];
-#pragma unroll
-            for (int i = 0; i < PI; ++i) xv[i] = XW[k * XST + tp + 8 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = Bs[k * BST + tn + 16 * j];
-#pragma unroll
-            for (int i = 0; i < PI; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
+        for (int m = 0; m < MT; ++m) {
+          const float* xa = Xh + m * 16 + g;
+          split(xa[ka * XST] * wa, f.ab[m][0], f.as[m][0]);
+          split(xa[kb * XST] * wb, f.ab[m][2], f.as[m][2]);
+          if constexpr (P >= 16) {
+            split(xa[ka * XST + 8] * wa, f.ab[m][1], f.as[m][1]);
+            split(xa[kb * XST + 8] * wb, f.ab[m][3], f.as[m][3]);
+          } else {
+            f.ab[m][1] = f.as[m][1] = f.ab[m][3] = f.as[m][3] = 0u;
           }
         }
+        load_b_kn(Bs + ks * 8 * BST + w1 * 32, BST, g, t, f);
+      });
+      if (qs == n_q - 1) {
+        // the second k-half's sums join the first's through the buffer
+        float* red = buf(s);
+        __syncthreads();
+        if (kh == 1) {
 #pragma unroll
-        for (int i = 0; i < PI; ++i) {
-          const int p = tp + 8 * i;
+          for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tn + 16 * j;
-            if (n < N) st[(((size_t)bc * H + h) * P + p) * N + n] = acc[i][j];
-          }
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                red[((m * 4 + n) * 4 + e) * 64 + tid - 64] = acc[m][n][e];
+        }
+        __syncthreads();
+        const int h = h0 + hg;
+        if (blockIdx.x == 0 && tid == 0)
+          decay[(size_t)bc * H + h] = expf(alast);
+        if (kh == 0) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[m][nt][e] += red[((m * 4 + nt) * 4 + e) * 64 + tid];
+              const int n = nb0 + w1 * 32 + nt * 8 + 2 * t;
+              if (n >= N) continue;
+              float* o =
+                  st + (((size_t)bc * H + h) * P + m * 16 + g) * N + n;
+              st2(o, acc[m][nt][0], acc[m][nt][1]);
+              if constexpr (P >= 16)
+                st2(o + 8 * (size_t)N, acc[m][nt][2], acc[m][nt][3]);
+            }
         }
       }
+      __syncthreads();  // every warp is done with this buffer
     }
     return;
   }
 
   // ---- a block of 64 output rows -----------------------------------------
-  const int ib = (gridDim.x - 1) - blockIdx.x;  // heaviest blocks first
-  const int i0 = ib * BQ;
-  const int n_tiles = ib + 1;                   // causal: up to the diagonal
-  const int tx = tid & 7, ty = tid >> 3;
-
-  // scores S[r][j] = C_{i0 + r} . B_j, shared by the CTA's heads
+  // scores S[r][j] = C_{i0 + r} . B_j, shared by the CTA's heads; warp
+  // tile: rows 32 w1 .. + 31 x source columns 32 kh .. + 31 of each tile
   {
-    float* Cs = work;                 // [BQ][CST]
-    float* Bs = work + BQ * CST;      // [BQ][CST]
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      float s[4][8];
+    float sacc[2][4][4];
+    for (int s = 0; s < n_score; ++s) {
+      const float* b = advance(s);
+      const int jt = s / n_chunks, ch = s % n_chunks;
+      if (ch == 0) zero(sacc);
+      const float* Cs = b;
+      const float* Bs = b + BQ * CST;
+      const int ksteps = (min(NCH, N - ch * NCH) + 7) / 8;
+      kloop(sacc, 0, ksteps, [&](int ks, Frags<2, 4>& f) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-      for (int n0 = 0; n0 < N; n0 += NCH) {
-        const int w4 = min(NCH, N - n0) / 4;
-        __syncthreads();  // the last chunk's reads are done
-        for (int idx = tid; idx < BQ * w4; idx += NT) {
-          const int r = idx / w4, c = (idx % w4) * 4;
-          const int qi = i0 + r, qj = jt * BQ + r;
-          float4 cv = zero4, bv = zero4;
-          if (qi < Q) cv = ld4(Cm + ((size_t)bc * Q + qi) * N + n0 + c);
-          if (qj < Q) bv = ld4(Bm + ((size_t)bc * Q + qj) * N + n0 + c);
-          st4(Cs + r * CST + c, cv);
-          st4(Bs + r * CST + c, bv);
+        for (int m = 0; m < 2; ++m) {
+          const float* ca = Cs + (w1 * 32 + m * 16 + g) * CST + ks * 8 + t;
+          split(ca[0], f.ab[m][0], f.as[m][0]);
+          split(ca[8 * CST], f.ab[m][1], f.as[m][1]);
+          split(ca[4], f.ab[m][2], f.as[m][2]);
+          split(ca[8 * CST + 4], f.ab[m][3], f.as[m][3]);
         }
-        __syncthreads();
-        for (int k = 0; k < 4 * w4; k += 4) {
-          float4 cf[4], bf[8];
+        // B (k = n, n = j): row j of the staged B, as stored
+        const float* bp = Bs + (kh * 32 + g) * CST + ks * 8 + t;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) cf[i] = ld4(Cs + (ty + 16 * i) * CST + k);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) bf[j] = ld4(Bs + (tx + 8 * j) * CST + k);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              float a = s[i][j];
-              a = fmaf(cf[i].x, bf[j].x, a);
-              a = fmaf(cf[i].y, bf[j].y, a);
-              a = fmaf(cf[i].z, bf[j].z, a);
-              a = fmaf(cf[i].w, bf[j].w, a);
-              s[i][j] = a;
-            }
+        for (int n = 0; n < 4; ++n) {
+          split(bp[n * 8 * CST], f.bb[n][0], f.bs[n][0]);
+          split(bp[n * 8 * CST + 4], f.bb[n][1], f.bs[n][1]);
         }
+      });
+      if (ch == n_chunks - 1) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float* o = S + (w1 * 32 + m * 16 + g) * SST + jt * BQ + kh * 32 +
+                       n * 8 + 2 * t;
+            st2(o, sacc[m][n][0], sacc[m][n][1]);
+            st2(o + 8 * SST, sacc[m][n][2], sacc[m][n][3]);
+          }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          S[(ty + 16 * i) * SST + jt * BQ + tx + 8 * j] = s[i][j];
+      __syncthreads();
     }
   }
 
-  // per head: y_i = sum_j W_ij (dt_j x_j) over the source tiles
-  float* Ws = work;                   // [BQ][WST]
-  float* Xs = work + BQ * WST;        // [BQ][XST]
-  for (int g = 0; g < ng; ++g) {
-    const int h = h0 + g;
-    const float* ag = acum + g * Q;
-    float acc[4][NC][VW];
+  // per head: y_i = sum_{j <= i} S_ij exp(acum_i - acum_j) dt_j x_j over
+  // the source tiles; warp tile: rows 32 w1 .. + 31 x all P columns,
+  // k-steps 4 kh .. 4 kh + 3 of each tile
+  const int r0 = w1 * 32;                       // the warp's first row
+  float acc[2][NTY][4];
+  float ar[2][2];                               // acum of the lane's rows
+  for (int s = n_score; s < n_steps; ++s) {
+    const float* b = advance(s);
+    const int u = s - n_score, hg = u / n_tiles, jt = u % n_tiles;
+    const float* ag = acum + hg * Q;
+    if (jt == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int jc = 0; jc < NC; ++jc)
+        for (int hi = 0; hi < 2; ++hi) {
+          const int i = i0 + r0 + m * 16 + hi * 8 + g;
+          ar[m][hi] = i < Q ? ag[i] : 0.f;
+        }
+      zero(acc);
+    }
+    const float* Xs = b;                        // x rows, raw
+    const float* dts = b + BQ * XST;
+    int ksteps = (min(BQ, Q - jt * BQ) + 7) / 8;
+    if (jt == ib) ksteps = min(ksteps, (r0 + 32) / 8);  // j <= the warp's rows
+    // W = S * exp(acum_i - acum_j) * dt_j where j <= i < Q, else exactly
+    // 0; exp is taken of 0 there, never of an argument above the diagonal
+    kloop(acc, k_lo, min(ksteps, k_hi), [&](int ks, Frags<2, NTY>& f) {
+      const int ka = ks * 8 + t, kb = ka + 4;
+      const int ja = jt * BQ + ka, jb = ja + 4;
+      const float gja = ag[ja], gjb = ag[jb], da = dts[ka], db = dts[kb];
 #pragma unroll
-        for (int e = 0; e < VW; ++e) acc[i][jc][e] = 0.f;
-
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      __syncthreads();  // S written; the last tile's Ws/Xs reads are done
+      for (int m = 0; m < 2; ++m) {
+        const float* sp = S + (r0 + m * 16 + g) * SST + ja;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i, qi = i0 + r;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = tx + 8 * j, qj = jt * BQ + c;
-          float wv = 0.f;
-          if (qj <= qi && qi < Q)
-            wv = S[r * SST + jt * BQ + c] * expf(ag[qi] - ag[qj]);
-          Ws[r * WST + c] = wv;
+        for (int e = 0; e < 4; ++e) {   // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+          const int hi = e & 1, kj = e >> 1;
+          const int i = i0 + r0 + m * 16 + hi * 8 + g;
+          const bool on = i < Q && (kj ? jb : ja) <= i;
+          const float ex = expf(on ? ar[m][hi] - (kj ? gjb : gja) : 0.f);
+          const float sv = sp[hi * 8 * SST + kj * 4];
+          split(on ? sv * ex * (kj ? db : da) : 0.f, f.ab[m][e], f.as[m][e]);
         }
       }
-      for (int idx = tid; idx < BQ * (P / 4); idx += NT) {
-        const int r = idx / (P / 4), c = (idx % (P / 4)) * 4;
-        const int q = jt * BQ + r;
-        float4 v = zero4;
-        if (q < Q) {
-          const size_t row = (size_t)bc * Q + q;
-          const float d = dt[row * H + h];
-          v = ld4(x + (row * H + h) * P + c);
-          v = make_float4(v.x * d, v.y * d, v.z * d, v.w * d);
-        }
-        st4(Xs + r * XST + c, v);
+      load_b_kn(Xs + ks * 8 * XST, XST, g, t, f);
+    });
+    if (jt == n_tiles - 1) {
+      // the second k-half's sums join the first's through the spent buffer
+      float* red = buf(s);
+      __syncthreads();
+      if (kh == 1) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < NTY; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              red[((m * NTY + n) * 4 + e) * 64 + tid - 64] = acc[m][n][e];
       }
       __syncthreads();
-
-#pragma unroll 2
-      for (int c = 0; c < BQ; c += 4) {
-        float4 wf[4];
+      if (kh == 0) {
+        const int h = h0 + hg;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) wf[i] = ld4(Ws + (ty + 16 * i) * WST + c);
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
+          for (int n = 0; n < NTY; ++n) {
 #pragma unroll
-          for (int jc = 0; jc < NC; ++jc) {
-            float xv[VW];
-            load_vec<VW>(Xs + (c + cc) * XST + jc * 8 * VW + tx * VW, xv);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float w = cc == 0   ? wf[i].x
-                              : cc == 1 ? wf[i].y
-                              : cc == 2 ? wf[i].z
-                                        : wf[i].w;
-#pragma unroll
-              for (int e = 0; e < VW; ++e)
-                acc[i][jc][e] = fmaf(w, xv[e], acc[i][jc][e]);
-            }
+            for (int e = 0; e < 4; ++e)
+              acc[m][n][e] += red[((m * NTY + n) * 4 + e) * 64 + tid];
+            const int col = n * 8 + 2 * t;
+            const int ia = i0 + r0 + m * 16 + g, ic = ia + 8;
+            if (ia < Q)
+              st2(y + ((row0 + ia) * H + h) * P + col, acc[m][n][0],
+                  acc[m][n][1]);
+            if (ic < Q)
+              st2(y + ((row0 + ic) * H + h) * P + col, acc[m][n][2],
+                  acc[m][n][3]);
           }
-        }
       }
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i0 + ty + 16 * i;
-      if (r >= Q) continue;
-      float* orow = y + (((size_t)bc * Q + r) * H + h) * P;
-#pragma unroll
-      for (int jc = 0; jc < NC; ++jc)
-#pragma unroll
-        for (int e = 0; e < VW; ++e)
-          orow[jc * 8 * VW + tx * VW + e] = acc[i][jc][e];
-    }
+    __syncthreads();
   }
 }
 
@@ -363,7 +572,8 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
       ssd_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(1 + (Q + BQ - 1) / BQ, (H + HG - 1) / HG, BC);
+  const dim3 grid((N + SN - 1) / SN + (Q + BQ - 1) / BQ, (H + HG - 1) / HG,
+                  BC);
   ssd_chunk_kernel<P><<<grid, NT, smem, stream>>>(x, dt, A, Bm, Cm, y, st,
                                                   decay, Q, H, N);
   return (int)cudaGetLastError();

@@ -302,10 +302,12 @@ def _ssd_close(got, want, tol=1e-4):
 @pytest.mark.parametrize("B,c,Q,H,P,N", [
     (1, 4, 8, 2, 8, 8), (2, 4, 16, 4, 8, 16), (2, 4, 32, 2, 16, 32),
     (2, 3, 37, 3, 32, 16), (1, 2, 100, 9, 64, 64), (2, 1, 256, 5, 64, 128),
-    (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128)])
+    (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128), (1, 3, 37, 3, 32, 12),
+    (2, 1, 193, 11, 64, 20)])
 def test_ssd_chunk_kernel_matches_ref(cuda, B, c, Q, H, P, N):
     """The chunk kernel against its plain version (1e-4): the JAX test
-    shapes' chunks, odd Q, ragged head groups and the path's P/N 64/128."""
+    shapes' chunks, odd Q, Q and N not multiples of 8, ragged head groups
+    (at P 16 and 64) and the path's P/N 64/128."""
     ins = _ssd_inputs((B, c, Q), H, P, N, seed=B + c + Q + H, device=cuda)
     before = SK.ssd_chunk.launches
     got = SK.ssd_chunk(*ins)
@@ -313,6 +315,26 @@ def test_ssd_chunk_kernel_matches_ref(cuda, B, c, Q, H, P, N):
     assert SK.ssd_chunk.launches == before + 1
     assert [tuple(g.shape) for g in got] == [
         (B, c, Q, H, P), (B, c, H, P, N), (B, c, H)]
+    _ssd_close(got, ssd_chunk_batched_ref(*ins))
+
+
+@pytest.mark.parametrize("Q,P,N", [(256, 64, 128), (200, 32, 20)])
+def test_ssd_chunk_kernel_steep_decay(cuda, Q, P, N):
+    """dt near 0.1 and A near -16: acum falls by ~1.6 a row, so
+    exp(acum_i - acum_j) above the diagonal overflows float32.  The
+    kernel never evaluates it there: its outputs are finite and within
+    1e-4 of the plain version, the decays underflow to 0 as there."""
+    rng = np.random.default_rng(Q + P + N)
+    lead, H = (2, 2, Q), 11
+    mk = lambda a: torch.as_tensor(a.astype(np.float32),  # noqa: E731
+                                   device=cuda)
+    ins = (mk(rng.standard_normal(lead + (H, P))),
+           mk(rng.uniform(0.09, 0.11, lead + (H,))),
+           mk(-rng.uniform(15.0, 16.0, H)),
+           mk(rng.standard_normal(lead + (N,))),
+           mk(rng.standard_normal(lead + (N,))))
+    got = SK.ssd_chunk(*ins)
+    torch.cuda.synchronize()
     _ssd_close(got, ssd_chunk_batched_ref(*ins))
 
 

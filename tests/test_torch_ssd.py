@@ -197,3 +197,121 @@ def test_op_checks_its_arguments():
     yp, hp = O.ssd_chunked(x, dt, A, Bm, Cm, 8, impl="plain")
     torch.testing.assert_close(yk, yp, rtol=0, atol=0)
     torch.testing.assert_close(hk, hp, rtol=0, atol=0)
+
+
+# -- the kernel's precision scheme, emulated ---------------------------------
+#
+# The CUDA kernel runs its three products (C.B^T, W.x and the chunk
+# states) on the tensor cores as 3xTF32: each operand a splits into
+# big = tf32(a) and small = tf32(a - big), rounded to nearest with ties
+# away from zero, and a.b is accumulated in float32 as
+# small.big + big.small + big.big.  The kernel itself runs only on the
+# card; these tests hold its arithmetic, emulated here, to the card
+# tests' element-wise gate, and show that a bf16 split with three
+# products would not hold it.
+
+# the shapes of the card test of the chunk kernel (B, c, Q, H, P, N)
+CARD_SHAPES = [(1, 4, 8, 2, 8, 8), (2, 4, 16, 4, 8, 16), (2, 4, 32, 2, 16, 32),
+               (2, 3, 37, 3, 32, 16), (1, 2, 100, 9, 64, 64),
+               (2, 1, 256, 5, 64, 128), (1, 1, 1, 2, 8, 8),
+               (1, 2, 193, 17, 16, 128), (1, 3, 37, 3, 32, 12),
+               (2, 1, 193, 11, 64, 20)]
+
+
+def _tf32(a):
+    """float32 -> TF32 (10 mantissa bits), to nearest, ties away from
+    zero: cvt.rna.tf32.f32 on the int32 view, as the kernel does it."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(a):
+    big = _tf32(a)
+    return big, _tf32(a - big)
+
+
+def _split_bf16(a):
+    big = a.bfloat16().float()
+    return big, (a - big).bfloat16().float()
+
+
+def _mm3(a, b, split):
+    """a @ b from three products of split operands, float32 sums."""
+    ab, as_ = split(a)
+    bb, bs = split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _ssd_emulated(x, dt, A, Bm, Cm, split=_split_tf32):
+    """The chunk step as the kernel computes it: scores S = C.B^T, then
+    W = S * exp(acum_i - acum_j) * dt_j where j <= i (exp evaluated only
+    there, exactly 0 elsewhere) against x, and the states X^T.B with
+    X = x (dt exp(acum_last - acum)), every product through ``split``."""
+    Q = x.shape[2]
+    acum = torch.cumsum(dt * A, dim=2)                           # (B,c,Q,H)
+    S = _mm3(Cm, Bm.transpose(-1, -2), split)                    # (B,c,i,j)
+    ar = torch.arange(Q)
+    mask = (ar[:, None] >= ar[None, :])[..., None]               # (i,j,1)
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]       # (B,c,i,j,H)
+    W = torch.where(mask, S[..., None] * torch.exp(
+        torch.where(mask, diff, 0.0)) * dt[:, :, None], 0.0)
+    y = _mm3(W.permute(0, 1, 4, 2, 3), x.permute(0, 1, 3, 2, 4),
+             split).permute(0, 1, 3, 2, 4)
+    xh = x * (dt * torch.exp(acum[:, :, -1:, :] - acum))[..., None]
+    state = _mm3(xh.permute(0, 1, 3, 4, 2), Bm[:, :, None], split)
+    return y, state, torch.exp(acum[:, :, -1, :])
+
+
+@pytest.mark.parametrize("B,c,Q,H,P,N", CARD_SHAPES)
+def test_3xtf32_emulation_holds_the_card_gate(B, c, Q, H, P, N):
+    """The kernel's 3xTF32 arithmetic against the plain version at the
+    card test's shapes and gate (rtol = atol = 1e-4, element by element),
+    and against the Pallas kernel in interpret mode.  At Q 193-256 with
+    N 128 the float32 plain version and the Pallas kernel differ from
+    each other by up to 2.5x that gate (the cumsum and the products
+    summed in other orders by PyTorch and XLA), so against Pallas the
+    emulation is held to the plain version's own distance plus the
+    gate."""
+    ins = _inputs((B, c, Q), H, P, N, seed=B + c + Q + H)
+    got = _ssd_emulated(*_t(*ins))
+    plain = ssd_chunk_batched_ref(*_t(*ins))
+    pallas = ssd_chunk_pallas(*_j(*ins), interpret=True)
+    for g, w, pw in zip(got, plain, pallas):
+        assert bool(torch.isfinite(g).all())
+        _close(g.numpy(), w.numpy())
+        pw = torch.as_tensor(np.array(pw))
+        assert bool(((g - pw).abs() <= (w - pw).abs() + TOL["atol"]
+                     + TOL["rtol"] * pw.abs()).all())
+
+
+def test_3xtf32_emulation_steep_decay():
+    """dt near 0.1 and A near -16: acum falls by ~1.6 a row, so exp above
+    the diagonal would overflow; the emulated kernel stays finite and
+    within the gate."""
+    rng = np.random.default_rng(7)
+    f = np.float32
+    lead, H, P, N = (1, 2, 256), 3, 64, 128
+    x = rng.standard_normal(lead + (H, P)).astype(f)
+    dt = rng.uniform(0.09, 0.11, lead + (H,)).astype(f)
+    A = (-rng.uniform(15.0, 16.0, H)).astype(f)
+    Bm = rng.standard_normal(lead + (N,)).astype(f)
+    Cm = rng.standard_normal(lead + (N,)).astype(f)
+    ins = (x, dt, A, Bm, Cm)
+    got = _ssd_emulated(*_t(*ins))
+    for g, w in zip(got, ssd_chunk_batched_ref(*_t(*ins))):
+        assert bool(torch.isfinite(g).all())
+        _close(g.numpy(), w.numpy())
+
+
+def test_split_bf16_misses_the_card_gate():
+    """The contrast: a bf16 split with three products (hi.hi + hi.lo +
+    lo.hi) misses the element-wise 1e-4 gate at the path's P and N."""
+    B, c, Q, H, P, N = 2, 1, 256, 5, 64, 128
+    ins = _t(*_inputs((B, c, Q), H, P, N, seed=B + c + Q + H))
+    want = ssd_chunk_batched_ref(*ins)
+    worst = {}
+    for name, split in (("tf32", _split_tf32), ("bf16", _split_bf16)):
+        got = _ssd_emulated(*ins, split=split)
+        worst[name] = max(float(((g - w).abs() / (1e-4 + 1e-4 * w.abs()))
+                                .max()) for g, w in zip(got, want))
+    assert worst["tf32"] <= 1.0 < worst["bf16"], worst
