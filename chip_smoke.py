@@ -20,12 +20,19 @@ failed check raises and exits non-zero):
    streams (exact epochs and last q-bar to rtol 1e-4, except where f32
    crosses the exact convergence threshold apart from f64 and the f32
    per-queue run_monitor agrees with the kernel), and in full mode on a
-   4096-stream slice against the plain version;
+   4096-stream slice against the plain version; then at the service's
+   dispatch shape (S, 32) from that mid-stream state, on the time-major
+   tile the service passes and on the row-major form, each against the
+   plain version (window and fill bit-equal, epochs on >= 99.9%, q-bar
+   to 1e-4) and the two layouts bit-equal to each other;
 4. the main path: ``FleetMonitorService`` over 1e5 InstrumentedQueues with
    ends="both" (S = 2e5) in one CounterArena for 640 ticks, counts written
    into the arena each tick; it must recover every configured rate within
    5%, converge every stream, and launch ``monitor_fleet`` once per
-   dispatch plus the warm-up;
+   dispatch plus the warm-up; then the device time of one dispatch in the
+   service's form (the (32, S) staging uploaded as it is and read as its
+   time-major view) and, on the host clock, the transpose-copies of that
+   staging the service no longer makes;
 5. the per-tick path: ``fleet_monitor_step`` over 2e5 windows for 64 ticks,
    one ``batched_monitor`` launch per tick;
 6. ``flash_attention`` against its plain version on the card: the JAX
@@ -65,7 +72,12 @@ failed check raises and exits non-zero):
    other);
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
-   its launches, as one JSON line.
+   its launches, as one JSON line; the two monitor kernels, whose device
+   time is near or below a call's host cost from Python, by the replay of
+   a CUDA graph of many calls on inputs that together exceed the L2
+   cache (``graph_ms``), with the row-major form, the SASS issue
+   estimate of the fold, bf16, warm-cache and per-call times in the
+   ``service`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -76,6 +88,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -155,6 +169,35 @@ def event_ms(torch, fn, reps: int, warm: int = 2) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fns, reps: int) -> float:
+    """Mean device time of a call: ``reps`` calls, taking the functions
+    ``fns`` in turn, captured in one CUDA graph and replayed, so the
+    host's cost of each call from Python (the wrapper's checks,
+    allocations and the launch) does not enter.  Functions on inputs
+    that together exceed the 50 MB L2 cache find them in device memory,
+    as the bound assumes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:                        # build, load, allocate
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
@@ -291,70 +334,194 @@ def fleet_bound(Q, T, m, W, CW):
                                  else "operations"), nbytes, flops
 
 
-def kernel_fleet_at_path(torch, K, M, ref, ops, st_seed, rng, dev):
-    """The service's dispatch shape: the kernel against its plain version
-    on one (S, 32) tile from a mid-stream state, then both timed."""
-    cfg = M.MonitorConfig()
-    tc, blocked = noisy_streams(rng, N_STREAMS, SVC_CHUNK)
-    comp, m, _ = ops._compact(torch.as_tensor(tc, device=dev),
-                              torch.as_tensor(blocked, device=dev))
-    st_k, st_r = clone_state(st_seed), clone_state(st_seed)
-    K.monitor_fleet(cfg, st_k, comp, m, full=False)
-    carry, _ = ref.monitor_fleet_ref(cfg, st_r, comp, m)
-    win_r = ref.window_carry(st_r.win, comp, m)
-    torch.cuda.synchronize()
+def sass_step_instructions(lib, kernel):
+    """Static SASS instructions of one step of the fleet kernel's fold:
+    the innermost loop of ``kernel`` (a substring of its mangled name)
+    that holds a square root, counted from ``cuobjdump -sass`` of the
+    built library.  Every branch of the step is in the count (the
+    ready/converged paths included), the out-of-line slow paths of
+    division and square root are not.  None where cuobjdump is missing
+    or the loop is not found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs if f.split("\n", 1)[0].find(kernel) >= 0),
+                None)
+    if body is None:
+        return None
+    ins = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    sqrt_at = [a for a, op in ins if "MUFU.RSQ" in op or "MUFU.SQRT" in op]
+    best = None
+    for a, op in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+        if not m or int(m.group(1), 16) >= a:
+            continue
+        lo = int(m.group(1), 16)
+        if not any(lo <= x <= a for x in sqrt_at):
+            continue
+        if best is None or a - lo < best[1] - best[0]:
+            best = (lo, a)
+    if best is None:
+        return None
+    return sum(1 for a, _ in ins if best[0] <= a <= best[1])
+
+
+def issue_ms(torch, instructions, steps):
+    """Least time to issue ``instructions`` per step over ``steps``
+    queue-steps: one warp instruction per scheduler per cycle, 4
+    schedulers an SM, at the card's maximum SM clock."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions * steps / 32 / (sms * 4 * mhz * 1e6) * 1e3
+
+
+def _fleet_gate(torch, what, st_k, carry, win_r):
+    """The kernel's state after one dispatch against the plain version's:
+    window and fill bit-equal, epochs equal on >= 99.9% of streams, q-bar
+    within 1e-4 of the largest |q-bar| where epochs agree.  Returns the
+    largest error."""
     (s_fill, count, mean, m2, qh, sh, rh, epoch, last) = carry
     agree = (st_k.epoch == epoch)
     check(float(agree.float().mean()) >= 0.999,
-          "service-shape dispatch: epochs differ on > 0.1% of streams")
-    check(bool(torch.equal(st_k.win, win_r)), "window carry differs")
-    check(bool(torch.equal(st_k.s_fill, s_fill)), "s_fill differs")
+          f"{what}: epochs differ on > 0.1% of streams")
+    check(bool(torch.equal(st_k.win, win_r)), f"{what}: window carry differs")
+    check(bool(torch.equal(st_k.s_fill, s_fill)), f"{what}: s_fill differs")
     err = max(float((st_k.mean - mean)[agree].abs().max()),
               float((st_k.last_qbar - last)[agree].abs().max()))
     tol = 1e-4 * float(mean.abs().max())
-    check(err <= tol, f"service-shape dispatch: q-bar err {err} > {tol}")
-    log(f"monitor_fleet at the service shape ({N_STREAMS}, {SVC_CHUNK}): "
-        f"max abs err {err:.3e} (tol {tol:.3e})")
+    check(err <= tol, f"{what}: q-bar err {err} > {tol}")
+    log(f"monitor_fleet {what}: max abs err {err:.3e} (tol {tol:.3e})")
+    return err
 
-    work = clone_state(st_seed)
-    ms = event_ms(torch, lambda: K.monitor_fleet(cfg, work, comp, m,
-                                                 full=False), reps=20)
+
+def _staged_tile(torch, ops, rng, T, dev):
+    """A (S, T) tile as the service stages it -- (T, S) on the card --
+    compacted as the service's time-major view and as a row-major copy."""
+    tc, blocked = noisy_streams(rng, N_STREAMS, T)
+    tc_s = torch.as_tensor(np.ascontiguousarray(tc.T), device=dev)
+    blk_s = torch.as_tensor(np.ascontiguousarray(blocked.T), device=dev)
+    time_major = ops._compact(tc_s.T, blk_s.T)
+    row_major = ops._compact(tc_s.T.contiguous(), blk_s.T.contiguous())
+    check(time_major[0].stride(0) == 1 and row_major[0].stride(1) == 1,
+          "compaction lost the tile's layout")
+    check(bool(torch.equal(time_major[1], row_major[1])),
+          "the two layouts' valid counts differ")
+    return time_major[:2], row_major[:2]
+
+
+def kernel_fleet_at_path(torch, K, M, ref, ops, st_seed, rng, dev, sass,
+                         seed):
+    """The service's dispatch shape: the kernel on the time-major tile
+    the service passes (the .T of its (32, S) staging) and on the
+    row-major form, each against its plain version on the same tile from
+    a mid-stream state, the two layouts bit-equal to each other; then
+    both timed, and at T = 256."""
+    cfg = M.MonitorConfig()
+    (comp_t, m), (comp_r, _) = _staged_tile(torch, ops, rng, SVC_CHUNK, dev)
+    carry, _ = ref.monitor_fleet_ref(cfg, st_seed, comp_r, m)
+    win_r = ref.window_carry(st_seed.win, comp_r, m)
+    st_t, st_r = clone_state(st_seed), clone_state(st_seed)
+    K.monitor_fleet(cfg, st_t, comp_t, m, full=False)
+    K.monitor_fleet(cfg, st_r, comp_r, m, full=False)
+    torch.cuda.synchronize()
+    err = max(_fleet_gate(torch, f"time-major ({N_STREAMS}, {SVC_CHUNK})",
+                          st_t, carry, win_r),
+              _fleet_gate(torch, f"row-major ({N_STREAMS}, {SVC_CHUNK})",
+                          st_r, carry, win_r))
+    check(all(bool(torch.equal(a, b)) for a, b in zip(st_t, st_r)),
+          "monitor_fleet: the time-major and row-major tiles disagree")
+
+    # device time by graph replay over two (state, tile) pairs, 2 x 107
+    # MB, past the 50 MB L2; then the time of one call from Python, as
+    # back-to-back calls give it (the wrapper's host work included).  The
+    # second tile draws from a generator of its own, so the later phases'
+    # inputs do not depend on how many tiles are timed here.
+    own = np.random.default_rng((seed, 17))
+    tiles = [((comp_t, m), (comp_r, m)),
+             tuple(_staged_tile(torch, ops, own, SVC_CHUNK, dev))]
+    works = [clone_state(st_seed) for _ in tiles]
+
+    def timed(layout, pairs, reps):
+        return graph_ms(torch, [
+            lambda w=w, t=t: K.monitor_fleet(cfg, w, *t[layout], full=False)
+            for w, t in zip(works, pairs)], reps)
+
+    ms, ms_row = timed(0, tiles, 20), timed(1, tiles, 20)
+    call_ms = event_ms(torch, lambda: K.monitor_fleet(
+        cfg, works[0], comp_t, m, full=False), reps=20)
     plain_ms = event_ms(torch, lambda: (
-        ref.monitor_fleet_ref(cfg, st_r, comp, m),
-        ref.window_carry(st_r.win, comp, m)), reps=3, warm=1)
+        ref.monitor_fleet_ref(cfg, st_seed, comp_r, m),
+        ref.window_carry(st_seed.win, comp_r, m)), reps=3, warm=1)
     bound_ms, bound_by, nbytes, flops = fleet_bound(
         N_STREAMS, SVC_CHUNK, m, cfg.window, cfg.conv_window)
+    steps = int(m.sum())
+    est = None if sass is None else issue_ms(torch, sass, steps)
     # the same at T = 256, the fleet phase's chunk, for the record
-    tc2, blk2 = noisy_streams(rng, N_STREAMS, CHUNK)
-    comp2, m2_, _ = ops._compact(torch.as_tensor(tc2, device=dev),
-                                 torch.as_tensor(blk2, device=dev))
-    ms256 = event_ms(torch, lambda: K.monitor_fleet(cfg, work, comp2, m2_,
-                                                    full=False), reps=10)
-    b256 = fleet_bound(N_STREAMS, CHUNK, m2_, cfg.window, cfg.conv_window)
-    log(f"monitor_fleet timing (state mode, {N_STREAMS} streams): "
-        f"T={SVC_CHUNK}"
-        f" {ms:.4f} ms (bound {bound_ms:.4f} ms, {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.2f} ms; T={CHUNK} "
-        f"{ms256:.4f} ms (bound {b256[0]:.4f} ms, {b256[2] / 1e6:.1f} MB)")
+    t256 = [tuple(_staged_tile(torch, ops, rng, CHUNK, dev))]
+    ms256, ms256_row = timed(0, t256, 6), timed(1, t256, 6)
+    b256 = fleet_bound(N_STREAMS, CHUNK, t256[0][0][1], cfg.window,
+                       cfg.conv_window)
+    log(f"monitor_fleet timing (state mode, {N_STREAMS} streams, device "
+        f"time by graph replay): T={SVC_CHUNK} time-major {ms:.4f} ms, "
+        f"row-major {ms_row:.4f} ms (bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; issue "
+        "estimate " + ("not measured" if est is None else
+                       f"{est:.4f} ms from {sass} SASS instructions a step "
+                       f"x {steps} steps") + f"); one call from Python "
+        f"{call_ms:.4f} ms; plain {plain_ms:.2f} ms; T={CHUNK} time-major "
+        f"{ms256:.4f} ms, row-major {ms256_row:.4f} ms (bound "
+        f"{b256[0]:.4f} ms, {b256[2] / 1e6:.1f} MB)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "ms_T256": ms256, "bound_ms_T256": b256[0]}
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_row_major": ms_row,
+            "call_ms": call_ms, "sass_step_instructions": sass,
+            "issue_ms": est, "ms_T256": ms256, "ms_T256_row_major": ms256_row,
+            "bound_ms_T256": b256[0]}
 
 
-def kernel_batched_at_path(torch, K, ref, rng, dev, err):
-    x = torch.as_tensor(rng.uniform(0, 500, (WINDOW_Q, 32)).astype(
-        np.float32), device=dev)
-    ms = event_ms(torch, lambda: K.batched_monitor(x), reps=50)
-    plain_ms = event_ms(torch, lambda: ref.batched_monitor_ref(x), reps=20)
+def kernel_batched_at_path(torch, K, ref, rng, dev, err, seed):
+    """Device time by graph replay over 6 inputs (154 MB in f32, 77 MB in
+    bf16: past the L2), warm on one input, and one call from Python.  The
+    first input comes from ``rng``, the other five from a generator of
+    their own (the later phases' inputs stay as they were)."""
+    own = np.random.default_rng((seed, 18))
+    xs = [torch.as_tensor(gen.uniform(0, 500, (WINDOW_Q, 32)).astype(
+        np.float32), device=dev) for gen in [rng] + [own] * 5]
+    xbs = [x.to(torch.bfloat16) for x in xs]
+
+    def timed(ins):
+        return graph_ms(torch, [lambda x=x: K.batched_monitor(x)
+                                for x in ins], 48)
+
+    ms, ms_bf16, ms_warm = timed(xs), timed(xbs), timed(xs[:1])
+    call_ms = event_ms(torch, lambda: K.batched_monitor(xs[0]), reps=50)
+    plain_ms = event_ms(torch, lambda: ref.batched_monitor_ref(xs[0]),
+                        reps=20)
     n_out = 32 - 4
-    nbytes = WINDOW_Q * 32 * 4 + 3 * WINDOW_Q * 4
     flops = WINDOW_Q * (2 * n_out * 9 + 3 * n_out + 6)
-    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    log(f"batched_monitor timing ({WINDOW_Q}, 32) f32: {ms:.4f} ms "
-        f"(bound {max(t_b, t_o):.4f} ms), plain {plain_ms:.4f} ms")
+    t_o = flops / PEAK_F32_FLOPS * 1e3
+
+    def bound(size):
+        return max(WINDOW_Q * (32 * size + 3 * 4) / PEAK_BYTES_S * 1e3, t_o)
+
+    t_b = bound(4)
+    log(f"batched_monitor timing ({WINDOW_Q}, 32), device time by graph "
+        f"replay: f32 {ms:.4f} ms (bound {t_b:.4f} ms; warm in L2 "
+        f"{ms_warm:.4f} ms), bf16 {ms_bf16:.4f} ms (bound {bound(2):.4f} "
+        f"ms); one call from Python {call_ms:.4f} ms; plain f32 "
+        f"{plain_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+            "bound_ms": t_b, "bound_by": "bytes" if t_b > t_o
+            else "operations", "ms_bf16": ms_bf16, "bound_ms_bf16": bound(2),
+            "ms_warm": ms_warm, "call_ms": call_ms}
 
 
 def phase_service(torch, K, M, S, dev):
@@ -416,28 +583,40 @@ def phase_service(torch, K, M, S, dev):
         f"{np.median(tick_us):.1f}), dispatch ticks {np.mean(dispatch_us):.1f}"
         f" us (median {np.median(dispatch_us):.1f}), host clock")
 
-    # device time of one dispatch's work (upload + compaction + kernel +
-    # readback) at this shape, CUDA events
-    rates = np.concatenate([mu, lam]).astype(np.float32)
-    tc_h = torch.from_numpy(np.repeat(rates[:, None], SVC_CHUNK, axis=1)
-                            ).pin_memory()
-    blk_h = torch.zeros(tc_h.shape, dtype=torch.bool).pin_memory()
+    # device time of one dispatch's work at this shape, CUDA events, in
+    # the service's form: the (32, S) staging up as it is, its time-major
+    # view compacted and scanned, the state updated in place, unpadded
+    rates = np.concatenate([mu, lam])
+    stage = np.repeat(rates[None, :], SVC_CHUNK, axis=0)      # f64, as staged
+    stage_blk = np.zeros(stage.shape, dtype=bool)
+    tc_h = torch.from_numpy(stage.astype(np.float32)).pin_memory()
+    blk_h = torch.from_numpy(stage_blk).pin_memory()
     state = M.fleet_monitor_init(cfg, svc.n_streams, device=dev)
 
     def one_dispatch():
         tcd = tc_h.to(dev, non_blocking=True)
         bd = blk_h.to(dev, non_blocking=True)
-        M.run_monitor_fleet(cfg, tcd, bd, state=state, chunk_t=SVC_CHUNK,
-                            mode="state", block_q=svc.block_q, donate=True,
+        M.run_monitor_fleet(cfg, tcd.T, bd.T, state=state, chunk_t=SVC_CHUNK,
+                            mode="state", donate=True, pad_q=False,
                             device=dev)
 
     d_ms = event_ms(torch, one_dispatch, reps=5)
-    log(f"dispatch device time (H2D + compaction + kernel): {d_ms:.3f} ms")
+    # the host transpose-copies the service made before each dispatch
+    # until it read the time-major tile, timed alone on this host
+    t0 = time.perf_counter()
+    for _ in range(5):
+        np.ascontiguousarray(stage.T)
+        np.ascontiguousarray(stage_blk.T)
+    transpose_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"dispatch device time (H2D + compaction + kernel): {d_ms:.3f} ms; "
+        f"the host transpose of the ({SVC_CHUNK}, {svc.n_streams}) staging "
+        f"it no longer makes: {transpose_ms:.3f} ms (host clock)")
     svc.stop()
     return launches["monitor_fleet"], {
         "collector_us_per_tick": float(np.mean(tick_us)),
         "dispatch_tick_us": float(np.mean(dispatch_us)),
-        "dispatch_ms": d_ms, "max_rate_err": err}
+        "dispatch_ms": d_ms, "transpose_ms_removed": transpose_ms,
+        "max_rate_err": err}
 
 
 def phase_step_path(torch, K, O, M, rng, dev):
@@ -1248,6 +1427,12 @@ def main() -> int:
                 f"{r['registers']} registers, {r['spill_stores']}/"
                 f"{r['spill_loads']} B spill stores/loads, {r['stack']} B "
                 f"stack, {r['smem']} B static smem")
+    sass = sass_step_instructions(libs[0], "monitor_fleet_kernelILi32ELi16E"
+                                  "Li2ELb0ELb1E")
+    log(f"  monitor_fleet (state mode, time-major, 32/16/2): dynamic smem "
+        f"{K.fleet_shared_memory_bytes(M.MonitorConfig())} B a CTA, "
+        f"{sass if sass is not None else 'not measured'} SASS "
+        f"instructions in one step of the fold")
     log("  flash_attention dynamic smem (B): " + ", ".join(
         f"hd {hd} bf16 {AK.shared_memory_bytes(hd, torch.bfloat16)} f32 "
         f"{AK.shared_memory_bytes(hd, torch.float32)}"
@@ -1255,12 +1440,13 @@ def main() -> int:
 
     b_err = phase_batched(torch, K, R, rng, dev)
     st_seed = phase_fleet(torch, K, M, R, rng, dev)
-    fleet = kernel_fleet_at_path(torch, K, M, R, O, st_seed, rng, dev)
+    fleet = kernel_fleet_at_path(torch, K, M, R, O, st_seed, rng, dev, sass,
+                                 args.seed)
     del st_seed
     fleet_launches, svc = phase_service(torch, K, M, S, dev)
     step_launches = phase_step_path(torch, K, O, M, rng, dev)
     batched = kernel_batched_at_path(torch, K, R, rng, dev,
-                                     max(b_err.values()))
+                                     max(b_err.values()), args.seed)
     flash_err = phase_flash(torch, AK, AR, rng, dev, args.seed)
     flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
     model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
@@ -1313,8 +1499,19 @@ def main() -> int:
         "ms", "library_ms", "turns_ms", "f32_ms", "tflops", "tile_tflops")}}))
     log(json.dumps({"ssd": {k: ssd[k] for k in (
         "ms", "bound_ms", "plain_ms", "tflops", "own_tflops")}}))
-    extra = {"monitor_fleet_T256_ms": fleet["ms_T256"],
-             "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"], **svc}
+    extra = {"monitor_fleet_row_major_ms": fleet["ms_row_major"],
+             "monitor_fleet_call_ms": fleet["call_ms"],
+             "batched_monitor_warm_ms": batched["ms_warm"],
+             "batched_monitor_call_ms": batched["call_ms"],
+             "monitor_fleet_sass_step_instructions":
+                 fleet["sass_step_instructions"],
+             "monitor_fleet_issue_ms": fleet["issue_ms"],
+             "monitor_fleet_T256_ms": fleet["ms_T256"],
+             "monitor_fleet_T256_row_major_ms": fleet["ms_T256_row_major"],
+             "monitor_fleet_T256_bound_ms": fleet["bound_ms_T256"],
+             "batched_monitor_bf16_ms": batched["ms_bf16"],
+             "batched_monitor_bf16_bound_ms": batched["bound_ms_bf16"],
+             **svc}
     log(json.dumps({"service": extra}))
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,

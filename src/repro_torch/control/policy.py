@@ -8,7 +8,7 @@ policy objects ``ReplicaPolicy``, ``BufferPolicy``, ``AdmissionPolicy``,
 engine reads (``Engine.recommended_queue_capacity``).  The fused
 per-tick decision (``control_decide``, ``ControlState``, its step math)
 and the loop that runs it are not ported yet (ROADMAP.md, Queue 1
-item 6).
+item 1).
 """
 
 from __future__ import annotations

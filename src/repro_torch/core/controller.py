@@ -212,7 +212,7 @@ class DistributionClassifier:
         self.m_tol = m_tol
         self.n_streams = n_streams
         if n_streams is None:
-            self._m: Moments = moments_init()
+            self._m: Moments = moments_init(device="cpu")
         else:
             self._m = Moments(*(np.zeros((n_streams,))
                                 for _ in range(5)))

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import filters
+from repro_torch.core.device import resolve_device
 from repro_torch.core.stats import (Welford, welford_init, welford_update,
                                     welford_stderr)
 
@@ -60,21 +61,6 @@ __all__ = [
 
 Z_95 = 1.64485  # Eq. 3: standard-normal 95th-percentile multiplier.
 _BIG = 1e30     # finite "not ready" sentinel (inf would NaN through the LoG)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on.  The default everywhere is the
-    card; without one this raises instead of carrying on on the CPU
-    (pass ``device="cpu"`` to run the plain PyTorch versions there)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the monitor's plain PyTorch version on the host")
-        if dev.index is None:           # "cuda" -> the current card
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,12 +382,27 @@ def _pad_rows(a: torch.Tensor, rpad: int, value=0) -> torch.Tensor:
     return F.pad(a, (0, 0) * (a.dim() - 1) + (0, rpad), value=value)
 
 
+def _time_major(x: torch.Tensor) -> bool:
+    """True for a (Q, T) view of a contiguous (T, Q) tensor (and not of
+    a contiguous (Q, T) one)."""
+    return not x.is_contiguous() and x.T.is_contiguous()
+
+
+def _pad_tile(a: torch.Tensor, rows: int, cols: int, value=0):
+    """A (Q, T) tile padded by ``rows`` rows and ``cols`` columns, in its
+    own layout: the ``.T`` of a contiguous (T, Q) tensor stays one."""
+    if _time_major(a):
+        return F.pad(a.T, (0, rows, 0, cols), value=value).T
+    return F.pad(a, (0, cols, 0, rows), value=value)
+
+
 def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
                       state: FleetMonitorState | None = None,
                       chunk_t: int = 256, impl: str = "cuda",
-                      mode: str = "full", block_q: int = 256,
-                      dtype=torch.float32, donate: bool = False,
-                      pad_q: bool = True, device="cuda"
+                      mode: str = "full", interpret: bool = True,
+                      block_q: int = 256, dtype=torch.float32,
+                      donate: bool = False, pad_q: bool = True,
+                      device="cuda"
                       ) -> tuple[FleetMonitorState, MonitorOutput | None]:
     """Drive the fused fleet estimator over (Q, T) sample streams.
 
@@ -418,14 +419,21 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
     epochs live in the state) and returns ``(state, None)`` — the
     production configuration for large fleets.
 
+    ``tc_seq``/``blocked_seq`` may be row-major (Q, T) or the time-major
+    ``.T`` view of a contiguous (T, Q) tensor, the monitoring service's
+    staging layout; the kernel reads either, and padding keeps it.
     ``pad_q`` (default) pads the queue axis up to a ``block_q`` multiple
     with always-blocked rows, and a short tail chunk is padded to
     ``chunk_t`` with blocked steps, so every dispatch of one service has
-    one shape.  ``donate=True`` hands the state over: the kernel then
-    updates the caller's state tensors in place (JAX's buffer donation
-    becomes in-place updates on the device) and the passed-in ``state``
-    must not be reused.  Without it the caller's state is never mutated.
+    one shape; the kernel needs neither, and ``pad_q=False`` spares the
+    copies of the state that the queue padding makes.  ``donate=True``
+    hands the state over: the kernel then updates the caller's state
+    tensors in place (JAX's buffer donation becomes in-place updates on
+    the device) and the passed-in ``state`` must not be reused.  Without
+    it the caller's state is never mutated.  ``interpret`` is accepted
+    for the JAX signature; there is nothing to interpret on the card.
     """
+    del interpret
     dev = resolve_device(device)
     tc_seq = torch.as_tensor(tc_seq, dtype=dtype, device=dev)
     if tc_seq.dim() != 2:
@@ -445,9 +453,9 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
     rpad = (-(-Q // block_q) * block_q - Q) if pad_q else 0
     if rpad:                      # padded rows are permanently blocked
         if blocked_seq is None:
-            blocked_seq = torch.zeros((Q, T), dtype=torch.bool, device=dev)
-        tc_seq = _pad_rows(tc_seq, rpad)
-        blocked_seq = _pad_rows(blocked_seq, rpad, value=True)
+            blocked_seq = torch.zeros_like(tc_seq, dtype=torch.bool)
+        tc_seq = _pad_tile(tc_seq, rpad, 0)
+        blocked_seq = _pad_tile(blocked_seq, rpad, 0, value=True)
         state = FleetMonitorState(*(_pad_rows(a, rpad) for a in state))
         donate = True                      # the padded copy is ours
 
@@ -459,9 +467,9 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
         pad = chunk_t - tc_c.shape[1]
         if pad:                            # pad the tail chunk as blocked
             if blk_c is None:
-                blk_c = torch.zeros(tc_c.shape, dtype=torch.bool, device=dev)
-            tc_c = F.pad(tc_c, (0, pad))
-            blk_c = F.pad(blk_c, (0, pad), value=True)
+                blk_c = torch.zeros_like(tc_c, dtype=torch.bool)
+            tc_c = _pad_tile(tc_c, 0, pad)
+            blk_c = _pad_tile(blk_c, 0, pad, value=True)
         state, out = _fleet_monitor_scan_impl(
             cfg, state, tc_c, blk_c, impl=impl, mode=mode, block_q=block_q,
             donate=donate)

@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
+
 __all__ = [
     "Welford",
     "welford_init",
@@ -58,8 +60,10 @@ class Welford(NamedTuple):
     m2: torch.Tensor
 
 
-def welford_init(dtype=torch.float32, shape=(), device="cpu") -> Welford:
-    z = torch.zeros(shape, dtype=dtype, device=device)
+def welford_init(dtype=torch.float32, shape=(), device="cuda") -> Welford:
+    """Empty statistics on ``device`` (the card by default; without one
+    this raises: pass ``device="cpu"`` for the host)."""
+    z = torch.zeros(shape, dtype=dtype, device=resolve_device(device))
     return Welford(count=z, mean=z, m2=z)
 
 
@@ -114,8 +118,10 @@ class Moments(NamedTuple):
     m4: torch.Tensor
 
 
-def moments_init(dtype=torch.float32, shape=(), device="cpu") -> Moments:
-    z = torch.zeros(shape, dtype=dtype, device=device)
+def moments_init(dtype=torch.float32, shape=(), device="cuda") -> Moments:
+    """Empty moments on ``device`` (the card by default; without one this
+    raises: pass ``device="cpu"`` for the host)."""
+    z = torch.zeros(shape, dtype=dtype, device=resolve_device(device))
     return Moments(count=z, mean=z, m2=z, m3=z, m4=z)
 
 

@@ -93,10 +93,32 @@ class NvccLibrary:
         return self._loaded[1]
 
 
+def _template_args(rest: str):
+    """The template arguments at the start of a mangled name's tail
+    (``ILi32ELb1E13__nv_bfloat16E...`` -> ``["32", "1", "__nv_bfloat16"]``:
+    int and bool literals, type letters, length-prefixed type names), or
+    None where there are none or they do not parse."""
+    if not rest.startswith("I"):
+        return None
+    out, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        m = re.match(r"L[ib](-?\d+)E|([a-z])|(\d+)", rest[i:])
+        if m is None:
+            return None
+        if m.group(3):                  # a length-prefixed type name
+            start = i + m.end()
+            out.append(rest[start:start + int(m.group(3))])
+            i = start + int(m.group(3))
+        else:
+            out.append(m.group(1) or m.group(2))
+            i += m.end()
+    return out if i < len(rest) else None
+
+
 def _kernel_name(mangled: str) -> str:
     """The last length-prefixed name of an Itanium-mangled symbol that
-    names a kernel, with its template arguments (``Li128E`` -> 128, a
-    type letter as it is): ``flash_fwd_kernel<128,f>``."""
+    names a kernel, with its template arguments (``Li128E`` -> 128,
+    ``Lb1E`` -> 1, a type as it is named): ``flash_fwd_kernel<128,f>``."""
     pos, name, rest = 0, mangled, ""
     for m in re.finditer(r"\d+", mangled):
         if m.start() < pos:
@@ -106,10 +128,9 @@ def _kernel_name(mangled: str) -> str:
         pos = m.end() + n
         if "kernel" in ident:
             name, rest = ident, mangled[pos:]
-    args = re.match(r"I((?:Li-?\d+E|[a-z])+)E", rest)
+    args = _template_args(rest)
     if args:
-        name += "<" + ",".join(a or b for a, b in re.findall(
-            r"Li(-?\d+)E|([a-z])", args.group(1))) + ">"
+        name += "<" + ",".join(args) + ">"
     return name
 
 

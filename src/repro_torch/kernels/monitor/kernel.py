@@ -35,7 +35,8 @@ from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
                                              monitor_fleet_ref, window_carry)
 
 __all__ = ["monitor_fleet", "batched_monitor", "build", "reset_launch_counts",
-           "launch_counts", "SOURCE", "NVCC_FLAGS"]
+           "launch_counts", "fleet_shared_memory_bytes", "SOURCE",
+           "NVCC_FLAGS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "monitor.cu"
 # -fmad=false: the kernels repeat the plain version's operations in its
@@ -48,11 +49,13 @@ _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_monitor_fleet.argtypes = (
-        [_VP, _LL, _VP, _I, _I] + [_VP] * 16
+        [_VP, _LL, _I, _VP, _I, _I] + [_VP] * 16
         + [_I, _I, _I, _I, _VP, _VP, _F, _F, _F, _I, _I, _VP])
     lib.repro_monitor_fleet.restype = _I
     lib.repro_monitor_fleet_supported.argtypes = [_I, _I, _I]
     lib.repro_monitor_fleet_supported.restype = _I
+    lib.repro_monitor_fleet_smem.argtypes = [_I, _I, _I]
+    lib.repro_monitor_fleet_smem.restype = _I
     lib.repro_batched_monitor.argtypes = [_VP, _I, _I, _I, _VP, _I, _F,
                                           _VP, _VP, _VP, _VP]
     lib.repro_batched_monitor.restype = _I
@@ -102,8 +105,10 @@ def monitor_fleet(cfg: MonitorConfig, state: FleetMonitorState, comp, m, *,
                   full: bool):
     """Fused Algorithm-1 scan over a compacted (Q, T) tile, in place.
 
-    comp: (Q, T) f32 compacted samples (rows may be strided: unit column
-    stride, row stride >= T); m: (Q,) int32 valid counts.  Updates the
+    comp: (Q, T) f32 compacted samples, row-major (unit column stride,
+    row stride >= T) or time-major (unit row stride, column stride >= Q:
+    the ``.T`` of a (T, Q) tensor, as ``ops._compact`` gives it for the
+    service's time-major staging); m: (Q,) int32 valid counts.  Updates the
     state's ``win``/``s_fill``/``count``/``mean``/``m2``/``qhist``/
     ``shist``/``rhist``/``epoch``/``last_qbar`` in place (``n_total``/
     ``n_blocked`` are the caller's) and returns the six (Q, T) output
@@ -125,8 +130,16 @@ def monitor_fleet(cfg: MonitorConfig, state: FleetMonitorState, comp, m, *,
     W, CW, R = cfg.window, cfg.conv_window, cfg.gauss_radius
     dev = comp.device
     f32, i32 = torch.float32, torch.int32
-    if comp.dtype != f32 or comp.stride(1) != 1 or comp.stride(0) < T:
-        raise ValueError("comp must be f32 (Q, T) with unit column stride")
+    if comp.dtype != f32:
+        raise TypeError(f"comp is {comp.dtype}, expected {f32}")
+    if comp.stride(1) == 1 and comp.stride(0) >= T:
+        time_major, ld = 0, comp.stride(0)
+    elif comp.stride(0) == 1 and comp.stride(1) >= Q:
+        time_major, ld = 1, comp.stride(1)
+    else:
+        raise ValueError("comp must be a (Q, T) tile with unit column "
+                         "stride (row-major) or unit row stride "
+                         "(time-major)")
     _require(m, "m", i32, (Q,), dev)
     for name, dt, shape in (("win", f32, (Q, W)), ("s_fill", i32, (Q,)),
                             ("count", f32, (Q,)), ("mean", f32, (Q,)),
@@ -149,7 +162,7 @@ def monitor_fleet(cfg: MonitorConfig, state: FleetMonitorState, comp, m, *,
     gt, lt = _f32_array(P.gauss_taps), _f32_array(P.log_taps)
     with torch.cuda.device(dev):
         rc = lib.repro_monitor_fleet(
-            comp.data_ptr(), comp.stride(0), m.data_ptr(), Q, T,
+            comp.data_ptr(), ld, time_major, m.data_ptr(), Q, T,
             state.win.data_ptr(), state.s_fill.data_ptr(),
             state.count.data_ptr(), state.mean.data_ptr(),
             state.m2.data_ptr(), state.qhist.data_ptr(),
@@ -164,6 +177,13 @@ def monitor_fleet(cfg: MonitorConfig, state: FleetMonitorState, comp, m, *,
 
 
 monitor_fleet.launches = 0
+
+
+def fleet_shared_memory_bytes(cfg: MonitorConfig) -> int:
+    """Dynamic shared memory of one ``monitor_fleet`` CTA at this config's
+    (window, conv_window, gauss_radius), in bytes (0: no instance)."""
+    return _lib().repro_monitor_fleet_smem(cfg.window, cfg.conv_window,
+                                           cfg.gauss_radius)
 
 
 def batched_monitor(windows, *, radius: int = 2, sigma: float = 1.0,

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.monitor import (_BIG, FleetMonitorState, MonitorConfig,
-                                      MonitorOutput)
+                                      MonitorOutput, _time_major)
 from repro_torch.core.stats import Welford, welford_stderr, welford_update
 from repro_torch.kernels.monitor.kernel import batched_monitor, monitor_fleet
 from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
@@ -34,7 +34,7 @@ __all__ = ["fleet_monitor_q", "fleet_monitor_step", "fleet_monitor_scan",
 # ported yet; its place in the plan:
 _ROUNDS_TODO = ("impl='rounds' (the segmented CPU fast path, "
                 "kernels/monitor/rounds.py) is not ported yet: ROADMAP.md "
-                "Queue 1, item 6 (next slice, with the control plane)")
+                "Queue 1, item 1 (next slice, with the control plane)")
 
 
 # ---------------------------------------------------------------------------
@@ -60,10 +60,13 @@ def _entry_sigma(cfg: MonitorConfig, state: FleetMonitorState):
 def _compact(tc, blocked):
     """Stream compaction: drop blocked samples, keep time order.
 
-    Returns (comp, m, cnt): compacted samples (unit column stride, row
-    stride T + 1: the scatter's dump column is cut off by a view), the
-    per-queue valid counts, and the per-step running valid count used to
-    map results back.
+    Returns (comp, m, cnt): compacted samples, the per-queue valid counts,
+    and the per-step running valid count used to map results back, each
+    (Q, T) plane in the layout of ``tc``.  Row-major: comp has unit
+    column stride and row stride T + 1 (the scatter's dump column is cut
+    off by a view).  Time-major (``tc`` the ``.T`` of a contiguous (T, Q)
+    tensor): the same scatter runs along the time axis of a (T + 1, Q)
+    buffer, and comp is the ``.T`` of its first T rows.
     """
     Q, T = tc.shape
     if blocked is None:
@@ -71,31 +74,39 @@ def _compact(tc, blocked):
                            device=tc.device).expand(Q, T)
         return tc, torch.full((Q,), T, dtype=torch.int32,
                               device=tc.device), cnt
-    valid = ~blocked
-    cnt = torch.cumsum(valid.to(torch.int32), dim=1, dtype=torch.int32)
-    m = cnt[:, -1].contiguous()
+    if _time_major(tc):        # on the (T, Q) tensors, time along dim 0
+        x, valid, dim = tc.T, ~blocked.T, 0
+    else:
+        x, valid, dim = tc, ~blocked, 1
+    cnt = torch.cumsum(valid.to(torch.int32), dim=dim, dtype=torch.int32)
+    m = cnt.select(dim, T - 1).contiguous()
     dest = torch.where(valid, cnt - 1, T).to(torch.int64)   # T = dump slot
-    comp = torch.zeros((Q, T + 1), dtype=tc.dtype, device=tc.device)
-    comp.scatter_(1, dest, tc)
-    return comp[:, :T], m, cnt
+    comp = torch.zeros(x.shape[:dim] + (T + 1,) + x.shape[dim + 1:],
+                       dtype=tc.dtype, device=tc.device)
+    comp.scatter_(dim, dest, x)
+    comp = comp.narrow(dim, 0, T)
+    return (comp.T, m, cnt.T) if dim == 0 else (comp, m, cnt)
 
 
 def _fleet_monitor_scan_impl(cfg: MonitorConfig, state: FleetMonitorState,
                              tc, blocked=None, *, impl: str = "cuda",
-                             mode: str = "full", block_q: int = 256,
-                             donate: bool = False):
+                             mode: str = "full", interpret: bool = True,
+                             block_q: int = 256, donate: bool = False):
     """One fused dispatch over a (Q, T) tile.
 
     impl: "cuda" (the fused kernel; its plain version stands in only for
     CPU tensors) or "scan" (the plain sequential version on any device).
     mode="full" returns a MonitorOutput with (Q, T) leaves matching
     ``monitor_update`` step for step; mode="state" skips per-step outputs
-    and returns (new_state, None).  With ``donate`` the kernel updates
-    ``state``'s tensors in place; otherwise they are copied first and the
-    caller's state is left as it was.  ``block_q`` is accepted for the
-    JAX signature; the kernel's thread blocks do not depend on it.
+    and returns (new_state, None).  ``tc`` and ``blocked`` may be
+    row-major or the time-major ``.T`` of (T, Q) tensors; the kernel
+    reads either.  With ``donate`` the kernel updates ``state``'s tensors
+    in place; otherwise they are copied first and the caller's state is
+    left as it was.  ``interpret`` and ``block_q`` are accepted for the
+    JAX signature: there is nothing to interpret on the card, and the
+    kernel's thread blocks do not depend on ``block_q``.
     """
-    del block_q
+    del interpret, block_q
     tc = tc.to(torch.float32)
     Q, T = tc.shape
     comp, m, cnt = _compact(tc, blocked)
@@ -181,9 +192,15 @@ fleet_monitor_scan = _fleet_monitor_scan_impl
 # One-tick forms.
 # ---------------------------------------------------------------------------
 
-def fleet_monitor_q(windows, *, use_kernel: bool = True):
-    """(Q, w) windows -> (Q,) Eq.3 quantile estimates."""
-    if use_kernel:
+def fleet_monitor_q(windows, *, use_pallas: bool = True,
+                    interpret: bool = True, block_q: int = 256):
+    """(Q, w) windows -> (Q,) Eq.3 quantile estimates.
+
+    ``use_pallas`` (the JAX package's name) selects the ``batched_monitor``
+    CUDA kernel, else its plain version; ``interpret`` and ``block_q`` are
+    accepted for the JAX signature and do not change the result."""
+    del interpret, block_q
+    if use_pallas:
         q, _, _ = batched_monitor(windows)
         return q
     q, _, _ = batched_monitor_ref(windows)
@@ -211,7 +228,7 @@ def fleet_step_init(cfg: MonitorConfig, n_queues: int,
 
 
 def fleet_monitor_step(windows, state, *, cfg: Optional[MonitorConfig] = None,
-                       use_kernel: bool = True):
+                       use_pallas: bool = True, interpret: bool = True):
     """One fleet monitoring tick: (Q, w) windows + per-queue stats state
     -> ``(q, new_state, sigma_qbar)``.
 
@@ -219,10 +236,11 @@ def fleet_monitor_step(windows, state, *, cfg: Optional[MonitorConfig] = None,
     :class:`Welford` (legacy form; implies ``sigma_mode='stderr'`` since
     a Welford state alone cannot express the window-std trajectory).
     sigma(q-bar) follows ``cfg.sigma_mode`` — the same statistic the
-    single-queue ``monitor_update`` uses.
+    single-queue ``monitor_update`` uses.  ``use_pallas`` and
+    ``interpret`` are as in :func:`fleet_monitor_q`.
     """
     cfg = cfg or MonitorConfig()
-    q = fleet_monitor_q(windows, use_kernel=use_kernel)
+    q = fleet_monitor_q(windows, use_pallas=use_pallas, interpret=interpret)
     bare = isinstance(state, Welford)
     wf = state if bare else state.welford
     new_wf = welford_update(wf, q)

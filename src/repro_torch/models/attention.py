@@ -14,7 +14,7 @@ Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
 
 Self-attention only, with RoPE: cross-attention (enc-dec), M-RoPE (vlm),
 sliding windows and attention-logit softcaps are not ported yet — the
-flash kernel has neither of the last two (ROADMAP.md, Queue 1 item 9).
+flash kernel has neither of the last two (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.attn_logit_softcap or cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: attention-logit softcaps and sliding windows are "
-            "not ported yet (ROADMAP.md, Queue 1 item 9); the flash kernel "
+            "not ported yet (ROADMAP.md, Queue 1 item 4); the flash kernel "
             "has neither")
 
 

@@ -8,7 +8,7 @@ a time.
 
 Ported: the dense and ssm families.  Not yet: MoE blocks, the hybrid
 stack, the vlm and encoder-decoder families (ROADMAP.md, Queue 1
-item 9), and training with ``lm_loss`` (Queue 1 item 10).
+item 4), and training with ``lm_loss`` (Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -32,20 +32,20 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+            "(ROADMAP.md, Queue 1 item 4)")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, "
-            "Queue 1 item 9)")
+            "Queue 1 item 4)")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid stack is not ported yet: its shared "
             f"attention needs a head_dim {cfg.head_dim} instance of the "
-            "flash kernel (ROADMAP.md, Queue 1 item 9)")
+            "flash kernel (ROADMAP.md, Queue 1 item 4)")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and embedding inputs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+            "(ROADMAP.md, Queue 1 item 4)")
     if cfg.family not in ("dense", "ssm"):
         raise ValueError(cfg.family)
 

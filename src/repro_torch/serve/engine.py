@@ -9,7 +9,7 @@ end, as the JAX package does.  The model runs on ``device`` (the card by
 default: the prefill's attention through the flash-attention kernel);
 the lanes' monitor is the port's ``FleetMonitorService`` on the same
 device (the ``monitor_fleet`` kernel).  ``control=True`` waits for the
-control loop's port (ROADMAP.md, Queue 1 item 6).
+control loop's port (ROADMAP.md, Queue 1 item 1).
 
 The request lanes are paper-instrumented streams: each QoS class (see
 ``serve.qos``) gets its OWN ``InstrumentedQueue`` whose ends live on a
@@ -311,6 +311,7 @@ class Engine:
                  arena: Optional[CounterArena] = None,
                  control: bool = False,
                  admission: Optional[AdmissionPolicy] = None,
+                 control_log: Optional[ControlLog] = None,
                  monitor: bool = True,
                  fault_plan=None,
                  obs=None,
@@ -318,8 +319,11 @@ class Engine:
         if control:
             raise NotImplementedError(
                 "control=True needs the control loop, which is not ported "
-                "yet (ROADMAP.md, Queue 1 item 6)")
+                "yet (ROADMAP.md, Queue 1 item 1)")
         self.device = resolve_device(device)
+        # the decision log the control loop will write to (kept for it:
+        # without control=True nothing records into it yet)
+        self.control_log = control_log
         self.model = model
         self.params = params
         self.scfg = scfg

@@ -21,8 +21,9 @@ boolean copy, one zero-fill — with **no per-end python iteration** (the
   for all its lane ends, so per-class λ/μ estimates ride the same
   gather at zero added collector cost;
 * the staging tile is (chunk_t, S) row-major, so each tick writes one
-  contiguous row; the (S, chunk_t) estimator layout is produced by one
-  transpose-copy per dispatch, amortized over ``chunk_t`` ticks.
+  contiguous row; it goes to the card as it is, and the estimator reads
+  its ``.T`` view, a time-major (S, chunk_t) tile (the kernel's loads of
+  one step are then neighbouring addresses; no transpose-copy).
 
 Every ``chunk_t`` periods the full tile goes through **one** donated
 ``run_monitor_fleet`` dispatch — one launch of the fused CUDA kernel,
@@ -45,9 +46,10 @@ Two things keep the dispatch off the tick's critical path:
   ``flush()``) waits on that event and reads the buffers, so the timer
   thread never blocks on device results it does not yet need.
 
-The queue axis is padded to a ``block_q`` multiple, so every dispatch of
-a fleet size within one block multiple has one shape; the kernel is
-built and first launched by ``warmup()``, off the sampling tick.
+The dispatch updates the device-resident state in place with no queue
+padding (the kernel needs none, and the padding would copy the state
+every dispatch); the kernel is built and first launched by
+``warmup()``, off the sampling tick.
 
 With ``ends="both"`` each queue contributes two monitored streams —
 head (consumer / service rate) first, then tail (producer / arrival
@@ -160,6 +162,8 @@ class FleetMonitorService:
         self._end_stats = self._ends_of(self.queues)
         s = len(self._end_stats)
         self.n_streams = s
+        # the JAX package's queue-padding block, kept for its signature:
+        # the port's dispatch pads nothing
         self.block_q = int(block_q) if block_q else _pick_block_q(s)
 
         # ``arena`` seeds the empty-fleet case (a ControlGroup's service
@@ -337,15 +341,15 @@ class FleetMonitorService:
         ``warmup`` and the attach/detach restructure)."""
         if self.n_streams:
             dev = self.device
-            run_monitor_fleet(
+            run_monitor_fleet(            # the dispatch's time-major tile
                 self.cfg,
-                torch.zeros((self.n_streams, self.chunk_t), device=dev),
-                torch.ones((self.n_streams, self.chunk_t), dtype=torch.bool,
-                           device=dev),
+                torch.zeros((self.chunk_t, self.n_streams), device=dev).T,
+                torch.ones((self.chunk_t, self.n_streams), dtype=torch.bool,
+                           device=dev).T,
                 state=fleet_monitor_init(self.cfg, self.n_streams,
                                          device=dev),
                 chunk_t=self.chunk_t, impl=self.impl, mode="state",
-                block_q=self.block_q, donate=True, device=dev)
+                donate=True, pad_q=False, device=dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -453,10 +457,8 @@ class FleetMonitorService:
         keep their full estimator state, so attaching tenant B never
         resets tenant A's estimates.  Public stream order stays
         heads-then-tails with the new queues appended after the
-        existing ones.  The fused dispatch is queue-padded, so sizes
-        within one ``block_q`` multiple share a trace; crossing a block
-        boundary compiles once in the closing ``warmup()``, off the
-        sampling tick."""
+        existing ones.  The warm-up dispatch at the new size runs in
+        the closing restructure, off the sampling tick."""
         queues = list(queues)
         live = {id(q) for q in self.queues}
         if (any(id(q) in live for q in queues)
@@ -612,34 +614,34 @@ class FleetMonitorService:
         emit = self._harvest_locked()   # previous dispatch, now complete
         self._refresh_slo_locked()      # once per chunk, off the tick
 
-        # the estimator consumes (S, cols): one transpose-copy per
-        # dispatch, amortized over chunk_t ticks
-        tc = np.ascontiguousarray(tc_rows.T)
-        blocked = np.ascontiguousarray(blk_rows.T)
-
         # per-queue implied service times (period / items) -> fleet cv^2,
-        # one fused masked-moment evaluation for the whole tile (rows
-        # re-ordered back to per-queue stream order off the tick)
+        # one fused masked-moment evaluation for the whole tile: the head
+        # streams' columns, gathered into (q, cols) rows in per-queue
+        # stream order (a C-ordered copy, the layout the moments reduce)
         q = len(self.queues)
         head_rows = self._row_of_stream[:q]
-        head_tc, head_blk = tc[head_rows], blocked[head_rows]
+        head_tc, head_blk = tc_rows.T[head_rows], blk_rows.T[head_rows]
         valid = (head_tc > 0) & ~head_blk
         self.classifier.update_batch(
             np.where(valid, self.period_s / np.maximum(head_tc, 1e-30),
                      0.0), where=valid)
 
+        # the estimator reads the (cols, S) staging as its time-major
+        # (S, cols) view: uploaded as it is, no transpose-copy
+        tc, blocked = self._upload(tc_rows, blk_rows)
         self._state, _ = run_monitor_fleet(
-            self.cfg, *self._upload(tc, blocked), state=self._state,
+            self.cfg, tc.T, blocked.T, state=self._state,
             chunk_t=self.chunk_t, impl=self.impl, mode="state",
-            block_q=self.block_q, donate=True, device=self.device)
+            donate=True, pad_q=False, device=self.device)
         self._queue_readback()
         self.dispatches += 1
         self._pending = True
         return emit
 
     def _upload(self, tc: np.ndarray, blocked: np.ndarray):
-        """(S, cols) host tile -> device tensors: f32 into the pinned
-        buffer, then a non-blocking copy (a plain tensor on the CPU)."""
+        """(cols, S) host staging -> device tensors of the same layout:
+        f32 into the pinned buffer, then a non-blocking copy (a plain
+        tensor on the CPU)."""
         n = tc.size
         shape = tc.shape
         pin_tc = self._pin_tc[:n].view(shape)

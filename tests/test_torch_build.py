@@ -32,6 +32,18 @@ _SMEM = (
     "ptxas info    : Used 32 registers, 384 bytes smem, 400 bytes cmem[0]\n")
 
 
+_NS = "_GLOBAL__N__d1fb6f4a_10_monitor_cu_72d1f3ed"
+_FLEET = (
+    "ptxas info    : Compiling entry function '_ZN43" + _NS
+    + "20monitor_fleet_kernelILi32ELi16ELi2ELb0ELb1EEEvPKfxPKiiiPfPiS4_' "
+    "for 'sm_90a'\n"
+    "ptxas info    : Used 96 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function '_ZN43" + _NS
+    + "22batched_monitor_kernelI13__nv_bfloat16Li32ELi5EEEvPKT_iiNS_4Taps"
+    "EifPfS6_S6_' for 'sm_90a'\n"
+    "ptxas info    : Used 40 registers, used 1 barriers\n")
+
+
 @pytest.mark.parametrize("log,want", [
     (_WGMMA, [{"kernel": "flash_fwd_wgmma_kernel<128>", "registers": 168,
                "spill_stores": 36, "spill_loads": 44, "stack": 40,
@@ -41,7 +53,13 @@ _SMEM = (
     (_SMEM, [{"kernel": "monitor_kernel", "registers": 32,
               "spill_stores": 0, "spill_loads": 0, "stack": 0,
               "smem": 384}]),
-], ids=["wgmma-spills", "f32-template", "static-smem"])
+    (_FLEET, [{"kernel": "monitor_fleet_kernel<32,16,2,0,1>",
+               "registers": 96, "spill_stores": 0, "spill_loads": 0,
+               "stack": 0, "smem": 0},
+              {"kernel": "batched_monitor_kernel<__nv_bfloat16,32,5>",
+               "registers": 40, "spill_stores": 0, "spill_loads": 0,
+               "stack": 0, "smem": 0}]),
+], ids=["wgmma-spills", "f32-template", "static-smem", "bool-and-type-args"])
 def test_ptxas_report_reads_each_kernel(log, want):
     assert ptxas_report(log) == want
 

@@ -88,7 +88,7 @@ def test_convolve_valid_matches(shape):
 def test_welford_matches():
     rng = np.random.default_rng(1)
     xs = rng.normal(50.0, 7.0, 200).astype(np.float32)
-    ts = t_stats.welford_init()
+    ts = t_stats.welford_init(device="cpu")
     js = j_stats.welford_init()
     for x in xs:
         ts = t_stats.welford_update(ts, torch.tensor(x))
@@ -100,7 +100,8 @@ def test_welford_matches():
                                    float(getattr(j_stats, fn)(js)),
                                    rtol=1e-6)
     half = len(xs) // 2
-    ta, tb = t_stats.welford_init(), t_stats.welford_init()
+    ta = t_stats.welford_init(device="cpu")
+    tb = t_stats.welford_init(device="cpu")
     for x in xs[:half]:
         ta = t_stats.welford_update(ta, torch.tensor(x))
     for x in xs[half:]:
@@ -108,8 +109,8 @@ def test_welford_matches():
     merged = t_stats.welford_merge(ta, tb)
     np.testing.assert_allclose(float(merged.mean), float(ts.mean), rtol=1e-5)
     np.testing.assert_allclose(float(merged.m2), float(ts.m2), rtol=1e-4)
-    empty = t_stats.welford_merge(t_stats.welford_init(),
-                                  t_stats.welford_init())
+    empty = t_stats.welford_merge(t_stats.welford_init(device="cpu"),
+                                  t_stats.welford_init(device="cpu"))
     assert float(empty.mean) == 0.0 and float(t_stats.welford_stderr(empty)) == 0
 
 
@@ -131,7 +132,8 @@ def test_moments_batch_matches(masked):
                                    atol=1e-6)
     # the tensor path agrees with the numpy path
     tt = t_stats.moments_update_batch(
-        t_stats.moments_init(torch.float64, (5,)), torch.as_tensor(x),
+        t_stats.moments_init(torch.float64, (5,), device="cpu"),
+        torch.as_tensor(x),
         where=None if where is None else torch.as_tensor(where))
     for a, b in zip(tt, t1):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-12)
@@ -139,7 +141,7 @@ def test_moments_batch_matches(masked):
 
 def test_moments_scalar_updates_match():
     rng = np.random.default_rng(2)
-    ts, js = t_stats.moments_init(), j_stats.moments_init()
+    ts, js = t_stats.moments_init(device="cpu"), j_stats.moments_init()
     for x in rng.exponential(1.5, 64):
         ts = t_stats.moments_update(ts, float(x))
         js = j_stats.moments_update(js, float(x))
@@ -247,6 +249,23 @@ def test_monitor_init_defaults_to_the_card():
                 assert tuple(x.shape) == tuple(y.shape)
         else:
             assert tuple(a.shape) == tuple(b.shape)
+
+
+@pytest.mark.parametrize("name", ["welford_init", "moments_init"])
+def test_stats_init_defaults_to_the_card(name):
+    """The statistics' public constructors default to the card like
+    ``monitor_init``: without one they raise, and ``device="cpu"`` gives
+    the JAX package's empty state, leaf for leaf."""
+    make = getattr(t_stats, name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    st = make(torch.float32, device="cpu")
+    js = getattr(j_stats, name)(jnp.float32)
+    assert type(st)._fields == type(js)._fields
+    for a, b in zip(st, js):
+        assert a.device.type == "cpu" and a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_fleet_state_numpy_round_trip():

@@ -1,14 +1,18 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card.
 
-Every test here needs an NVIDIA GPU and ``nvcc``; without a CUDA device
-each one skips (decided inside the ``cuda`` fixture, never at import).
-On a machine with the card run them with
+Every test that launches a kernel needs an NVIDIA GPU and ``nvcc``;
+without a CUDA device each one skips (decided inside the ``cuda``
+fixture, never at import).  The numpy mirrors of the monitor kernels'
+shared-memory staging read only ``monitor.cu``'s constants and run
+anywhere.  On a machine with the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 This file imports no JAX: the card's machine has none.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -19,7 +23,10 @@ from repro_torch.core.monitor import (MonitorConfig, fleet_monitor_init,
 from repro_torch.kernels.attention import kernel as AK
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.monitor import kernel as K
-from repro_torch.kernels.monitor.ref import batched_monitor_ref
+from repro_torch.kernels.monitor import ops as MO
+from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
+                                             carry_of_state,
+                                             monitor_fleet_ref, window_carry)
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as SO
 from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref
@@ -125,6 +132,214 @@ def test_monitor_fleet_kernel_other_shapes(cuda, window, conv_window,
     assert int(out_r.epoch[:, -1].sum()) > 0
     for a, b in zip(out_k, out_r):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+# -- the monitor kernels' shared-memory staging --------------------------------
+
+_CU = K.SOURCE.read_text()
+
+
+def _define(name):
+    return int(re.search(rf"#define {name} (\d+)", _CU).group(1))
+
+
+THREADS, TC = _define("THREADS"), _define("TC")
+SMEM_MAX, ROWS_CAP = _define("SMEM_MAX"), _define("ROWS_CAP_BYTES")
+FLEET_SHAPES = [tuple(int(v) for v in m) for m in
+                re.findall(r"X\((\d+), (\d+), (\d+)\)", _CU)]
+BATCHED_WINDOWS = (16, 32, 64)      # compile-time instances, 5 taps
+
+
+def _row_stride(w, size):
+    """row_stride<T>(w): elements of an odd number of 4-byte words."""
+    return ((((size * w + 3) // 4) | 1) * 4) // size
+
+
+def _stage_rows(addr, n, w, stride, size):
+    """stage_rows<T>() in numpy: each element's shared-memory slot, and
+    the 16-byte load of the vector part that brings it (-1 for the
+    elements before the first 16-byte boundary and after the last whole
+    vector, which go one at a time)."""
+    v = 16 // size
+    head = ((16 - addr % 16) % 16) // size
+    if addr % size or head > n:
+        head = n
+    nvec = (n - head) // v
+    i = np.arange(n)
+    vec = np.full(n, -1)
+    body = slice(head, head + nvec * v)
+    vec[body] = (i[body] - head) // v
+    return (i // w) * stride + i % w, vec, head
+
+
+def _batched_rows(w, size, ntaps=5):
+    """Rows a CTA of launch_batched<>() takes."""
+    if ntaps == 5 and w in BATCHED_WINDOWS:
+        return THREADS
+    rows = min(ROWS_CAP // (_row_stride(w, size) * size), THREADS)
+    return max(rows - rows % 32 if rows >= 32 else rows, 1)
+
+
+def _fleet_smem_bytes(w, cw):
+    """fleet_smem_floats<W, CW>() * 4."""
+    hist = THREADS * (2 * _row_stride(cw, 4) + _row_stride(2, 4))
+    return 4 * (THREADS * _row_stride(w, 4) + max(hist, TC * (THREADS + 1)))
+
+
+@pytest.mark.parametrize("q,w,size,offset", [
+    (1, 32, 4, 0), (37, 32, 4, 0), (200001, 32, 4, 0), (300, 5, 4, 0),
+    (300, 31, 4, 4), (300, 33, 2, 2), (129, 64, 2, 0), (257, 128, 4, 0),
+    (257, 16, 4, 8), (5, 2, 4, 0), (129, 16, 4, 0)])
+def test_staging_offsets_mirror(q, w, size, offset):
+    """CTA row blocks at a ragged Q cover the rows once, in order; each
+    block's run of bytes reaches shared memory row by row at an odd word
+    stride, through 16-byte loads of neighbouring addresses, and thread
+    r's reads of its row fall in 32 different banks across a warp."""
+    rows_per_cta = _batched_rows(w, size)
+    stride = _row_stride(w, size)
+    assert (stride * size // 4) % 2 == 1 and stride >= w
+    assert rows_per_cta * stride * size <= SMEM_MAX
+    covered = 0
+    for q0 in range(0, q, rows_per_cta):
+        rows = min(rows_per_cta, q - q0)
+        addr = offset + q0 * w * size
+        slot, vec, head = _stage_rows(addr, rows * w, w, stride, size)
+        assert len(np.unique(slot)) == rows * w
+        r, k = np.divmod(np.arange(rows * w), w)
+        np.testing.assert_array_equal(slot, r * stride + k)
+        loads = vec[vec >= 0]
+        if loads.size:                  # whole 16-byte vectors, in turn
+            starts = addr + (head + np.unique(loads) * (16 // size)) * size
+            assert (starts % 16 == 0).all()
+            np.testing.assert_array_equal(np.diff(starts), 16)
+        assert (vec < 0).sum() < 2 * (16 // size)
+        covered += rows
+        if q0 > 3 * rows_per_cta:       # the rest repeat the pattern
+            covered = q
+            break
+    assert covered == q
+    warp = np.arange(min(32, rows_per_cta))
+    for col in range(w):
+        banks = ((warp * stride + col) * size // 4) % 32
+        assert len(np.unique(banks)) == len(warp)
+
+
+@pytest.mark.parametrize("time_major", [True, False])
+@pytest.mark.parametrize("rows,tc", [(THREADS, TC), (37, TC), (THREADS, 7),
+                                     (1, 1)])
+def test_tile_staging_mirror(time_major, rows, tc):
+    """stage_tile<>() in numpy: every (step, queue) of the block lands
+    once at s[tt * (THREADS + 1) + r]; a warp's 32 loads are 32
+    neighbouring floats of the tile in either layout, and its 32 stores
+    hit 32 different banks."""
+    ld, q0, t0 = 1000, 3 * THREADS, 64
+    i = np.arange(TC * THREADS)
+    if time_major:
+        tt, r = np.divmod(i, THREADS)
+        addr = (t0 + tt) * ld + q0 + r
+    else:
+        r, tt = np.divmod(i, TC)
+        addr = (q0 + r) * ld + t0 + tt
+    live = (r < rows) & (tt < tc)
+    slot = tt * (THREADS + 1) + r
+    assert live.sum() == rows * tc
+    assert len(np.unique(slot[live])) == rows * tc
+    for w0 in range(0, i.size, 32):
+        sel = live[w0:w0 + 32]
+        if sel.sum() < 2:
+            continue
+        a, sl = addr[w0:w0 + 32][sel], slot[w0:w0 + 32][sel]
+        np.testing.assert_array_equal(np.diff(a), 1)
+        assert len(np.unique(sl % 32)) == sel.sum()
+
+
+def test_fleet_shared_memory_fits_every_instance():
+    """Each instantiated (W, CW, R) fits a CTA's shared memory, and the
+    default config's CTA leaves room for several on an SM."""
+    assert (32, 16, 2) in FLEET_SHAPES and len(FLEET_SHAPES) == 7
+    for w, cw, _ in FLEET_SHAPES:
+        assert _fleet_smem_bytes(w, cw) <= SMEM_MAX
+    assert _fleet_smem_bytes(32, 16) <= 48 * 1024
+
+
+def test_fleet_shared_memory_mirror_matches_the_library(cuda):
+    for w, cw, r in FLEET_SHAPES:
+        cfg = MonitorConfig(window=w, conv_window=cw, gauss_radius=r)
+        assert K.fleet_shared_memory_bytes(cfg) == _fleet_smem_bytes(w, cw)
+    assert K.fleet_shared_memory_bytes(MonitorConfig(window=24)) == 0
+
+
+@pytest.mark.parametrize("q", [1, 37, 200001])
+@pytest.mark.parametrize("w", [5, 16, 31, 32, 33, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_monitor_ragged_rows(cuda, q, w, dtype):
+    """Q off the CTA's rows and every kind of window: the compile-time
+    instances (16, 32, 64) and the runtime one, f32 and bf16, at the
+    JAX package's tolerances."""
+    rng = np.random.default_rng(q + w)
+    win = torch.as_tensor(rng.uniform(0, 500, (q, w)).astype(np.float32),
+                          device=cuda).to(dtype)
+    got = K.batched_monitor(win)
+    want = batched_monitor_ref(win)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.shape == (q,)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=tol, atol=tol * 500)
+
+
+def _fleet_tile(cfg, Q, T, seed, device):
+    """A mid-stream state (windows full, epochs past) and the next tile,
+    compacted in both layouts."""
+    tc, blocked = _noisy_streams(Q, 3 * T + 64, seed)
+    state, _ = run_monitor_fleet(cfg, tc[:, :-T], blocked[:, :-T],
+                                 chunk_t=T, impl="scan", mode="state",
+                                 device=device)
+    tile = torch.as_tensor(tc[:, -T:], device=device)
+    blk = torch.as_tensor(blocked[:, -T:], device=device)
+    rm = MO._compact(tile, blk)
+    tm = MO._compact(tile.T.contiguous().T, blk.T.contiguous().T)
+    assert tm[0].stride(0) == 1 and rm[0].stride(1) == 1
+    return state, rm, tm
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("T", [32, 256])
+@pytest.mark.parametrize("window,conv_window,radius", FLEET_SHAPES)
+def test_monitor_fleet_time_major_tile_is_bit_equal(cuda, window,
+                                                    conv_window, radius, T,
+                                                    full):
+    """The kernel on the time-major tile equals its launch on the
+    row-major one and the plain version, bit for bit, planes and state,
+    at an odd Q, for every instance."""
+    cfg = MonitorConfig(window=window, conv_window=conv_window,
+                        gauss_radius=radius, min_q_samples=16)
+    state, (comp_r, m, _), (comp_t, m_t, _) = _fleet_tile(
+        cfg, 301, T, seed=window + T, device=cuda)
+    assert torch.equal(m, m_t)
+    st_t = type(state)(*(a.clone() for a in state))
+    st_r = type(state)(*(a.clone() for a in state))
+    before = K.monitor_fleet.launches
+    out_t = K.monitor_fleet(cfg, st_t, comp_t, m_t, full=full)
+    out_r = K.monitor_fleet(cfg, st_r, comp_r, m, full=full)
+    assert K.monitor_fleet.launches == before + 2
+    carry, cols = monitor_fleet_ref(cfg, state, comp_r, m)
+    win = window_carry(state.win, comp_r, m)
+    torch.cuda.synchronize()
+    assert int(state.epoch.sum()) > 0           # a mid-stream state
+    for a, b in zip(st_t, st_r):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    want = (win,) + tuple(carry)
+    got = (st_t.win,) + tuple(carry_of_state(st_t))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    if full:
+        for a, b, c in zip(out_t, out_r, cols):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+            np.testing.assert_array_equal(a.cpu().numpy(), c.cpu().numpy())
+    else:
+        assert out_t is None and out_r is None
 
 
 def test_cuda_tensor_never_falls_back(cuda):

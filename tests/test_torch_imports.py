@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing
-in ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (any
+in ``chip_smoke.py`` or ``scripts/monitor_kernel_turns.py`` (both run on
+the card's machine) imports ``jax`` or the JAX package ``repro`` (any
 ``repro.*`` import would run ``repro/core/__init__.py`` and with it
 jax).  The card's machine has no jax."""
 
@@ -10,7 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "monitor_kernel_turns.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

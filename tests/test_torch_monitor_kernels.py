@@ -9,6 +9,8 @@ epochs and convergence flags exact, q/q-bar/estimates to rtol 1e-4 and
 atol 1e-3, the window stage to 1e-4 (f32) and 2e-2 (bf16).
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -283,3 +285,163 @@ def test_ladder_matches_plain_window_sums():
                             for i in range(50 - n + 1)], 1)
         np.testing.assert_array_equal(t_ref.slide_max_valid(x, n).numpy(),
                                       wmax.numpy())
+
+
+# -- the time-major tile (the monitoring service's staging layout) -------------
+
+def _time_major(a, dtype):
+    """(Q, T) values as the ``.T`` view of a contiguous (T, Q) tensor."""
+    return torch.as_tensor(np.ascontiguousarray(a.T), dtype=dtype).T
+
+
+@pytest.mark.parametrize("impl", ["cuda", "scan"])
+@pytest.mark.parametrize("mode", ["full", "state"])
+@pytest.mark.parametrize("pad_q", [True, False])
+def test_time_major_tile_matches_row_major(mode, impl, pad_q):
+    """``tc``/``blocked`` given as ``.T`` views of (T, Q) tensors give the
+    row-major call's outputs and state, leaf for leaf: Q = 5 off the
+    block_q = 4 multiple, T = 300 in chunks of 128 (a 44-step tail)."""
+    cfg = t_mon.MonitorConfig()
+    tc, blocked = _noisy_streams(Q=5, T=300, seed=21)
+    tm_tc = _time_major(tc, torch.float32)
+    tm_blk = _time_major(blocked, torch.bool)
+    assert tm_tc.stride(0) == 1 and not tm_tc.is_contiguous()
+    kw = dict(chunk_t=128, block_q=4, mode=mode, impl=impl, pad_q=pad_q,
+              device="cpu")
+    st_r, out_r = t_mon.run_monitor_fleet(
+        cfg, torch.as_tensor(tc, dtype=torch.float32),
+        torch.as_tensor(blocked), **kw)
+    st_t, out_t = t_mon.run_monitor_fleet(cfg, tm_tc, tm_blk, **kw)
+    assert int(st_r.epoch.sum()) > 0
+    for a, b in zip(st_t, st_r):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    if mode == "full":
+        for a, b in zip(out_t, out_r):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    else:
+        assert out_t is None and out_r is None
+
+
+@pytest.mark.parametrize("with_blocked", [True, False])
+def test_time_major_compaction_is_the_row_major_one_transposed(with_blocked):
+    """``_compact`` on a time-major tile scatters along the time axis of
+    a (T + 1, Q) buffer: the row-major compaction's planes, transposed,
+    with the tile's unit row stride kept for the kernel."""
+    tc, blocked = _noisy_streams(Q=7, T=40, seed=2, p_block=0.3)
+    blk = blocked if with_blocked else None
+    comp_r, m_r, cnt_r = t_ops._compact(
+        torch.as_tensor(tc, dtype=torch.float32),
+        None if blk is None else torch.as_tensor(blk))
+    comp_t, m_t, cnt_t = t_ops._compact(
+        _time_major(tc, torch.float32),
+        None if blk is None else _time_major(blk, torch.bool))
+    assert comp_t.shape == (7, 40) and comp_t.stride(0) == 1
+    assert comp_t.stride(1) >= 7
+    np.testing.assert_array_equal(comp_t.numpy(), comp_r.numpy())
+    np.testing.assert_array_equal(m_t.numpy(), m_r.numpy())
+    np.testing.assert_array_equal(cnt_t.numpy(), cnt_r.numpy())
+    if with_blocked:                    # the zero tail past m
+        assert (m_r.numpy() < 40).any()
+        for q in range(7):
+            assert (comp_t[q, int(m_t[q]):] == 0).all()
+
+
+def test_service_dispatch_hands_over_a_time_major_tile(monkeypatch):
+    """The service uploads its (chunk_t, S) staging as it is and hands
+    the estimator the ``.T`` view, unit row stride, unpadded; the
+    estimates are those of the row-major one-shot run."""
+    from repro_torch.streams import (CounterArena, FleetMonitorService,
+                                     InstrumentedQueue)
+    from repro_torch.streams import fleet as t_fleet
+    seen = []
+
+    def spy(cfg, tc, blocked, **kw):
+        seen.append((tc.shape, tc.stride(), blocked.stride(),
+                     kw.get("pad_q")))
+        return t_mon.run_monitor_fleet(cfg, tc, blocked, **kw)
+
+    monkeypatch.setattr(t_fleet, "run_monitor_fleet", spy)
+    Q, T = 3, 192
+    tc, blocked = _noisy_streams(Q=Q, T=T, seed=5, p_block=0.05)
+    arena = CounterArena(8)
+    queues = [InstrumentedQueue(8, arena=arena) for _ in range(Q)]
+    svc = FleetMonitorService(queues, t_mon.MonitorConfig(), period_s=1e-3,
+                              chunk_t=32, scale_to_period=False,
+                              device="cpu")
+    for t in range(T):
+        for qi, qu in enumerate(queues):
+            qu.head.tc = float(tc[qi, t])
+            qu.head.blocked = bool(blocked[qi, t])
+        svc.sample()
+    svc.flush()
+    svc.stop()
+    dispatches = [s for s in seen if s[0] == (Q, 32)]
+    assert len(dispatches) >= T // 32
+    for shape, ts, bs, pad_q in dispatches:
+        assert ts == (1, Q) and bs == (1, Q) and pad_q is False
+    st, _ = t_mon.run_monitor_fleet(t_mon.MonitorConfig(), tc, blocked,
+                                    mode="state", chunk_t=32, device="cpu")
+    np.testing.assert_array_equal(svc.epochs(), st.epoch.numpy())
+    assert svc.epochs().min() >= 1
+
+
+# -- the reference's signatures and keyword calls ------------------------------
+
+@pytest.mark.parametrize("name", ["fleet_monitor_q", "fleet_monitor_step",
+                                  "run_monitor_fleet", "fleet_monitor_scan"])
+def test_monitor_signatures_match_the_reference(name):
+    """Every parameter both packages have sits in the same order and
+    kind; the reference's ``use_pallas``/``interpret`` are all there
+    (``sub_t`` comes with the CPU fast path, ``rounds.py``)."""
+    mod_t, mod_j = ((t_mon, j_mon) if name == "run_monitor_fleet"
+                    else (t_ops, j_ops))
+    ref = inspect.signature(getattr(mod_j, name)
+                            if name != "fleet_monitor_scan"
+                            else j_ops._fleet_monitor_scan_impl).parameters
+    got = inspect.signature(getattr(mod_t, name)).parameters
+    shared = [p for p in ref if p in got]
+    assert [p for p in got if p in ref] == shared
+    assert set(ref) - set(got) <= {"sub_t"}
+    for p in shared:
+        assert got[p].kind == ref[p].kind, p
+    for p in ("use_pallas", "interpret"):
+        if p in ref:
+            assert p in got
+
+
+def test_reference_keyword_calls_run_on_the_port():
+    """The reference's keyword calls (``use_pallas=False``,
+    ``interpret=True``) give the port's results and the JAX package's."""
+    rng = np.random.default_rng(3)
+    win = rng.uniform(50, 150, (6, 32)).astype(np.float32)
+    q_plain = t_ops.fleet_monitor_q(torch.as_tensor(win), use_pallas=False,
+                                    interpret=True, block_q=8)
+    q_kern = t_ops.fleet_monitor_q(torch.as_tensor(win), use_pallas=True)
+    np.testing.assert_array_equal(q_plain.numpy(), q_kern.numpy())
+    np.testing.assert_allclose(
+        q_plain.numpy(), np.asarray(j_ops.fleet_monitor_q(
+            jnp.asarray(win), use_pallas=False)), rtol=1e-4)
+    t_cfg, _ = _cfgs({})
+    st = t_ops.fleet_step_init(t_cfg, 6, device="cpu")
+    q1, _, s1 = t_ops.fleet_monitor_step(torch.as_tensor(win), st,
+                                         cfg=t_cfg, use_pallas=False,
+                                         interpret=True)
+    q2, _, s2 = t_ops.fleet_monitor_step(torch.as_tensor(win), st,
+                                         cfg=t_cfg)
+    np.testing.assert_array_equal(q1.numpy(), q2.numpy())
+    np.testing.assert_array_equal(s1.numpy(), s2.numpy())
+
+    tc, blocked = _noisy_streams(Q=3, T=128, seed=8)
+    st_a, out_a = t_mon.run_monitor_fleet(t_cfg, tc, blocked, chunk_t=64,
+                                          interpret=True, block_q=8,
+                                          device="cpu")
+    st_b, out_b = t_mon.run_monitor_fleet(t_cfg, tc, blocked, chunk_t=64,
+                                          block_q=8, device="cpu")
+    for a, b in zip(tuple(st_a) + tuple(out_a), tuple(st_b) + tuple(out_b)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    s0 = t_mon.fleet_monitor_init(t_cfg, 3, device="cpu")
+    st_c, _ = t_ops.fleet_monitor_scan(
+        t_cfg, s0, torch.as_tensor(tc, dtype=torch.float32),
+        torch.as_tensor(blocked), impl="scan", mode="state",
+        interpret=True, block_q=8)
+    np.testing.assert_array_equal(st_c.epoch.numpy(), st_a.epoch.numpy())

@@ -14,6 +14,7 @@ row's first token from the last padded position, and a row decoded past
 the end of the cache has its writes clamped to the last position.
 """
 
+import inspect
 import time
 
 import jax
@@ -182,5 +183,32 @@ def test_decode_past_the_cache_end_matches_jax(pair):
 
 def test_control_waits_for_the_loop_port(pair):
     _, _, tm, tp, _ = pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         Engine(tm, tp, ServeConfig(), control=True, device="cpu")
+
+
+def test_engine_parameters_sit_where_the_reference_has_them():
+    """``Engine.__init__`` takes the JAX engine's parameters in the JAX
+    engine's order (``control_log`` 8th), so a call by position binds
+    ``monitor``, ``fault_plan`` and ``obs`` as it does there; the port
+    adds ``device`` last."""
+    ref = list(inspect.signature(JEngine.__init__).parameters)
+    got = list(inspect.signature(Engine.__init__).parameters)
+    assert got[:len(ref)] == ref
+    assert got[len(ref):] == ["device"]
+    assert ref.index("control_log") == 8      # self first
+
+
+def test_engine_keeps_its_control_log(pair):
+    """A log passed by position lands in ``control_log``, and the
+    parameters after it bind as in the reference."""
+    from repro_torch.control import ControlLog
+    _, _, tm, tp, _ = pair
+    log = ControlLog(8)
+    eng = Engine(tm, tp, ServeConfig(batch_size=B, max_seq=S_MAX), None,
+                 None, False, None, log, False, device="cpu")
+    try:
+        assert eng.control_log is log
+        assert eng.fleet is None               # monitor=False, by position
+    finally:
+        eng.stop()
