@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor and
-the serving paths of internlm2-1.8b and mamba2-2.7b at full width.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor, the
+control loop that acts on it, and the serving paths of internlm2-1.8b
+and mamba2-2.7b at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -33,6 +34,23 @@ failed check raises and exits non-zero):
    service's form (the (32, S) staging uploaded as it is and read as its
    time-major view) and, on the host clock, the transpose-copies of that
    staging the service no longer makes;
+(a) the control loop at full width: a ``ControlLoop`` over that service
+   (the replica, buffer and admission policies, a recording actuator,
+   the decision's "jit" form: one CUDA graph, replayed) ticked once after
+   each of 10 more dispatches.  Every tick the same sensed operands go
+   through the "numpy" form from the same state: every boolean field and
+   the replica targets equal, capacity targets only +/-1 slot apart where
+   the continuous exponent sits within 1e-5 (relative) of an integer, on
+   <= 0.1% of queues; the converged replica targets equal
+   clip(ceil(1.2 lam / mu), 1, 64) of the service's gated estimates;
+   scale actions fire, no error record, no degradation to numpy, one
+   graph build; the loop tick's host time, the decision's device time by
+   graph replay and the numpy form's host time;
+(b) a ``Pipeline`` on the card: the closed-loop demo (12 000 items through
+   a stage that sleeps 0.4 ms an item, control=True, window 16): all items
+   come out as x + 1, the stage is scaled (> 1 live replica, an applied
+   replicas/scale record), ``monitor_fleet`` launched once per dispatch
+   plus the warm-up, no worker crash, no degradation;
 5. the per-tick path: ``fleet_monitor_step`` over 2e5 windows for 64 ticks,
    one ``batched_monitor`` launch per tick;
 6. ``flash_attention`` against its plain version on the card: the JAX
@@ -55,6 +73,10 @@ failed check raises and exits non-zero):
    lanes; one request served alone equals a direct prefill + greedy
    decode of its round (the request replicated to the batch of 8); a
    torch.profiler trace of one round splits the device time;
+(c) the same 16 requests through ``serve.Engine(control=True)``: each is
+   answered or refused with a logged admission record, 24
+   ``flash_attention`` launches per prefill round, the loop ticks, no
+   error record, no crash, no degradation;
 9. ``ssd_chunk`` against its plain version on the card: the chunked op
    on the JAX package's kernel-test shapes and chunks and the chunk
    kernel at odd shapes (rtol = atol = 1e-4), then at the mamba2
@@ -77,7 +99,7 @@ failed check raises and exits non-zero):
    a CUDA graph of many calls on inputs that together exceed the L2
    cache (``graph_ms``), with the row-major form, the SASS issue
    estimate of the fold, bf16, warm-cache and per-call times in the
-   ``service`` line.
+   ``service`` line; phases (a)-(c) in the ``control`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -114,6 +136,8 @@ N_PERIODS = 4096
 CHUNK = 256
 SVC_CHUNK = 32
 SVC_TICKS = 640
+CTL_TICKS = 320              # the control phase: 10 more dispatches
+PIPE_ITEMS = 12_000          # the closed-loop pipeline demo's items
 STEP_TICKS = 64
 WINDOW_Q = 200_000
 
@@ -611,12 +635,317 @@ def phase_service(torch, K, M, S, dev):
     log(f"dispatch device time (H2D + compaction + kernel): {d_ms:.3f} ms; "
         f"the host transpose of the ({SVC_CHUNK}, {svc.n_streams}) staging "
         f"it no longer makes: {transpose_ms:.3f} ms (host clock)")
-    svc.stop()
+    # the service goes on, converged, into the control phase
+    path = {"svc": svc, "arena": arena, "heads": heads, "tails": tails,
+            "mu": mu, "lam": lam}
     return launches["monitor_fleet"], {
         "collector_us_per_tick": float(np.mean(tick_us)),
         "dispatch_tick_us": float(np.mean(dispatch_us)),
         "dispatch_ms": d_ms, "transpose_ms_removed": transpose_ms,
-        "max_rate_err": err}
+        "max_rate_err": err}, path
+
+
+class RecordingActuator:
+    """The control phase's actuator: every queue reports one replica, a
+    capacity of 64 and an empty queue; each verb is counted and applied
+    nowhere, so the estimates (and the replica basis of the decision)
+    stay those of the configured rates."""
+
+    def __init__(self, nq):
+        self.nq = nq
+        self.counts = {"scale": 0, "resize": 0, "admit": 0}
+
+    def replicas(self):
+        return np.ones(self.nq, np.int64)
+
+    def capacities(self):
+        return np.full(self.nq, 64, np.int64)
+
+    def occupancy(self):
+        return np.zeros(self.nq)
+
+    def scale(self, i, n):
+        self.counts["scale"] += 1
+        return "applied"
+
+    def resize(self, i, cap):
+        self.counts["resize"] += 1
+        return "applied"
+
+    def admit(self, i, shed):
+        self.counts["admit"] += 1
+        return "applied"
+
+
+def capacity_exponent(lam, mu, cv2, f=0.99):
+    """The continuous exponent behind each queue's capacity target, in
+    float32 as ``control.policy._capacity_targets`` takes it: K for
+    M/M/1/K, (K + 1) / 2 for M/D/1/K (cv2 < 0.5)."""
+    lam = np.asarray(lam, np.float32)
+    mu = np.asarray(mu, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rho = lam / np.where(mu > 0, mu, np.float32(1))
+        xstar = np.where(rho < 1, np.float32(1 - f) / (1 - f * rho),
+                         (1 - np.float32(f) / rho) / np.float32(1 - f))
+        ke = np.log(xstar) / np.log(rho)
+    return np.where(np.asarray(cv2) >= 0.5, ke, (ke + 1) / 2)
+
+
+def check_loop_health(loop, what):
+    h = loop.health()
+    check(not h["impl_degraded"] and h["jit_failures"] == 0,
+          f"{what}: the decision degraded to numpy: {h}")
+    check(h["tick_errors"] == 0 and h["actuation_errors"] == 0
+          and h["quarantined"] == 0 and h["monitor_restarts"] == 0,
+          f"{what}: loop faults {h}")
+    bad = [r for r in loop.log.records() if r.error]
+    check(not bad, f"{what}: error records {bad[:3]}")
+    return h
+
+
+def phase_control(torch, K, CT, CL, CP, path, dev):
+    """(a) The control loop at full width: a ``ControlLoop`` over phase
+    4's service (1e5 queues, S = 2e5) with the replica, buffer and
+    admission policies, the decision's "jit" form (one CUDA graph),
+    ticked once after each dispatch.  Every tick the same sensed
+    operands also go through the "numpy" form from the same state."""
+    svc, arena = path["svc"], path["arena"]
+    heads, tails, mu, lam = (path["heads"], path["tails"], path["mu"],
+                             path["lam"])
+    nq = len(mu)
+    act = RecordingActuator(nq)
+    ps = CT.PolicySet(replica=CT.ReplicaPolicy(), buffer=CT.BufferPolicy(),
+                      admission=CT.AdmissionPolicy())
+    builds0 = CT.control_decide_trace_count()
+    loop = CT.ControlLoop(svc, ps, act, impl="jit")
+    t0 = time.perf_counter()
+    loop.warmup()                        # the decision's graph capture
+    t_capture = time.perf_counter() - t0
+
+    real = CL.control_decide
+    seen = {"ticks": 0, "shadow_s": 0.0, "decide_us": [],
+            "boundary": set(), "last": None}
+
+    def checked(cfg, state, **kw):
+        check(kw.get("impl") == "jit", f"decision form {kw.get('impl')}")
+        t0 = time.perf_counter()
+        st_in = CP.ControlState(*(CP._host(a).copy() for a in state))
+        t1 = time.perf_counter()
+        new, dec = real(cfg, state, **kw)
+        t2 = time.perf_counter()
+        _, dn = real(cfg, st_in, **{**kw, "impl": "numpy", "device": None})
+        t = seen["ticks"]
+        for name in dec._fields:
+            a, b = np.asarray(getattr(dec, name)), getattr(dn, name)
+            if name == "target_caps":
+                diff = np.nonzero(a != b)[0]
+                if diff.size:
+                    e = capacity_exponent(kw["lam"][diff], kw["mu"][diff],
+                                          np.broadcast_to(kw["cv2"], (nq,))
+                                          [diff])
+                    edge = (np.abs(a[diff].astype(np.int64) - b[diff]) == 1) \
+                        & (np.abs(e - np.rint(e))
+                           <= 1e-5 * np.maximum(1, np.abs(e)))
+                    check(bool(edge.all()),
+                          f"tick {t}: target_caps jit {a[diff][:4]} numpy "
+                          f"{b[diff][:4]} off a +/-1-slot boundary "
+                          f"(exponents {e[:4]})")
+                    seen["boundary"].update(diff.tolist())
+                continue
+            check(np.array_equal(a, b),
+                  f"tick {t}: {name} differs between jit and numpy at "
+                  f"{np.nonzero(a != b)[0][:4]}")
+        seen["ticks"] += 1
+        seen["decide_us"].append((t2 - t1) * 1e6)
+        seen["last"] = (kw, dec, st_in)
+        seen["shadow_s"] += (t1 - t0) + (time.perf_counter() - t2)
+        return new, dec
+
+    CL.control_decide = checked
+    K.reset_launch_counts()
+    d0 = svc.dispatches
+    tick_us, dispatch_us = [], []
+    try:
+        for _ in range(CTL_TICKS):
+            with arena.lock:
+                arena.tc[heads] = mu
+                arena.tc[tails] = lam
+            before = svc.dispatches
+            t0 = time.perf_counter()
+            svc.sample()
+            if svc.dispatches > before:
+                dispatch_us.append((time.perf_counter() - t0) * 1e6)
+                s0 = seen["shadow_s"]
+                t0 = time.perf_counter()
+                loop.tick()
+                tick_us.append((time.perf_counter() - t0
+                                - (seen["shadow_s"] - s0)) * 1e6)
+        svc.flush()
+        torch.cuda.synchronize()
+    finally:
+        CL.control_decide = real
+    launches = K.launch_counts()["monitor_fleet"]
+    dispatches = svc.dispatches - d0
+    check(launches == dispatches,
+          f"monitor_fleet launches {launches} != dispatches {dispatches}")
+    builds = CT.control_decide_trace_count() - builds0
+    check(builds == 1, f"{builds} decision graph builds, not 1")
+    check(len(tick_us) == dispatches and seen["ticks"] == dispatches,
+          f"{seen['ticks']} decisions for {dispatches} dispatches")
+    h = check_loop_health(loop, "control phase")
+    check(act.counts["scale"] > 0, "no scale action fired")
+    n_boundary = len(seen["boundary"])
+    check(n_boundary <= 1e-3 * nq,
+          f"{n_boundary} queues on a capacity boundary (> 0.1%)")
+
+    # converged: each ready queue's replica target is the formula's
+    kw, dec, st_in = seen["last"]
+    ready = np.asarray(kw["ready"], bool)
+    check(bool(ready.all()), f"{int((~ready).sum())} queues not ready")
+    lam_e = np.asarray(kw["lam"], np.float32)
+    mu_e = np.asarray(kw["mu"], np.float32)
+    want = np.clip(np.ceil(np.float32(1.2) * lam_e / mu_e), 1,
+                   loop.cfg.max_replicas).astype(np.int32)
+    bad = np.nonzero(np.asarray(dec.target_replicas)[ready] != want[ready])[0]
+    check(bad.size == 0, f"replica targets off the formula at {bad[:4]}")
+
+    # the decision alone: device time by graph replay, the numpy form on
+    # the host clock, on the last tick's operands
+    qp = -(-nq // loop.cfg.block_q) * loop.cfg.block_q
+    step = CP._decide_step(loop.cfg, qp, dev)
+    replay_ms = event_ms(torch, step.graph.replay, reps=50)
+    ops = {k: v for k, v in kw.items() if k not in ("impl", "device")}
+    t0 = time.perf_counter()
+    for _ in range(5):
+        real(loop.cfg, st_in, impl="numpy", **ops)
+    numpy_us = (time.perf_counter() - t0) / 5 * 1e6
+    log(f"control: ControlLoop over S={svc.n_streams} ({nq} queues), "
+        f"{dispatches} ticks, graph capture {t_capture * 1e3:.1f} ms, "
+        f"{builds} build; actions {act.counts}; jit == numpy on every "
+        f"boolean and replica target, {n_boundary} queues on a +/-1-slot "
+        f"capacity boundary; loop tick (sense + decide + act) mean "
+        f"{np.mean(tick_us):.0f} us, median {np.median(tick_us):.0f} us, "
+        f"decide {np.median(seen['decide_us']):.0f} us (host clock); "
+        f"decision by graph replay {replay_ms:.4f} ms (device), numpy form "
+        f"{numpy_us:.0f} us (host clock); beside the dispatch tick it "
+        f"follows, mean {np.mean(dispatch_us):.0f} us (host clock)")
+    return {"loop_tick_us": float(np.mean(tick_us)),
+            "loop_tick_median_us": float(np.median(tick_us)),
+            "decide_host_us": float(np.median(seen["decide_us"])),
+            "decide_replay_ms": replay_ms, "decide_numpy_us": numpy_us,
+            "dispatch_tick_us": float(np.mean(dispatch_us)),
+            "graph_capture_ms": t_capture * 1e3,
+            "capacity_boundary_queues": n_boundary,
+            "control_ticks": dispatches, "actions": dict(act.counts),
+            "log_counts": loop.log.counts(), "health": h}
+
+
+def phase_pipeline(torch, K, CT, S, M, dev):
+    """(b) The closed-loop demo on the card: a source feeds a stage that
+    sleeps 0.4 ms an item, and the pipeline's own ControlLoop scales it
+    while the items flow."""
+    def heavy(x):
+        time.sleep(4e-4)
+        return x + 1
+
+    pipe = S.Pipeline([S.Stage("src", source=range(PIPE_ITEMS)),
+                       S.Stage("heavy", fn=heavy)],
+                      capacity=64, base_period_s=1e-3, control=True,
+                      monitor_cfg=M.MonitorConfig(window=16,
+                                                  min_q_samples=16),
+                      device=dev)
+    pipe.control.warmup()                # the decision's graph capture
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.run_collect(timeout_s=300)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["monitor_fleet"]
+    check(len(out) == PIPE_ITEMS
+          and sorted(out) == list(range(1, PIPE_ITEMS + 1)),
+          f"pipeline lost or changed items: {len(out)} out")
+    stats = pipe.stats()
+    check(stats["crash_count"] == 0, f"worker crashed: {stats['crashes']}")
+    live = pipe.live_replicas("heavy")
+    scales = [(r.tick, r.value) for r in pipe.control.log.records()
+              if r.policy == "replicas" and r.outcome == "applied"]
+    check(scales, "no applied replicas/scale record")
+    check(live > 1, f"live replicas of 'heavy' {live}, scales {scales}")
+    check(launches == pipe.fleet.dispatches + 1,
+          f"monitor_fleet launches {launches} != dispatches "
+          f"{pipe.fleet.dispatches} + warm-up")
+    h = check_loop_health(pipe.control, "pipeline")
+    log(f"pipeline: {PIPE_ITEMS} items in {wall:.2f} s ({PIPE_ITEMS / wall:.0f}"
+        f" items/s, host clock), live replicas of 'heavy' {live}, scale "
+        f"records (tick, replicas) {scales}, {pipe.fleet.dispatches} "
+        f"dispatches, {launches} monitor_fleet launches, {h['ticks']} "
+        f"loop ticks")
+    return {"pipeline_items_per_s": PIPE_ITEMS / wall,
+            "pipeline_wall_s": wall, "pipeline_live_replicas": live,
+            "pipeline_scales": scales,
+            "pipeline_dispatches": pipe.fleet.dispatches,
+            "pipeline_loop_ticks": h["ticks"]}
+
+
+def phase_serve_control(torch, KK, kname, MK, serve, model, params,
+                        prompts, dev):
+    """(c) ``serve.Engine(control=True)``: phase 8's requests again,
+    with the engine's ControlLoop (buffer + admission policies) over its
+    lanes."""
+    eng = serve.Engine(model, params, serve.ServeConfig(
+        batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
+        control=True, device=dev)
+    rounds = []
+    prefill = eng._prefill
+
+    def counted_prefill(p, batch):
+        rounds.append(batch["tokens"].shape)
+        return prefill(p, batch)
+
+    eng._prefill = counted_prefill
+    reqs = [serve.Request(rid=i, tokens=t, max_new=SERVE_NEW,
+                          qos=("blocking", "nonblocking")[i % 2])
+            for i, t in enumerate(prompts)]
+    KK.reset_launch_counts()
+    MK.reset_launch_counts()
+    eng.start()
+    t0 = time.perf_counter()
+    admitted = [eng.submit(r, timeout=60.0) for r in reqs]
+    for r, ok in zip(reqs, admitted):
+        if ok:
+            check(r.done.wait(timeout=600), f"request {r.rid} timed out")
+    wall = time.perf_counter() - t0
+    deadline = time.monotonic() + 30
+    while eng.control.ticks == 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    crashes = list(eng._crashes)
+    eng.stop()
+    launched = KK.launch_counts()[kname]
+    monitor = MK.launch_counts()["monitor_fleet"]
+    check(not crashes, f"serve worker crashed: {crashes}")
+    for r, ok in zip(reqs, admitted):
+        if ok:
+            check(r.out is not None and r.out.shape == (SERVE_NEW,),
+                  f"request {r.rid} answered {r.out}")
+    refused = len(reqs) - sum(admitted)
+    sheds = [r for r in eng.control.log.records()
+             if r.policy == "admission" and r.action == "shed"]
+    check(refused == 0 or sheds,
+          f"{refused} requests refused with no admission record")
+    check(launched == model.cfg.n_layers * len(rounds),
+          f"{kname} launched {launched} times in {len(rounds)} rounds")
+    h = check_loop_health(eng.control, "engine")
+    check(h["ticks"] >= 1, "the engine's loop never ticked")
+    check(monitor > 0, "monitor_fleet never launched on the lanes")
+    log(f"serve with control: {len(reqs)} requests, {sum(admitted)} "
+        f"answered, {refused} refused, {len(rounds)} rounds, {wall:.2f} s "
+        f"wall (host clock), {kname} launches {launched}, monitor_fleet "
+        f"launches {monitor}, loop ticks {h['ticks']}, log "
+        f"{eng.control.log.counts()}")
+    return {"control_serve_wall_s": wall, "control_rounds": len(rounds),
+            "control_answered": sum(admitted), "control_refused": refused,
+            "control_loop_ticks": h["ticks"],
+            "control_log_counts": eng.control.log.counts()}
 
 
 def phase_step_path(torch, K, O, M, rng, dev):
@@ -1029,10 +1358,11 @@ def phase_profile(torch, model, params, rows, dev):
 
 
 def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
-                spans=contextlib.nullcontext):
+                spans=contextlib.nullcontext, prompts=None):
     """A serving path: requests through the engine's QoS lanes, batched
     prefill through the kernel ``kname`` of module ``KK`` (one launch
-    per layer per round), greedy decode.  ``spans`` wraps the trace."""
+    per layer per round), greedy decode.  ``spans`` wraps the trace;
+    the requests' prompts are appended to ``prompts`` when given."""
     eng = serve.Engine(model, params, serve.ServeConfig(
         batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
         device=dev)
@@ -1048,6 +1378,8 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
     reqs = [serve.Request(rid=i, tokens=rng.integers(
         0, model.cfg.vocab_size, int(n)).astype(np.int32), max_new=SERVE_NEW,
         qos=("blocking", "nonblocking")[i % 2]) for i, n in enumerate(lens)]
+    if prompts is not None:
+        prompts.extend(r.tokens for r in reqs)
     KK.reset_launch_counts()
     MK.reset_launch_counts()
     eng.start()
@@ -1394,6 +1726,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import configs as C
+    from repro_torch import control as CT
+    from repro_torch.control import loop as CL
+    from repro_torch.control import policy as CP
     from repro_torch import models as MD
     from repro_torch import serve as SV
     from repro_torch.core import monitor as M
@@ -1443,7 +1778,11 @@ def main() -> int:
     fleet = kernel_fleet_at_path(torch, K, M, R, O, st_seed, rng, dev, sass,
                                  args.seed)
     del st_seed
-    fleet_launches, svc = phase_service(torch, K, M, S, dev)
+    fleet_launches, svc, path = phase_service(torch, K, M, S, dev)
+    control = phase_control(torch, K, CT, CL, CP, path, dev)
+    path["svc"].stop()
+    del path
+    control.update(phase_pipeline(torch, K, CT, S, M, dev))
     step_launches = phase_step_path(torch, K, O, M, rng, dev)
     batched = kernel_batched_at_path(torch, K, R, rng, dev,
                                      max(b_err.values()), args.seed)
@@ -1451,8 +1790,12 @@ def main() -> int:
     flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
     model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
                                              args.seed, dev)
+    prompts = []
     flash_launches, serve_stats = phase_serve(
-        torch, AK, "flash_attention", K, SV, model, params, rng, dev)
+        torch, AK, "flash_attention", K, SV, model, params, rng, dev,
+        prompts=prompts)
+    control.update(phase_serve_control(torch, AK, "flash_attention", K, SV,
+                                       model, params, prompts, dev))
     del model, params
     torch.cuda.empty_cache()
     ssd_err = phase_ssd(torch, SK, SR, SO, rng, dev)
@@ -1513,6 +1856,7 @@ def main() -> int:
              "batched_monitor_bf16_bound_ms": batched["bound_ms_bf16"],
              **svc}
     log(json.dumps({"service": extra}))
+    log(json.dumps({"control": control}))
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,
                               **ssm_serve_stats}}))

@@ -402,7 +402,7 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
                       mode: str = "full", interpret: bool = True,
                       block_q: int = 256, dtype=torch.float32,
                       donate: bool = False, pad_q: bool = True,
-                      device="cuda"
+                      sub_t: int = 32, device="cuda"
                       ) -> tuple[FleetMonitorState, MonitorOutput | None]:
     """Drive the fused fleet estimator over (Q, T) sample streams.
 
@@ -412,8 +412,9 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
 
     ``impl`` selects the execution path (see ``kernels.monitor.ops``):
     ``"cuda"`` (the fused kernel; its plain PyTorch version stands in
-    only for tensors on the CPU) or ``"scan"`` (the plain sequential
-    version on any device).  ``mode="full"`` returns a ``MonitorOutput``
+    only for tensors on the CPU), ``"rounds"`` (the segmented
+    time-batched form, the host fast path, in sub-tiles of ``sub_t``
+    steps) or ``"scan"`` (the plain sequential version on any device).  ``mode="full"`` returns a ``MonitorOutput``
     whose (Q, T) leaves are step-for-step identical to ``run_monitor``;
     ``mode="state"`` skips per-step outputs (converged estimates and
     epochs live in the state) and returns ``(state, None)`` — the
@@ -472,7 +473,7 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
             blk_c = _pad_tile(blk_c, 0, pad, value=True)
         state, out = _fleet_monitor_scan_impl(
             cfg, state, tc_c, blk_c, impl=impl, mode=mode, block_q=block_q,
-            donate=donate)
+            sub_t=sub_t, donate=donate)
         donate = True                      # later chunks update our copy
         if pad:                            # padded steps are not real
             state = state._replace(n_total=state.n_total - pad,

@@ -3,8 +3,8 @@
 ``fleet_monitor_scan`` is the throughput path: it consumes a (Q, T) tile
 of raw (tc, blocked) samples per dispatch, discards blocked samples by
 stream compaction, runs the fused Algorithm-1 scan (Stage A window
-estimates + Stage B convergence fold, the ``monitor_fleet`` CUDA kernel),
-and scatters the per-valid-step outputs back onto the original timeline
+estimates + Stage B convergence fold: the ``monitor_fleet`` CUDA kernel,
+or on the host the segmented ``rounds`` form), and scatters the per-valid-step outputs back onto the original timeline
 so the result is step-for-step identical to ``run_monitor``.
 
 ``fleet_monitor_q`` / ``fleet_monitor_step`` are the one-tick forms for
@@ -26,16 +26,10 @@ from repro_torch.kernels.monitor.kernel import batched_monitor, monitor_fleet
 from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
                                              carry_of_state, fleet_sigma,
                                              monitor_fleet_ref, window_carry)
+from repro_torch.kernels.monitor.rounds import monitor_fleet_rounds
 
 __all__ = ["fleet_monitor_q", "fleet_monitor_step", "fleet_monitor_scan",
            "FleetStepState", "fleet_step_init", "batched_monitor_ref"]
-
-# the JAX package's CPU fast path (kernels/monitor/rounds.py) is not
-# ported yet; its place in the plan:
-_ROUNDS_TODO = ("impl='rounds' (the segmented CPU fast path, "
-                "kernels/monitor/rounds.py) is not ported yet: ROADMAP.md "
-                "Queue 1, item 1 (next slice, with the control plane)")
-
 
 # ---------------------------------------------------------------------------
 # Fused (Q, T) scan.
@@ -91,11 +85,14 @@ def _compact(tc, blocked):
 def _fleet_monitor_scan_impl(cfg: MonitorConfig, state: FleetMonitorState,
                              tc, blocked=None, *, impl: str = "cuda",
                              mode: str = "full", interpret: bool = True,
-                             block_q: int = 256, donate: bool = False):
+                             block_q: int = 256, sub_t: int = 32,
+                             donate: bool = False):
     """One fused dispatch over a (Q, T) tile.
 
     impl: "cuda" (the fused kernel; its plain version stands in only for
-    CPU tensors) or "scan" (the plain sequential version on any device).
+    CPU tensors), "rounds" (the segmented time-batched form, the host
+    fast path; ``sub_t`` steps a sub-tile, at most the convergence gap)
+    or "scan" (the plain sequential version on any device).
     mode="full" returns a MonitorOutput with (Q, T) leaves matching
     ``monitor_update`` step for step; mode="state" skips per-step outputs
     and returns (new_state, None).  ``tc`` and ``blocked`` may be
@@ -127,7 +124,9 @@ def _fleet_monitor_scan_impl(cfg: MonitorConfig, state: FleetMonitorState,
         carry, cols = monitor_fleet_ref(cfg, state, comp, m)
         win = window_carry(state.win, comp, m)
     elif impl == "rounds":
-        raise NotImplementedError(_ROUNDS_TODO)
+        carry, cols = monitor_fleet_rounds(cfg, state, comp, m, mode=mode,
+                                           sub_t=sub_t)
+        carry, win = carry[:9], carry[9]   # rounds carries the window
     else:
         raise ValueError(f"unknown impl {impl!r}")
 

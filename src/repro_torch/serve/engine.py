@@ -8,8 +8,9 @@ for the round's largest ``max_new`` with the cache write clamped at its
 end, as the JAX package does.  The model runs on ``device`` (the card by
 default: the prefill's attention through the flash-attention kernel);
 the lanes' monitor is the port's ``FleetMonitorService`` on the same
-device (the ``monitor_fleet`` kernel).  ``control=True`` waits for the
-control loop's port (ROADMAP.md, Queue 1 item 1).
+device (the ``monitor_fleet`` kernel), and ``control=True`` closes the
+loop over it with a ``control.ControlLoop`` (its decision, on the card,
+one CUDA-graph replay per tick).
 
 The request lanes are paper-instrumented streams: each QoS class (see
 ``serve.qos``) gets its OWN ``InstrumentedQueue`` whose ends live on a
@@ -66,7 +67,9 @@ import numpy as np
 import torch
 
 from repro_torch.control.log import ControlLog, ControlRecord
-from repro_torch.control.policy import AdmissionPolicy, BufferPolicy
+from repro_torch.control.loop import ControlLoop
+from repro_torch.control.policy import (AdmissionPolicy, BufferPolicy,
+                                        PolicySet)
 from repro_torch.core.controller import BufferAutotuner
 from repro_torch.core.monitor import MonitorConfig, resolve_device
 from repro_torch.models.api import Model
@@ -316,13 +319,8 @@ class Engine:
                  fault_plan=None,
                  obs=None,
                  device="cuda"):
-        if control:
-            raise NotImplementedError(
-                "control=True needs the control loop, which is not ported "
-                "yet (ROADMAP.md, Queue 1 item 1)")
         self.device = resolve_device(device)
-        # the decision log the control loop will write to (kept for it:
-        # without control=True nothing records into it yet)
+        # the decision log a control=True engine's loop writes to
         self.control_log = control_log
         self.model = model
         self.params = params
@@ -360,6 +358,10 @@ class Engine:
             for c in self.qos}
         # compat aliases: the primary (lane-0) queue and gate
         self.queue = self.lanes[self.class_names[0]]
+        if not monitor and control:
+            raise ValueError(
+                "monitor=False hands monitoring AND control to a "
+                "ControlGroup — control must stay off")
         # ``monitor=False`` builds the engine externally monitored:
         # attach it to a ``ControlGroup`` (sharing the
         # group's arena), which owns one monitor + loop for every
@@ -385,8 +387,19 @@ class Engine:
                                   name=c.name)
             for c in self.qos}
         self.gate = self.gates[self.class_names[0]]
-        self.control = None            # the loop is not ported yet
+        self.control = None
         self._actuator = _EngineActuator(self)
+        if control:
+            self.control = ControlLoop(
+                self.fleet,
+                PolicySet(buffer=self.buffer_policy,
+                          admission=self.admission_policy),
+                self._actuator, log=control_log)
+            self._actuator.bind_log(self.control.log)
+            # the loop's watchdog restarts a dead monitor thread (the
+            # service — which holds every estimator's state — survives)
+            self.control.watch_monitor(lambda: self.monitor_thread,
+                                       self._restart_monitor)
         # -- accounting ------------------------------------------------------
         self._acct_lock = threading.Lock()
         self._lane_stats = {n: _LaneStats() for n in self.class_names}
@@ -424,7 +437,7 @@ class Engine:
                 "obs= on a monitor=False engine has no mirrors to "
                 "export — pass obs= to the owning ControlGroup")
         self.exporter = make_exporter(
-            obs, service=self.fleet, loop=None,
+            obs, service=self.fleet, loop=self.control,
             names=self.class_names,
             extra=lambda: {"repro_engine_breaker_open": {
                 n: float(n in self._degraded) for n in self.class_names}})
@@ -470,6 +483,8 @@ class Engine:
     def start(self):
         if self.monitor_thread is not None:  # externally monitored else
             self.monitor_thread.start()
+        if self.control is not None:
+            self.control.start()
         if self.exporter is not None:
             self.exporter.start()
         with self._scale_lock:
@@ -492,8 +507,24 @@ class Engine:
                 w.join(timeout=30)
         if self.exporter is not None:
             self.exporter.stop()
+        if self.control is not None:
+            self.control.stop()
         if self.monitor_thread is not None:
             self.monitor_thread.stop()
+
+    def _restart_monitor(self) -> FleetMonitorThread:
+        """Watchdog restart path (mirrors ``Pipeline._restart_monitor``):
+        fold any partially staged chunk, then hand the same service —
+        and the same adaptive-period controller — to a fresh timer."""
+        old = self.monitor_thread
+        self.fleet.flush()
+        m = FleetMonitorThread(self.fleet, period=old.period,
+                               adapt_period=old.adapt_period,
+                               min_sleep_s=old.min_sleep_s,
+                               fault_plan=old.fault_plan)
+        self.monitor_thread = m
+        m.start()
+        return m
 
     # ---------------- multi-tenant protocol ----------------------------------
     def control_tenant(self) -> tuple[list, "_EngineActuator"]:

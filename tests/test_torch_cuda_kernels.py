@@ -596,3 +596,59 @@ def test_ssd_chunk_cuda_launches_or_raises(cuda):
         SK.ssd_chunk(*_ssd_inputs((1, 1, 300), 2, 8, 8, seed=4,
                                   device=cuda))
     assert SK.ssd_chunk.launches == before + 1
+
+
+# -- the control decision's CUDA graph ----------------------------------------
+
+def test_control_decide_graph_equals_numpy_and_builds_once():
+    """The ``"jit"`` form of ``control_decide`` on the card (one CUDA
+    graph, replayed) against the numpy form over a random 40-tick drive
+    with every leg live, SLO included: decisions equal, state to rtol
+    1e-6; ragged fleets within one ``block_q`` build the graph once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decision's CUDA graph runs "
+                    "only on the card")
+    from repro_torch import control as CT
+    dev = torch.device("cuda", 0)
+    cfg = CT.ControlConfig(confirm_ticks=1, cooldown_ticks=5, block_q=16,
+                           min_ready=4, slo_enabled=True, slo_fast_ticks=2,
+                           slo_slow_ticks=4, max_replicas=16,
+                           saturation_growth=1.5)
+    q = 13
+    rng = np.random.default_rng(3)
+    st_n = CT.control_init(cfg, q, device="cpu")
+    st_j = CT.control_init(cfg, q, device=dev)
+    base = CT.control_decide_trace_count()
+    fired = 0
+    for t in range(40):
+        ops = dict(lam=rng.uniform(0, 300, q), mu=rng.uniform(0, 300, q),
+                   ready=rng.random(q) > 0.2,
+                   replicas=rng.integers(1, 8, q),
+                   caps=rng.integers(4, 256, q),
+                   cv2=rng.uniform(0.1, 2, q), occupancy=rng.random(q),
+                   saturated=rng.random(q) > 0.8,
+                   stale=rng.random(q) > 0.8,
+                   leg_rep=rng.random(q) > 0.2,
+                   leg_buf=rng.random(q) > 0.2,
+                   leg_adm=rng.random(q) > 0.2,
+                   headroom=rng.uniform(1.0, 2.0, q),
+                   max_replicas=rng.integers(2, 16, q),
+                   slo_target=np.where(rng.random(q) > 0.3, 4e-3, np.nan),
+                   over_frac=rng.random(q))
+        st_n, dn = CT.control_decide(cfg, st_n, impl="numpy", **ops)
+        st_j, dj = CT.control_decide(cfg, st_j, impl="jit", **ops)
+        fired += int(dn.scale_mask.sum() + dn.resize_mask.sum())
+        for name, a, b in zip(dn._fields, dn, dj):
+            np.testing.assert_array_equal(b, a, err_msg=f"{t} {name}")
+        for name, a, b in zip(st_n._fields, st_n, st_j):
+            assert b.device == dev
+            np.testing.assert_allclose(b.cpu().numpy(), a, rtol=1e-6,
+                                       err_msg=f"{t} state {name}")
+    assert fired
+    assert CT.control_decide_trace_count() == base + 1
+    for n in (3, 5, 9, 16, 2):           # ragged, one padded size
+        CT.control_decide(cfg, CT.control_init(cfg, n, device=dev),
+                          lam=np.full(n, 100.0), mu=np.full(n, 50.0),
+                          ready=np.ones(n, bool), replicas=np.ones(n),
+                          caps=np.full(n, 64), impl="jit")
+    assert CT.control_decide_trace_count() == base + 1

@@ -33,6 +33,10 @@ def _imported_roots(tree):
 
 def test_port_has_sources():
     assert any(f.name == "monitor.py" for f in FILES)
+    names = {str(f.relative_to(REPO)) for f in FILES}
+    for mod in ("control/policy.py", "control/loop.py", "control/group.py",
+                "streams/pipeline.py", "kernels/monitor/rounds.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert (REPO / "chip_smoke.py").exists()
     assert (REPO / "src" / "repro_torch" / "kernels" / "monitor" / "csrc"
             / "monitor.cu").exists()

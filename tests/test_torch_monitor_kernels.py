@@ -263,10 +263,14 @@ def test_tail_chunk_and_queue_padding():
 
 
 def test_unported_and_unknown_impls_raise():
+    """``rounds`` is ported (it runs and agrees with the scan); unknown
+    impls and an unsupported LoG radius still raise."""
     cfg = t_mon.MonitorConfig()
     tc = np.ones((2, 40))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_mon.run_monitor_fleet(cfg, tc, impl="rounds", device="cpu")
+    st_r, _ = t_mon.run_monitor_fleet(cfg, tc, impl="rounds", device="cpu")
+    st_s, _ = t_mon.run_monitor_fleet(cfg, tc, impl="scan", device="cpu")
+    np.testing.assert_array_equal(st_r.epoch.numpy(), st_s.epoch.numpy())
+    np.testing.assert_array_equal(st_r.win.numpy(), st_s.win.numpy())
     with pytest.raises(ValueError):
         t_mon.run_monitor_fleet(cfg, tc, impl="pallas", device="cpu")
     with pytest.raises(NotImplementedError):
@@ -391,8 +395,8 @@ def test_service_dispatch_hands_over_a_time_major_tile(monkeypatch):
                                   "run_monitor_fleet", "fleet_monitor_scan"])
 def test_monitor_signatures_match_the_reference(name):
     """Every parameter both packages have sits in the same order and
-    kind; the reference's ``use_pallas``/``interpret`` are all there
-    (``sub_t`` comes with the CPU fast path, ``rounds.py``)."""
+    kind; the reference's ``use_pallas``/``interpret``/``sub_t`` are all
+    there."""
     mod_t, mod_j = ((t_mon, j_mon) if name == "run_monitor_fleet"
                     else (t_ops, j_ops))
     ref = inspect.signature(getattr(mod_j, name)
@@ -401,7 +405,7 @@ def test_monitor_signatures_match_the_reference(name):
     got = inspect.signature(getattr(mod_t, name)).parameters
     shared = [p for p in ref if p in got]
     assert [p for p in got if p in ref] == shared
-    assert set(ref) - set(got) <= {"sub_t"}
+    assert set(ref) <= set(got)
     for p in shared:
         assert got[p].kind == ref[p].kind, p
     for p in ("use_pallas", "interpret"):

@@ -182,9 +182,23 @@ def test_decode_past_the_cache_end_matches_jax(pair):
 
 
 def test_control_waits_for_the_loop_port(pair):
+    """The loop is ported: ``control=True`` builds a ``ControlLoop`` over
+    the lanes' service that writes to the engine's ``control_log``, and
+    an externally monitored engine still refuses control."""
+    from repro_torch.control import ControlLog, ControlLoop
     _, _, tm, tp, _ = pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        Engine(tm, tp, ServeConfig(), control=True, device="cpu")
+    log = ControlLog(8)
+    eng = Engine(tm, tp, ServeConfig(), control=True, control_log=log,
+                 device="cpu")
+    try:
+        assert isinstance(eng.control, ControlLoop)
+        assert eng.control.service is eng.fleet
+        assert eng.control.log is log and eng.control_log is log
+    finally:
+        eng.stop()
+    with pytest.raises(ValueError, match="monitor=False"):
+        Engine(tm, tp, ServeConfig(), control=True, monitor=False,
+               device="cpu")
 
 
 def test_engine_parameters_sit_where_the_reference_has_them():
