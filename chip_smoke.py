@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor, the
-control loop that acts on it, and the serving paths of internlm2-1.8b
-and mamba2-2.7b at full width.
+control loop that acts on it, the control plane under faults (scenario
+matrix, chaos pipeline, QoS soak, fleet rate tracking, data pipeline),
+and the serving paths of internlm2-1.8b and mamba2-2.7b at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -77,6 +78,32 @@ failed check raises and exits non-zero):
    answered or refused with a logged admission record, 24
    ``flash_attention`` launches per prefill round, the loop ticks, no
    error record, no crash, no degradation;
+(d) the scenario x policy x fault matrix: ``workloads.run_matrix`` at
+   the scenarios' full horizons (24 cells, 94 800 periods), each
+   controlled cell a ``ControlGroup`` on the card (``monitor_fleet`` on
+   every dispatch, the decision's CUDA graph on every tick): >= 12 cells,
+   controlled availability >= 0.9, fault-free vs_static >= 0.95, storm
+   vs_static >= 1.2, one graph build per policy config; every cell
+   recorded and its trace replayed on the host (numpy decision): every
+   boolean and replica target equal, capacity targets +/-1 slot on
+   <= 0.1% of decisions;
+(e) the supervised chaos pipeline (``control_bench.chaos_recovery``'s
+   full mode: 4000 items paced at 1100/s, a 1.5 ms stage of 2 replicas,
+   3 seeded kills and a monitor-thread death, a ``ReplicaSupervisor``):
+   throughput back to 70% of the fault-free median within 20 windows,
+   availability >= 0.9, no unhandled death, no graph recapture;
+(f) the QoS soak (``control_bench.qos_soak``'s quick phases) against
+   ``Engine(control=True)`` on the card: blocking availability >= 0.9,
+   storm p99 <= 2.5x pre-storm, respawns >= crashes, recovered, the
+   control log drained to JSONL under ``build/chip_smoke/``;
+(g) ``ft.FleetRateTracker`` over 2048 hosts with 16 stragglers (0.3x
+   from period 200), as the kernel, the rounds form and the plain
+   version on the card: no healthy host ever flagged, exactly the
+   stragglers by period 1200, the kernel's state bit-equal to the plain
+   version's, ``FaultToleranceManager.assess`` dropping exactly them;
+(h) ``data.DataPipeline`` (seq 256, batch 8, vocab 92 672, 64 batches)
+   with its links' service on the card: the batches equal a CPU run's,
+   the readout the gated formula's;
 9. ``ssd_chunk`` against its plain version on the card: the chunked op
    on the JAX package's kernel-test shapes and chunks and the chunk
    kernel at odd shapes (rtol = atol = 1e-4), then at the mamba2
@@ -99,7 +126,9 @@ failed check raises and exits non-zero):
    a CUDA graph of many calls on inputs that together exceed the L2
    cache (``graph_ms``), with the row-major form, the SASS issue
    estimate of the fold, bf16, warm-cache and per-call times in the
-   ``service`` line; phases (a)-(c) in the ``control`` line.
+   ``service`` line; phases (a)-(c) in the ``control`` line, (d)-(h) in
+   the ``faults`` line, and ``monitor_fleet``'s launches summed over
+   phase 4 and (d)-(h).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -114,6 +143,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -151,6 +181,16 @@ PROMPT_LENS = (512, 1536)    # served prompt lengths, uniform
 FLASH_SHAPE = (8, 1024, 16, 8, 128)   # the prefill's attention (B,S,H,K,hd)
 SSM_ARCH = "mamba2-2.7b"     # the repo's pure-ssm configuration
 SSD_SHAPE = (8, 4, 256, 80, 64, 128)  # its prefill's chunk step (B,c,Q,H,P,N)
+CHAOS_ITEMS = 4000           # the chaos pipeline's items (bench full mode)
+CHAOS_MAX_REPLICAS = 16      # run_cell's own replica cap (see chaos_runs)
+SOAK_PHASES = (1.2, 1.6, 1.2)  # the soak's pre/storm/post s (bench quick)
+TRACKER_HOSTS = 2048         # a 16 384-GPU cluster at 8 GPUs a host
+TRACKER_PERIODS = 1200       # the phase change at 200, then 1000 periods
+TRACKER_CHANGE = 200
+TRACKER_STRAGGLERS = 16
+DATA_SEQ, DATA_BATCH = 256, 8   # examples/train_lm.py's defaults
+DATA_VOCAB = 92_672          # internlm2's vocabulary
+DATA_BATCHES = 64
 
 
 class CheckFailed(AssertionError):
@@ -948,6 +988,577 @@ def phase_serve_control(torch, KK, kname, MK, serve, model, params,
             "control_log_counts": eng.control.log.counts()}
 
 
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_matrix(torch, K, CT, W, dev, seed):
+    """(d) The scenario x policy x fault matrix at full width: the port's
+    ``run_matrix`` at the scenarios' full horizons, every controlled cell
+    a ``ControlGroup`` on the card (``monitor_fleet`` on each dispatch,
+    the decision's CUDA graph on each tick).  Each cell is recorded and
+    its trace replayed on the host (numpy decision, CPU monitor)."""
+    from repro_torch.workloads import harness as H
+    cells, walls = [], []
+    real = H.run_cell
+
+    def recorded(*a, **kw):           # run_matrix's cells, traces kept
+        t0 = time.perf_counter()
+        c = real(*a, **{**kw, "record": True})
+        walls.append(time.perf_counter() - t0)
+        cells.append(c)
+        return c
+
+    builds0 = CT.control_decide_trace_count()
+    H.run_cell = recorded
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = W.run_matrix(seed=seed, quick=False, impl="jit", device=dev)
+    finally:
+        H.run_cell = real
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()["monitor_fleet"]
+    builds = CT.control_decide_trace_count() - builds0
+
+    rows = m["cells"]
+    ctl = [c for c in rows if c["policy"] != "static"]
+    min_avail = min(c["availability"] for c in ctl)
+    min_noharm = min(c["vs_static"] for c in ctl if c["fault"] == "none")
+    min_storm = min(c["vs_static"] for c in ctl if c["fault"] != "none")
+    for c, w in zip(rows, walls):
+        log("  matrix " + json.dumps({**c, "wall_s": round(w, 3)}))
+    check(m["n_cells"] == 24, f"{m['n_cells']} matrix cells, not 24")
+    check(min_avail >= 0.9, f"controlled availability {min_avail} < 0.9")
+    check(min_noharm >= 0.95, f"fault-free vs_static {min_noharm} < 0.95")
+    check(min_storm >= 1.2, f"storm vs_static {min_storm} < 1.2")
+    check(launches > 0, "monitor_fleet never launched in the matrix")
+    configs = {c["policy"] for c in ctl}
+    check(builds <= len(configs),
+          f"{builds} decision graph builds for {len(configs)} configs")
+
+    # the replay gate: each controlled cell's recorded sensing stream
+    # through the port's replay on the host, numpy decision
+    t0 = time.perf_counter()
+    n_dec = boundary = 0
+    for c in cells:
+        if c.policy == "static":
+            continue
+        tr = c.trace
+        out = W.replay(tr, W.make_policies(
+            c.policy, decide_every=tr.meta["decide_every"]),
+            impl="numpy", device="cpu")
+        what = f"{c.scenario}/{c.policy}/{c.fault}"
+        check(out["ticks"] == len(tr.tick_at),
+              f"{what}: replay ticked {out['ticks']} of {len(tr.tick_at)}")
+        for f in W.DECISION_FIELDS:
+            a, b = np.asarray(out[f]), np.asarray(tr.decisions[f])
+            if f == "target_caps":
+                d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+                check(bool((d <= 1).all()),
+                      f"{what}: capacity targets {d.max()} slots apart")
+                boundary += int((d == 1).sum())
+                n_dec += d.size
+                continue
+            check(np.array_equal(a, b),
+                  f"{what}: replay differs on {f} at "
+                  f"{np.argwhere(a != b)[:4].tolist()}")
+    replay_s = time.perf_counter() - t0
+    check(boundary <= 1e-3 * max(n_dec, 1),
+          f"{boundary} of {n_dec} capacity decisions +/-1 apart (> 0.1%)")
+
+    # one controlled cell again on this machine's CPU, for the split of
+    # the matrix's wall time between the card's path and the host's
+    t0 = time.perf_counter()
+    W.run_cell("step", "full", "storm", seed=seed, quick=False,
+               impl="numpy", device="cpu")
+    cpu_cell_s = time.perf_counter() - t0
+    card_cell_s = next(w for c, w in zip(cells, walls)
+                       if (c.scenario, c.policy, c.fault)
+                       == ("step", "full", "storm"))
+    static_s = [w for c, w in zip(cells, walls) if c.policy == "static"]
+    ctl_s = [w for c, w in zip(cells, walls) if c.policy != "static"]
+    periods = sum(c.periods for c in cells)
+    log(f"matrix: {m['n_cells']} cells, {periods} periods, {wall:.2f} s "
+        f"wall ({wall / m['n_cells']:.3f} s a cell; static cells "
+        f"{np.mean(static_s):.3f} s, controlled {np.mean(ctl_s):.3f} s; "
+        f"host clock), {launches} monitor_fleet launches, {builds} "
+        f"decision graph builds; controlled availability >= "
+        f"{min_avail:.4f}, fault-free vs_static >= {min_noharm:.3f}, storm "
+        f"vs_static >= {min_storm:.3f}; replay of {len(ctl)} cells on the "
+        f"host in {replay_s:.2f} s: every boolean and replica target "
+        f"equal, {boundary} of {n_dec} capacity decisions +/-1 slot; "
+        f"step/full/storm {card_cell_s:.3f} s on the card's path, "
+        f"{cpu_cell_s:.3f} s with the monitor and decision on the CPU")
+    return launches, {
+        "matrix_cells": m["n_cells"], "matrix_wall_s": wall,
+        "matrix_cell_wall_s": wall / m["n_cells"],
+        "matrix_static_cell_s": float(np.mean(static_s)),
+        "matrix_controlled_cell_s": float(np.mean(ctl_s)),
+        "matrix_min_availability": min_avail,
+        "matrix_min_vs_static_faultfree": min_noharm,
+        "matrix_min_vs_static_storm": min_storm,
+        "matrix_replay_boundary_decisions": boundary,
+        "matrix_replay_decisions": n_dec, "matrix_replay_s": replay_s,
+        "matrix_graph_builds": builds, "matrix_launches": launches,
+        "matrix_step_full_storm_card_s": card_cell_s,
+        "matrix_step_full_storm_cpu_s": cpu_cell_s}
+
+
+def chaos_runs(torch, K, CT, S, M, FT, dev, seed,
+               max_replicas=None):
+    """The supervised chaos pipeline (the shape of the JAX package's
+    ``control_bench.chaos_recovery``, full mode): a paced source feeds a
+    two-replica work stage under closed-loop control; a seeded plan
+    kills three replicas and the monitor thread once, and a
+    ``ReplicaSupervisor`` respawns them.  Run fault-free first for the
+    baseline.  The replica leg is capped at ``max_replicas``
+    (``CHAOS_MAX_REPLICAS`` by default): the replica law reads a starved
+    consumer's service rate as about its arrival rate and scales the
+    stage on every confirmation (as the JAX package's does), and at the
+    default 64 the threads' per-replica host work (idle polls,
+    heartbeats, the supervisor's Algorithm-1 rate leg) starves the paced
+    source.  Returns what was measured; ``phase_chaos`` gates it."""
+    from repro_torch.core.controller import (BufferAutotuner,
+                                             ParallelismController)
+    cap = CHAOS_MAX_REPLICAS if max_replicas is None else max_replicas
+    pace_s, work_s, window_s = 1.0 / 1100.0, 1.5e-3, 0.05
+    mcfg = M.MonitorConfig(window=16, min_q_samples=16)
+
+    def build(plan):
+        def src():
+            for i in range(CHAOS_ITEMS):
+                time.sleep(pace_s)
+                yield i
+
+        def work(x):
+            time.sleep(work_s)
+            return x
+
+        policies = CT.PolicySet(
+            replica=CT.ReplicaPolicy(ParallelismController(
+                max_replicas=cap)),
+            buffer=CT.BufferPolicy(BufferAutotuner(current=64)))
+        pipe = S.Pipeline([S.Stage("src", source=src()),
+                           S.Stage("work", fn=work, replicas=2)],
+                          capacity=64, arena=S.CounterArena(16),
+                          control=True, policies=policies, monitor_cfg=mcfg,
+                          fault_plan=plan, device=dev)
+        pipe.control.warmup()          # the decision's graph, if not cached
+        return pipe
+
+    def run(pipe, plan=None):
+        done = threading.Event()
+
+        def go():
+            pipe.run_collect(timeout_s=300)
+            done.set()
+
+        t = threading.Thread(target=go, daemon=True)
+        t0 = time.monotonic()
+        if plan is not None:
+            plan.arm(t0)
+        t.start()
+        windows, last = [], 0
+        while not done.is_set():
+            done.wait(window_s)
+            n = len(pipe.sink)
+            windows.append((time.monotonic() - t0, n - last))
+            last = n
+        t.join(timeout=30)
+        check(not t.is_alive(), "the chaos pipeline did not finish")
+        return windows, time.monotonic() - t0
+
+    K.reset_launch_counts()
+    base_pipe = build(None)
+    warm = CT.control_decide_trace_count()
+    base_wins, t_base = run(base_pipe)
+    base_counts = np.array([c for _, c in base_wins[2:-2]], float)
+    base_med = float(np.median(base_counts)) if base_counts.size else 1.0
+
+    plan = FT.FaultPlan.chaos(seed=seed, targets=["work"], n_crashes=3,
+                              window_s=(0.5, 2.0), monitor_death_at=1.2)
+    pipe = build(plan)
+    sup = FT.ReplicaSupervisor(pipe, poll_s=0.01, backoff_base_s=0.01)
+    sup.start()
+    try:
+        wins, t_chaos = run(pipe, plan)
+    finally:
+        sup.stop()
+    check(not sup.is_alive(), "the supervisor thread did not stop")
+    _sync(torch, dev)
+    launches = K.launch_counts()["monitor_fleet"]
+    grown = CT.control_decide_trace_count() - warm
+
+    fired = plan.fired()
+    crash_ts = [t for t, e in fired if e.kind == "crash"]
+    mon_fired = any(e.kind == "monitor_death" for _, e in fired)
+    recovery = -1
+    if crash_ts:
+        last_rel = max(crash_ts) - plan._t0
+        after = [c for end, c in wins if end > last_rel]
+        recovery = next((k for k, c in enumerate(after)
+                         if c >= 0.7 * base_med), -1)
+    st = pipe.stats()
+    health = pipe.control.health()
+    unhandled = max(0, len(crash_ts) - st["crash_count"])
+    if mon_fired and health["monitor_restarts"] == 0:
+        unhandled += 1
+    peak = {name: max([2] + [r.value for r in p.control.log.records()
+                             if r.policy == "replicas"
+                             and r.outcome == "applied"])
+            for name, p in (("fault-free", base_pipe), ("chaos", pipe))}
+    audit = [(round(r.t - plan._t0, 3), r.policy, r.action, r.value,
+              r.outcome) for r in pipe.control.log.records()
+             if r.policy in ("supervisor", "watchdog", "replicas")]
+    return {"cap": cap, "t_base": t_base, "t_chaos": t_chaos,
+            "base_med": base_med, "base_wins": [c for _, c in base_wins],
+            "wins": [c for _, c in wins], "recovery": recovery,
+            "availability": min(1.0, t_base / max(t_chaos, 1e-9)),
+            "fired": [(round(t - plan._t0, 3), e.kind) for t, e in fired],
+            "crashes": len(crash_ts), "monitor_death": mon_fired,
+            "unhandled": unhandled, "grown": grown,
+            "respawns": sup.respawns, "health": health,
+            "out": len(pipe.sink), "peak": peak, "audit": audit,
+            "launches": launches}
+
+
+def phase_chaos(torch, K, CT, S, M, FT, dev, seed):
+    """(e) The supervised chaos pipeline on the card (``chaos_runs``),
+    gated as the JAX package's bench gates it."""
+    r = chaos_runs(torch, K, CT, S, M, FT, dev, seed)
+
+    # the faulty operand must not recapture the decision's graph
+    tcfg = CT.ControlConfig(confirm_ticks=1, block_q=16, cooldown_ticks=13)
+
+    def dispatch(q, f):
+        CT.control_decide(tcfg, CT.control_init(tcfg, q, device=dev),
+                          lam=np.full(q, 100.0), mu=np.full(q, 50.0),
+                          ready=np.ones(q, bool), replicas=np.ones(q),
+                          caps=np.full(q, 64), faulty=f, impl="jit",
+                          donate=True, device=dev)
+
+    dispatch(3, None)
+    w2 = CT.control_decide_trace_count()
+    dispatch(3, np.array([True, False, True]))
+    dispatch(5, np.ones(5, bool))
+    retraces = CT.control_decide_trace_count() - w2
+
+    health = r["health"]
+    log(f"chaos: {CHAOS_ITEMS} items paced at 1100/s, replicas capped at "
+        f"{r['cap']} (peak {r['peak']}), fault-free {r['t_base']:.2f} s "
+        f"({r['base_med']:.0f} items a 0.05 s window), chaos "
+        f"{r['t_chaos']:.2f} s, {r['out']} items out; {r['fired']} -> "
+        f"recovered in {r['recovery']} windows, availability "
+        f"{r['availability']:.4f}, {r['respawns']} respawns, "
+        f"{health['monitor_restarts']} monitor restarts, "
+        f"{r['unhandled']} unhandled deaths, {r['grown'] + retraces} graph "
+        f"recaptures, {r['launches']} monitor_fleet launches (host clock)")
+    log(f"  chaos windows (items a 0.05 s): fault-free {r['base_wins']}; "
+        f"chaos {r['wins']}; audit (s after arm, policy, action, value, "
+        f"outcome) {r['audit']}")
+    check(r["crashes"] == 3 and r["monitor_death"],
+          f"faults fired: {r['fired']}")
+    check(0 <= r["recovery"] <= 20,
+          f"throughput recovered in {r['recovery']} windows (> 20 or never)")
+    check(r["availability"] >= 0.9,
+          f"chaos availability {r['availability']} < 0.9")
+    check(r["unhandled"] == 0, f"{r['unhandled']} unhandled thread deaths")
+    check(r["grown"] == 0 and retraces == 0,
+          f"decision graph recaptured: {r['grown']} in the runs, "
+          f"{retraces} on the faulty operand")
+    check(health["tick_errors"] == 0 and not health["impl_degraded"],
+          f"chaos loop faults {health}")
+    check(r["launches"] > 0, "monitor_fleet never launched in the chaos runs")
+    return r["launches"], {
+        "chaos_recovery_windows": r["recovery"],
+        "chaos_availability": r["availability"],
+        "chaos_faultfree_s": r["t_base"], "chaos_s": r["t_chaos"],
+        "chaos_respawns": r["respawns"],
+        "chaos_monitor_restarts": health["monitor_restarts"],
+        "chaos_items_out": r["out"], "chaos_peak_replicas": r["peak"],
+        "chaos_launches": r["launches"]}
+
+
+def phase_soak(torch, K, SV, S, FT, W, dev, seed):
+    """(f) The QoS soak (the shape of the JAX package's
+    ``control_bench.qos_soak``, its quick phases): a diurnal two-class
+    load against ``Engine(control=True)`` on the card with the bench's
+    model-free serve round, a nonblocking-lane crash storm, a stall, a
+    monitor death and a blocking flash crowd, under a
+    ``ReplicaSupervisor``, the ``ControlLog`` drained to JSONL."""
+    pre_s, storm_s, post_s = SOAK_PHASES
+    T = pre_s + storm_s + post_s
+    nb_env = W.Diurnal(base=4000.0, amplitude=1500.0, period=T)
+    b_env = (W.Diurnal(base=200.0, amplitude=60.0, period=T / 2)
+             + W.FlashCrowd(peak=600.0, at=pre_s + 0.5 * storm_s,
+                            rise=0.2 * storm_s, fall=0.15 * storm_s))
+    work_s, deadline_s, tick_s = 4e-3, 0.25, 5e-3
+    toks = np.arange(4)
+    plan = FT.FaultPlan.chaos(
+        seed=seed, targets=[SV.NONBLOCKING], n_crashes=2,
+        window_s=(pre_s + 0.1 * storm_s, pre_s + 0.6 * storm_s),
+        n_stalls=1, stall_s=0.15, monitor_death_at=pre_s + 0.7 * storm_s)
+
+    class _Work(SV.Engine):
+        """Model-free engine: a round burns work_s and completes."""
+
+        def _serve_batch(self, batch):
+            time.sleep(work_s)
+            for r in batch:
+                r.out = np.zeros(1, np.int32)
+                r.done.set()
+                self.served += 1
+
+    scfg = SV.ServeConfig(batch_size=8, queue_capacity=64, bulkheads=(1, 2))
+    eng = _Work(None, None, scfg, arena=S.CounterArena(8), control=True,
+                fault_plan=plan, device=dev)
+    eng.control.period_s = 0.01        # react within the storm
+    eng.control.warmup()
+    sup = FT.ReplicaSupervisor(engines=[eng], poll_s=0.01)
+    drain_path = HERE / "build" / "chip_smoke" / "control_log.jsonl"
+    drain_path.parent.mkdir(parents=True, exist_ok=True)
+    drain_path.unlink(missing_ok=True)
+    K.reset_launch_counts()
+    eng.start()
+    sup.start()
+    drains, blocking, rid = 0, [], 0
+    owed_b = owed_nb = 0.0
+    last = last_drain = 0.0
+    t0 = time.monotonic()
+    plan.arm(t0)
+    try:
+        while True:
+            now = time.monotonic() - t0
+            if now >= T:
+                break
+            dt, last = now - last, now
+            owed_b += b_env.rate(now) * dt
+            owed_nb += nb_env.rate(now) * dt
+            while owed_b >= 1.0:
+                owed_b -= 1.0
+                r = SV.Request(rid=rid, tokens=toks, max_new=1,
+                               qos=SV.BLOCKING, deadline_s=deadline_s)
+                rid += 1
+                blocking.append((now, r, eng.submit(r, timeout=0.02)))
+            while owed_nb >= 1.0:
+                owed_nb -= 1.0
+                eng.submit(SV.Request(rid=rid, tokens=toks, max_new=1,
+                                      qos=SV.NONBLOCKING), timeout=0.0)
+                rid += 1
+            if now - last_drain >= 0.5:    # mid-soak flight-recorder drain
+                eng.control.log.drain_jsonl(drain_path)
+                drains += 1
+                last_drain = now
+            time.sleep(tick_s)
+        time.sleep(2 * deadline_s)         # let in-flight tails land
+    finally:
+        sup.stop()
+        eng.stop()
+    _sync(torch, dev)
+    launches = K.launch_counts()["monitor_fleet"]
+    eng.control.log.drain_jsonl(drain_path)
+    drained_lines = len(drain_path.read_text().splitlines())
+
+    lat = {"pre": [], "storm": [], "post": []}
+    ok_within = 0
+    for ts, r, sub_ok in blocking:
+        p = ("pre" if ts < pre_s
+             else "storm" if ts < pre_s + storm_s else "post")
+        if sub_ok and r.done.is_set() and r.out is not None:
+            d = r.t_done - r.t_submit
+            lat[p].append(d)
+            ok_within += d <= deadline_s
+    p99 = {p: (float(np.percentile(v, 99)) if v else 0.0)
+           for p, v in lat.items()}
+    availability = ok_within / max(len(blocking), 1)
+    p99_ratio = p99["storm"] / max(p99["pre"], 1e-9)
+    fired = plan.fired()
+    crash_ts = [t - t0 for t, e in fired if e.kind == "crash"]
+    win, recovery_s = 0.4, -1.0
+    if crash_ts:
+        last_c, k = max(crash_ts), 0
+        while last_c + (k + 1) * win <= T + 2 * deadline_s:
+            lo, hi = last_c + k * win, last_c + (k + 1) * win
+            sub = [(r, s) for ts, r, s in blocking if lo <= ts < hi]
+            good = sum(1 for r, s in sub
+                       if s and r.done.is_set() and r.out is not None
+                       and (r.t_done - r.t_submit) <= deadline_s)
+            if sub and good / len(sub) >= 0.9:
+                recovery_s = k * win
+                break
+            k += 1
+    health = eng.control.health()
+    log(f"soak ({T:.1f} s, phases {SOAK_PHASES}): {len(blocking)} "
+        f"blocking requests, availability {availability:.4f}, p99 ms "
+        f"{ {p: round(v * 1e3, 3) for p, v in p99.items()} }, storm/pre "
+        f"{p99_ratio:.3f}x, {len(crash_ts)} crashes -> {sup.respawns} "
+        f"respawns, recovered in {recovery_s:.1f} s, "
+        f"{health['monitor_restarts']} monitor restarts, {drained_lines} "
+        f"log lines in {drains + 1} drains, {launches} monitor_fleet "
+        f"launches (host clock)")
+    check(len(crash_ts) == 2, f"soak crashes fired: {crash_ts}")
+    check(availability >= 0.9, f"soak availability {availability} < 0.9")
+    check(p99_ratio <= 2.5, f"storm p99 {p99_ratio:.2f}x pre-storm > 2.5x")
+    check(sup.respawns >= len(crash_ts),
+          f"{sup.respawns} respawns for {len(crash_ts)} crashes")
+    check(recovery_s >= 0, "the blocking lane never recovered")
+    check(not sup.is_alive(), "the supervisor thread did not stop")
+    check(drained_lines > 0, "nothing drained from the control log")
+    check(not health["impl_degraded"], f"soak loop degraded: {health}")
+    check(launches > 0, "monitor_fleet never launched in the soak")
+    return launches, {
+        "soak_availability": availability, "soak_p99_ms":
+            {p: v * 1e3 for p, v in p99.items()},
+        "soak_p99_storm_over_pre": p99_ratio, "soak_recovery_s": recovery_s,
+        "soak_respawns": sup.respawns,
+        "soak_monitor_restarts": health["monitor_restarts"],
+        "soak_log_lines": drained_lines, "soak_launches": launches}
+
+
+def phase_rate_tracker(torch, K, FT, M, dev, seed):
+    """(g) ``FleetRateTracker`` at training-fleet scale: 2048 hosts (a
+    16 384-GPU cluster at 8 GPUs a host), step counts of the JAX
+    package's fleet test, 16 hosts phase-changing to 0.3x at period 200;
+    the kernel, the rounds form and the plain version, all on the card.
+    A host's epoch that spans the change re-converges only once its
+    running q-bar settles, some 400-500 periods later, so the run goes on
+    to 1200 periods: no healthy host may ever be flagged, and by the end
+    exactly the injected hosts are; the period by which all were found
+    is the detection latency."""
+    rng = np.random.default_rng(seed)
+    Q, T = TRACKER_HOSTS, TRACKER_PERIODS
+    steps = np.full((Q, T), 100.0) + rng.normal(0, 1.0, (Q, T))
+    slow = np.sort(rng.choice(Q, TRACKER_STRAGGLERS, replace=False))
+    steps[slow, TRACKER_CHANGE:] *= 0.3
+    hosts = [f"host{i}" for i in range(Q)]
+    want = sorted(hosts[i] for i in slow)
+    cfg = M.MonitorConfig(window=16, min_q_samples=16)
+    tiles = [(t0, min(t0 + 100, T)) for t0 in range(0, T, 100)]
+    trackers, tile_ms, found, launches = {}, {}, {}, 0
+    for impl in ("cuda", "rounds", "scan"):
+        tr = FT.FleetRateTracker(hosts, cfg, period_s=1.0, chunk_t=16,
+                                 impl=impl, device=dev)
+        if impl == "cuda":
+            K.reset_launch_counts()
+        times, flagged = [], []
+        for a, b in tiles:
+            t0 = time.perf_counter()
+            tr.record_tile(steps[:, a:b])         # reads its rates back
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = sorted(tr.stragglers())
+            check(set(got) <= set(want),
+                  f"{impl}: healthy hosts flagged by period {b}: "
+                  f"{sorted(set(got) - set(want))[:8]}")
+            flagged.append((b, len(got)))
+        if impl == "cuda":
+            launches = K.launch_counts()["monitor_fleet"]
+        trackers[impl], tile_ms[impl] = tr, float(np.median(times[1:]))
+        found[impl] = flagged
+    chunks = sum(-(-(b - a) // 16) for a, b in tiles)
+    check(launches == chunks,
+          f"monitor_fleet launches {launches} != {chunks} chunks")
+    latency = {}
+    for impl in ("cuda", "rounds"):
+        got = trackers[impl].stragglers()
+        check(sorted(got) == want,
+              f"{impl}: stragglers {sorted(got)[:8]} != injected {want[:8]}")
+        latency[impl] = next(b for b, n in found[impl]
+                             if n == len(want)) - TRACKER_CHANGE
+    ks, ps = trackers["cuda"]._state, trackers["scan"]._state
+    for name, a, b in zip(ks._fields, ks, ps):
+        check(torch.equal(a, b), f"kernel state {name} != plain version's")
+    ftm = FT.FaultToleranceManager(n_hosts=Q, chips_per_host=8)
+    for h in hosts:
+        ftm.heartbeats.beat(h)
+    ftm.rates = trackers["cuda"]
+    plan = ftm.assess(latest_ckpt_step=T)
+    check(plan is not None and plan.dropped_hosts == want,
+          f"assess dropped {None if plan is None else plan.dropped_hosts}")
+
+    # one dispatch alone at (Q, 16), state mode, by CUDA events
+    st = M.fleet_monitor_init(cfg, Q, device=dev)
+    tile = torch.as_tensor(steps[:, :16], dtype=torch.float32, device=dev)
+
+    def one(impl):
+        return lambda: M.run_monitor_fleet(
+            cfg, tile, None, state=st, chunk_t=16, impl=impl, mode="state",
+            block_q=64, donate=True, device=dev)
+
+    d_ms = {impl: event_ms(torch, one(impl), reps=20)
+            for impl in ("cuda", "rounds")}
+    log(f"rate tracker: {Q} hosts x {T} periods, stragglers {want} found "
+        f"by the kernel and the rounds form, none healthy ever flagged; "
+        f"flagged (period, count) {found['cuda']}; all found "
+        f"{latency} periods after the change; kernel state bit-equal to "
+        f"the plain version's; assess drops exactly them ({plan.n_chips} "
+        f"of {Q * 8} chips left, {plan.new_shape}); record_tile of 100 "
+        f"periods median {tile_ms} ms (host clock, readout included); one "
+        f"({Q}, 16) dispatch {d_ms} ms (device); {launches} monitor_fleet "
+        f"launches")
+    return launches, {"tracker_hosts": Q, "tracker_tile_ms": tile_ms,
+                      "tracker_dispatch_ms": d_ms,
+                      "tracker_flagged": found["cuda"],
+                      "tracker_latency_periods": latency,
+                      "tracker_launches": launches}
+
+
+def phase_data(torch, K, D, S, dev, seed):
+    """(h) ``DataPipeline`` at ``examples/train_lm.py``'s defaults (seq
+    256, batch 8) over internlm2's vocabulary, its two links' monitor
+    service on the card, against the same seed with the service on the
+    CPU."""
+    def run(device):
+        src = D.SyntheticLMSource(vocab_size=DATA_VOCAB, doc_len=512,
+                                  seed=seed)
+        dp = D.DataPipeline(src, seq_len=DATA_SEQ, batch_size=DATA_BATCH,
+                            max_batches=DATA_BATCHES,
+                            arena=S.CounterArena(8), device=device)
+        t0 = time.perf_counter()
+        dp.start()
+        try:
+            batches = list(dp)
+        finally:
+            dp.stop()
+        return batches, dp, time.perf_counter() - t0
+
+    K.reset_launch_counts()
+    got, dp, wall = run(dev)
+    _sync(torch, dev)
+    launches = K.launch_counts()["monitor_fleet"]
+    want, _, cpu_wall = run(torch.device("cpu"))
+    check(len(got) == len(want) == DATA_BATCHES,
+          f"{len(got)} / {len(want)} batches, not {DATA_BATCHES}")
+    for i, (b, r) in enumerate(zip(got, want)):
+        check(b["tokens"].shape == (DATA_BATCH, DATA_SEQ)
+              and np.array_equal(b["tokens"], r["tokens"])
+              and np.array_equal(b["targets"], r["targets"]),
+              f"batch {i} differs from the CPU run")
+    rates = dp.rates()
+    st = dp.fleet.state_snapshot()
+    cfg = dp.fleet.cfg
+    gated = np.where(st.epoch > 0, st.last_qbar,
+                     np.where(st.count >= cfg.min_q_samples, st.mean, 0.0))
+    gated = gated / dp.fleet.period_s
+    for i, (name, r) in enumerate(rates.items()):
+        check(np.isclose(r["service_rate"], gated[i], rtol=1e-12, atol=0)
+              and np.isclose(r["arrival_rate"], gated[2 + i], rtol=1e-12,
+                             atol=0),
+              f"{name}: readout {r} off the gated formula")
+    check(launches > 0, "monitor_fleet never launched on the data links")
+    links = {k: (round(v["service_rate"], 1), v["epochs"])
+             for k, v in rates.items()}
+    log(f"data: {DATA_BATCHES} batches of {DATA_BATCH} x {DATA_SEQ} "
+        f"(vocab {DATA_VOCAB}) in {wall:.2f} s with the service on the "
+        f"card, {cpu_wall:.2f} s on the CPU (host clock), equal; links "
+        f"{links} (items/s, epochs), {dp.fleet.dispatches} dispatches, "
+        f"{launches} monitor_fleet launches")
+    return launches, {"data_wall_s": wall, "data_cpu_wall_s": cpu_wall,
+                      "data_rates": rates, "data_launches": launches}
+
+
 def phase_step_path(torch, K, O, M, rng, dev):
     """The per-tick path: hand-maintained windows through
     ``fleet_monitor_step`` once per tick."""
@@ -1727,6 +2338,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import configs as C
     from repro_torch import control as CT
+    from repro_torch import data as D
+    from repro_torch import ft as FT
+    from repro_torch import workloads as W
     from repro_torch.control import loop as CL
     from repro_torch.control import policy as CP
     from repro_torch import models as MD
@@ -1798,6 +2412,21 @@ def main() -> int:
                                        model, params, prompts, dev))
     del model, params
     torch.cuda.empty_cache()
+    fault_launches, faults = {}, {}
+    for ph, fn in (("d", lambda: phase_matrix(torch, K, CT, W, dev,
+                                              args.seed)),
+                   ("e", lambda: phase_chaos(torch, K, CT, S, M, FT, dev,
+                                             args.seed)),
+                   ("f", lambda: phase_soak(torch, K, SV, S, FT, W, dev,
+                                            args.seed)),
+                   ("g", lambda: phase_rate_tracker(torch, K, FT, M, dev,
+                                                    args.seed)),
+                   ("h", lambda: phase_data(torch, K, D, S, dev,
+                                            args.seed))):
+        t0 = time.perf_counter()
+        fault_launches[ph], stats = fn()
+        faults.update(stats)
+        faults[f"phase_{ph}_wall_s"] = time.perf_counter() - t0
     ssd_err = phase_ssd(torch, SK, SR, SO, rng, dev)
     ssd = kernel_ssd_at_path(torch, SK, SR, rng, dev, ssd_err)
     model, params, ssm_model_stats = phase_ssm_model(
@@ -1811,7 +2440,8 @@ def main() -> int:
     kernels = [
         {"name": "monitor_fleet", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/monitor/kernel.py:120",
-         "launches": fleet_launches, "max_abs_err": fleet["max_abs_err"],
+         "launches": fleet_launches + sum(fault_launches.values()),
+         "max_abs_err": fleet["max_abs_err"],
          "ms": fleet["ms"], "plain_ms": fleet["plain_ms"],
          "bound_ms": fleet["bound_ms"], "bound_by": fleet["bound_by"],
          "library_ms": None},
@@ -1857,6 +2487,8 @@ def main() -> int:
              **svc}
     log(json.dumps({"service": extra}))
     log(json.dumps({"control": control}))
+    log(json.dumps({"faults": {**faults, "monitor_fleet_launches": {
+        "service": fleet_launches, **fault_launches}}}))
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,
                               **ssm_serve_stats}}))

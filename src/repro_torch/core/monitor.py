@@ -26,8 +26,8 @@ Rates are maintained in *items per period*; callers convert with
 
 from __future__ import annotations
 
-import collections
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -50,6 +50,7 @@ __all__ = [
     "FleetMonitorState",
     "fleet_monitor_init",
     "run_monitor_fleet",
+    "fleet_dispatch_trace_count",
     "gated_rate_arrays",
     "fleet_rate_readout",
     "fleet_state_from_numpy",
@@ -378,6 +379,40 @@ def fleet_state_to_numpy(state: FleetMonitorState) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
+_FLEET_BUILD_COUNT = [0]
+
+
+def fleet_dispatch_trace_count() -> int:
+    """How many fleet-dispatch plans the port has built (the twin of the
+    JAX package's count of its jitted fleet step's traces).
+
+    A plan is built once per (config, impl, mode, chunk_t, padded Q,
+    device): ``run_monitor_fleet`` rounds the queue axis up to a
+    ``block_q`` multiple for the key whether or not it pads the tile, so
+    ragged fleet sizes share one plan.  Used by the rebuild-count tests.
+    """
+    return _FLEET_BUILD_COUNT[0]
+
+
+class _FleetPlan(NamedTuple):
+    """What one fleet dispatch reuses across calls: the compaction
+    counts of an unblocked tile, on the device, for up to ``q_padded``
+    queues (a smaller fleet takes the leading rows)."""
+    cnt: torch.Tensor        # (q_padded, chunk_t) int32 running counts
+    m: torch.Tensor          # (q_padded,) int32 valid counts = chunk_t
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_plan(cfg: MonitorConfig, impl: str, mode: str, chunk_t: int,
+                q_padded: int, device: torch.device) -> _FleetPlan:
+    _FLEET_BUILD_COUNT[0] += 1
+    i32 = torch.int32
+    return _FleetPlan(
+        cnt=torch.arange(1, chunk_t + 1, dtype=i32,
+                         device=device).expand(q_padded, chunk_t),
+        m=torch.full((q_padded,), chunk_t, dtype=i32, device=device))
+
+
 def _pad_rows(a: torch.Tensor, rpad: int, value=0) -> torch.Tensor:
     return F.pad(a, (0, 0) * (a.dim() - 1) + (0, rpad), value=value)
 
@@ -427,7 +462,9 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
     with always-blocked rows, and a short tail chunk is padded to
     ``chunk_t`` with blocked steps, so every dispatch of one service has
     one shape; the kernel needs neither, and ``pad_q=False`` spares the
-    copies of the state that the queue padding makes.  ``donate=True``
+    copies of the state that the queue padding makes.  Either way the
+    dispatch plan (``fleet_dispatch_trace_count``) is cached per
+    (config, impl, mode, chunk_t, Q rounded up to ``block_q``, device).  ``donate=True``
     hands the state over: the kernel then updates the caller's state
     tensors in place (JAX's buffer donation becomes in-place updates on
     the device) and the passed-in ``state`` must not be reused.  Without
@@ -451,7 +488,9 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
 
     from repro_torch.kernels.monitor.ops import _fleet_monitor_scan_impl
 
-    rpad = (-(-Q // block_q) * block_q - Q) if pad_q else 0
+    q_padded = -(-Q // block_q) * block_q
+    plan = _fleet_plan(cfg, impl, mode, chunk_t, q_padded, dev)
+    rpad = q_padded - Q if pad_q else 0
     if rpad:                      # padded rows are permanently blocked
         if blocked_seq is None:
             blocked_seq = torch.zeros_like(tc_seq, dtype=torch.bool)
@@ -473,7 +512,7 @@ def run_monitor_fleet(cfg: MonitorConfig, tc_seq, blocked_seq=None, *,
             blk_c = _pad_tile(blk_c, 0, pad, value=True)
         state, out = _fleet_monitor_scan_impl(
             cfg, state, tc_c, blk_c, impl=impl, mode=mode, block_q=block_q,
-            sub_t=sub_t, donate=donate)
+            sub_t=sub_t, donate=donate, plan=plan)
         donate = True                      # later chunks update our copy
         if pad:                            # padded steps are not real
             state = state._replace(n_total=state.n_total - pad,
@@ -527,12 +566,71 @@ def fleet_rate_readout(cfg: MonitorConfig, state: FleetMonitorState,
 # Host-side implementation (the paper's monitor thread), float64 numpy.
 # ---------------------------------------------------------------------------
 
+_SUM = np.add.reduce
+
+
+def _mean_std(a: np.ndarray) -> tuple:
+    """``(np.mean(a), np.std(a))`` of a 1-D float64 array, bit for bit:
+    the same ufunc reductions (pairwise sums) and divisions, without the
+    wrappers' per-call Python cost."""
+    n = a.shape[0]
+    m = _SUM(a) / n
+    d = a - m
+    return m, math.sqrt(_SUM(d * d) / n)
+
+
+def _dot(vals: list, taps: tuple) -> float:
+    """One output of ``filters.convolve_valid``: the products summed in
+    its order, in float64."""
+    acc = vals[0] * taps[0]
+    for i in range(1, len(taps)):
+        acc = acc + vals[i] * taps[i]
+    return acc
+
+
+class _Ring:
+    """The last ``n`` float64 values, oldest first, as one contiguous
+    view: each value is stored at i and i + n, an O(1) push (two
+    stores) instead of an O(n) shift."""
+
+    __slots__ = ("buf", "n", "head", "fill")
+
+    def __init__(self, n: int):
+        self.buf = np.zeros(2 * n)
+        self.n = n
+        self.head = n - 1
+        self.fill = 0
+
+    def push(self, x: float) -> None:
+        h = self.head + 1
+        if h == self.n:
+            h = 0
+        self.head = h
+        self.buf[h] = self.buf[h + self.n] = x
+        if self.fill < self.n:
+            self.fill += 1
+
+    def view(self) -> np.ndarray:
+        return self.buf[self.head + 1:self.head + 1 + self.n]
+
+    def newest(self, k: int) -> list:
+        """The newest ``k`` values, oldest first, as python floats."""
+        e = self.head + 1 + self.n
+        return self.buf[e - k:e].tolist()
+
+
 class HostMonitor:
     """Per-queue online monitor for the host pipeline threads.
 
     Same algorithm as ``monitor_update`` in float64; kept dependency-light
     (numpy only) because it runs on the instrumentation thread and must obey
-    the paper's low-overhead contract (1-2%).
+    the paper's low-overhead contract (1-2%).  Each sample adds one
+    Gaussian-filtered value and each fold one LoG response, so both
+    filters keep their outputs in rings and compute only the newest, and
+    the reductions call the ufuncs bare: the arithmetic of
+    ``filters.convolve_valid`` and ``np.std`` on the same values in the
+    same order, bit for bit, at a fraction of the per-call cost (a
+    ``ReplicaSupervisor`` folds one sample per replica every poll).
     """
 
     def __init__(self, cfg: MonitorConfig | None = None, *,
@@ -544,19 +642,17 @@ class HostMonitor:
         self._gauss = filters.gaussian_kernel(
             c.gauss_radius, c.gauss_sigma, normalize=c.gauss_normalize)
         self._log = filters.log_kernel(c.log_radius, c.log_sigma)
+        self._gauss_t = tuple(float(k) for k in self._gauss)
+        self._log_t = tuple(float(k) for k in self._log)
         self.n_total = 0
         self.n_blocked = 0
         self.epoch = 0
         self.last_qbar = 0.0
         self.estimates: list[float] = []   # converged q-bar per epoch
-        # Double-write ring: each sample is stored at p and p+w, so the
-        # chronological window is always the contiguous view
-        # _s[p+1 : p+1+w] — an O(1) push (two stores) instead of an
-        # O(w) shift, on the instrumentation thread where the paper's
-        # 1-2% overhead budget applies.
-        self._s = np.zeros(2 * c.window)
-        self._s_head = c.window - 1
-        self._s_fill = 0
+        # the window S and its Gaussian-filtered values S' (Eq. 2);
+        # neither resets with the statistics
+        self._s = _Ring(c.window)
+        self._sp = _Ring(c.window - len(self._gauss_t) + 1)
         self._reset_stats()
 
     # -- Algorithm 1's resetStats() ----------------------------------------
@@ -565,8 +661,10 @@ class HostMonitor:
         self._n = 0
         self._mean = 0.0
         self._m2 = 0.0
-        self._qbars = collections.deque(maxlen=c.conv_window)
-        self._sigs = collections.deque(maxlen=c.sig_trace_len)
+        self._qbars = _Ring(c.conv_window)
+        self._sigs = _Ring(c.sig_trace_len)
+        # the LoG responses over the sigma trace (Eq. 4)
+        self._resp = _Ring(c.sig_trace_len - len(self._log_t) + 1)
 
     def update(self, tc: float, blocked: bool = False) -> bool:
         """Ingest one period's sample; returns True if converged+emitted."""
@@ -575,17 +673,15 @@ class HostMonitor:
         if blocked:
             self.n_blocked += 1
             return False
-        w = c.window
-        p = (self._s_head + 1) % w
-        self._s_head = p
-        self._s[p] = tc
-        self._s[p + w] = tc
-        self._s_fill = min(self._s_fill + 1, w)
-        if self._s_fill < w:
+        s, taps = self._s, self._gauss_t
+        s.push(tc)
+        if s.fill >= len(taps):
+            self._sp.push(_dot(s.newest(len(taps)), taps))
+        if s.fill < c.window:
             return False
 
-        sp = filters.convolve_valid(self._s[p + 1:p + 1 + w], self._gauss)
-        q = float(np.mean(sp) + c.quantile_z * np.std(sp))
+        m, sd = _mean_std(self._sp.view())
+        q = float(m + c.quantile_z * sd)
 
         self._n += 1
         delta = q - self._mean
@@ -593,19 +689,21 @@ class HostMonitor:
         self._m2 += delta * (q - self._mean)
         qbar = self._mean
 
-        self._qbars.append(qbar)      # deque: O(1), evicts the oldest
+        qbars = self._qbars
+        qbars.push(qbar)
         if c.sigma_mode == "stderr":
             sig = math.sqrt(self._m2 / self._n / self._n) if self._n else 0.0
         else:
-            sig = (float(np.std(self._qbars))
-                   if len(self._qbars) >= c.conv_window else _BIG)
-        self._sigs.append(sig)
+            sig = (_mean_std(qbars.view())[1]
+                   if qbars.fill >= c.conv_window else _BIG)
+        sigs, taps = self._sigs, self._log_t
+        sigs.push(sig)
+        if sigs.fill >= len(taps):
+            self._resp.push(_dot(sigs.newest(len(taps)), taps))
 
-        if (len(self._sigs) < c.sig_trace_len
-                or self._n < c.min_q_samples):
+        if sigs.fill < c.sig_trace_len or self._n < c.min_q_samples:
             return False
-        filt = filters.convolve_valid(np.asarray(self._sigs), self._log)
-        resp = float(np.max(np.abs(filt)))
+        resp = max(map(abs, self._resp.view().tolist()))
         if not math.isfinite(resp):
             return False
         tol = c.conv_tol * (max(abs(qbar), 1e-12)

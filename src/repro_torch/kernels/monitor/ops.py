@@ -51,7 +51,7 @@ def _entry_sigma(cfg: MonitorConfig, state: FleetMonitorState):
                        cw=cfg.conv_window)
 
 
-def _compact(tc, blocked):
+def _compact(tc, blocked, plan=None):
     """Stream compaction: drop blocked samples, keep time order.
 
     Returns (comp, m, cnt): compacted samples, the per-queue valid counts,
@@ -60,10 +60,13 @@ def _compact(tc, blocked):
     column stride and row stride T + 1 (the scatter's dump column is cut
     off by a view).  Time-major (``tc`` the ``.T`` of a contiguous (T, Q)
     tensor): the same scatter runs along the time axis of a (T + 1, Q)
-    buffer, and comp is the ``.T`` of its first T rows.
+    buffer, and comp is the ``.T`` of its first T rows.  An unblocked
+    tile takes its counts from the dispatch ``plan`` when one is given.
     """
     Q, T = tc.shape
     if blocked is None:
+        if plan is not None and plan.cnt.shape[1] == T:
+            return tc, plan.m[:Q], plan.cnt[:Q]
         cnt = torch.arange(1, T + 1, dtype=torch.int32,
                            device=tc.device).expand(Q, T)
         return tc, torch.full((Q,), T, dtype=torch.int32,
@@ -86,7 +89,7 @@ def _fleet_monitor_scan_impl(cfg: MonitorConfig, state: FleetMonitorState,
                              tc, blocked=None, *, impl: str = "cuda",
                              mode: str = "full", interpret: bool = True,
                              block_q: int = 256, sub_t: int = 32,
-                             donate: bool = False):
+                             donate: bool = False, plan=None):
     """One fused dispatch over a (Q, T) tile.
 
     impl: "cuda" (the fused kernel; its plain version stands in only for
@@ -101,12 +104,14 @@ def _fleet_monitor_scan_impl(cfg: MonitorConfig, state: FleetMonitorState,
     in place; otherwise they are copied first and the caller's state is
     left as it was.  ``interpret`` and ``block_q`` are accepted for the
     JAX signature: there is nothing to interpret on the card, and the
-    kernel's thread blocks do not depend on ``block_q``.
+    kernel's thread blocks do not depend on ``block_q``.  ``plan`` is
+    ``run_monitor_fleet``'s cached dispatch plan (the counts of an
+    unblocked tile); without one they are built here.
     """
     del interpret, block_q
     tc = tc.to(torch.float32)
     Q, T = tc.shape
-    comp, m, cnt = _compact(tc, blocked)
+    comp, m, cnt = _compact(tc, blocked, plan)
 
     # --- fused scan over the compacted tile -----------------------------
     full = mode == "full"

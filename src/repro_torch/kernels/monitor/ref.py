@@ -24,6 +24,7 @@ package; on the CUDA path nothing calls them except to check a kernel.
 
 from __future__ import annotations
 
+import functools
 import types
 
 import numpy as np
@@ -105,8 +106,10 @@ def batched_monitor_ref(windows, *, radius: int = 2, sigma: float = 1.0,
 # Static parameters + sliding-window ladders.
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def fleet_static_params(cfg: MonitorConfig) -> types.SimpleNamespace:
-    """Bake the config into python scalars for the kernels."""
+    """Bake the config into python scalars for the kernels, once per
+    config (every dispatch reads them; none writes them)."""
     g = gaussian_kernel(cfg.gauss_radius, cfg.gauss_sigma,
                         normalize=cfg.gauss_normalize)
     log3 = log_kernel(cfg.log_radius, cfg.log_sigma)

@@ -134,9 +134,9 @@ class Model:
                     "ssm": ("layers", "batch", "ssm_heads", "ssm_headdim",
                             "ssm_state")}
             return spec, axes
-        kv = init_cache_spec(cfg, batch, max_seq)
+        kv = init_cache_spec(cfg, batch, max_seq, cdt)
         kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-        return ({"k": (kv.k, cdt), "v": (kv.v, cdt)},
+        return ({"k": kv.k, "v": kv.v},
                 {"k": kv_axes, "v": kv_axes})
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):

@@ -15,6 +15,8 @@ Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
 Self-attention only, with RoPE: cross-attention (enc-dec), M-RoPE (vlm),
 sliding windows and attention-logit softcaps are not ported yet — the
 flash kernel has neither of the last two (ROADMAP.md, Queue 1 item 4).
+``attention`` takes the JAX package's keywords all the same: a value
+that needs one of those families raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,19 +57,20 @@ def attn_param_defs(mk, prefix: str, cfg: ArchConfig, *, layers: int = 0):
 
 
 class KVCache(NamedTuple):
-    """Decode-time cache shape for one attention stack.
-    k/v: (L, B, S_max, K, hd)."""
+    """Decode-time cache spec for one attention stack: each leaf is
+    (shape, dtype), the JAX package's ``ShapeDtypeStruct`` as the ssm
+    cache spec writes it.  k/v: (L, B, S_max, K, hd)."""
     k: tuple
     v: tuple
 
 
-def init_cache_spec(cfg: ArchConfig, batch: int, max_seq: int, *,
-                    layers: Optional[int] = None,
+def init_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
+                    dtype=torch.bfloat16, *, layers: Optional[int] = None,
                     kv_heads: Optional[int] = None) -> KVCache:
     L = layers if layers is not None else cfg.n_layers
     K = kv_heads if kv_heads is not None else cfg.n_kv_heads
     shape = (L, batch, max_seq, K, cfg.head_dim)
-    return KVCache(k=shape, v=shape)
+    return KVCache(k=(shape, dtype), v=(shape, dtype))
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -98,21 +101,37 @@ def _update_cache(ck, cv, k_new, v_new, pos):
     return ck, cv
 
 
-def attention(p, x, positions, cfg: ArchConfig, *, cache_k=None,
-              cache_v=None, pos_offset=None, compute_dtype=torch.bfloat16,
-              return_kv: bool = False, impl: str = "kernel"):
-    """Causal GQA self-attention:
+def attention(p, x, positions, cfg: ArchConfig, *,
+              is_local=None, cache_k=None, cache_v=None, pos_offset=None,
+              kv_x=None, causal: bool = True, compute_dtype=torch.bfloat16,
+              return_kv: bool = False, chunked_threshold: int = 16_384,
+              impl: str = "kernel"):
+    """GQA self-attention:
 
-    * prefill: cache_* None; causal attention over x through the flash
-      op (``impl`` selects the kernel or the plain version, see
-      ``kernels.attention.ops``); with ``return_kv`` the fresh k/v are
-      returned as the cache;
+    * prefill: cache_* None; attention over x through the flash op,
+      causal unless ``causal=False`` (``impl`` selects the kernel or the
+      plain version, see ``kernels.attention.ops``); with ``return_kv``
+      the fresh k/v are returned as the cache;
     * decode:  cache_k/v (B, S_max, K, hd) written in place at
       pos_offset (B,), then the plain masked softmax over the cache.
 
     positions: (B, S) int.  Returns (out, (new_cache_k, new_cache_v)).
+
+    The JAX package's keywords: ``is_local`` selects sliding-window
+    masking, which only a config with a window uses (those raise in
+    ``check_supported``); ``kv_x`` (cross-attention) and a static cache
+    (``cache_k`` without ``pos_offset``) raise ``NotImplementedError``.
+    ``chunked_threshold`` is where the JAX package switches to its
+    scanned online softmax; the port's prefill is the blocked flash op
+    at every length, which computes the same function, so it changes
+    nothing here.
     """
+    del chunked_threshold
     check_supported(cfg)
+    if kv_x is not None or (cache_k is not None and pos_offset is None):
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention (kv_x, or a static encoder "
+            "cache) is not ported yet (ROADMAP.md, Queue 1 item 4)")
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
@@ -128,7 +147,7 @@ def attention(p, x, positions, cfg: ArchConfig, *, cache_k=None,
 
     if cache_k is None:
         out = attn_ops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             scale=scale, impl=impl)
         out = _mm(out.to(compute_dtype).reshape(B, S, H * hd), wo,
                   compute_dtype)

@@ -6,8 +6,9 @@ CPU, one CUDA graph on the card), and the JAX package's ``"numpy"`` and
 ``"jit"`` forms.  Decisions must be array-equal and the carried state
 must agree to rtol 1e-6, the reference's own tolerance.  A trace the JAX
 package records through its scenario harness is replayed through the
-port's ``FleetMonitorService(impl="rounds")`` and ``ControlLoop``: the
-integer and boolean decisions must come out bit for bit.  The loop's
+port's own ``workloads.replay`` (a ``FleetMonitorService`` and a
+``ControlLoop`` on the CPU): the integer and boolean decisions must come
+out bit for bit.  The loop's
 hardening (sense quarantine, actuator retry and rollback, jit -> numpy
 degradation, the monitor watchdog, contained tick failures) is held to
 its error codes.  The ``"jit"`` form on the card is held to the numpy
@@ -31,6 +32,7 @@ from repro.workloads.trace import DECISION_FIELDS
 from repro_torch.control import loop as t_loop
 from repro_torch.core import controller as t_controller
 from repro_torch.core.monitor import MonitorConfig
+from repro_torch.workloads import trace as t_trace
 from repro_torch.streams import (CounterArena, FleetMonitorService,
                                  InstrumentedQueue, Pipeline, Stage)
 
@@ -201,37 +203,6 @@ def test_public_names_match_the_reference():
 
 # -- the trace replay ----------------------------------------------------------
 
-class _ReplayActuator:
-    """The reference's ``ReplayActuator``: recorded observations back to
-    the loop, actuation verbs recorded and never applied."""
-
-    def __init__(self, trace):
-        self.trace = trace
-        self.k = 0
-        self.actions = []
-
-    def replicas(self):
-        return np.asarray(self.trace.replicas[self.k], np.int64)
-
-    def capacities(self):
-        return np.asarray(self.trace.caps[self.k], np.int64)
-
-    def occupancy(self):
-        return np.asarray(self.trace.occupancy[self.k], float)
-
-    def scale(self, i, n):
-        self.actions.append((self.k, "scale", int(i), int(n)))
-        return "applied"
-
-    def resize(self, i, cap):
-        self.actions.append((self.k, "resize", int(i), int(cap)))
-        return "applied"
-
-    def admit(self, i, shed):
-        self.actions.append((self.k, "admit", int(i), bool(shed)))
-        return "applied"
-
-
 def _port_policies(jps):
     """The reference PolicySet rebuilt from the port's policy objects."""
     rep = buf = adm = None
@@ -261,44 +232,23 @@ def _port_policies(jps):
     return ps
 
 
-def _replay_on_port(trace, policies, impl):
-    """``repro.workloads.trace.replay`` on the port: a fresh
-    ``FleetMonitorService(impl="rounds")`` + ``ControlLoop`` re-driven
-    from the recorded sensing stream."""
-    meta = trace.meta
-    nq = trace.n_queues
-    arena = CounterArena(max(8, 4 * nq))
-    queues = [InstrumentedQueue(8, arena=arena) for _ in range(nq)]
-    svc = FleetMonitorService(
-        queues, MonitorConfig(window=int(meta["window"]),
-                              min_q_samples=int(meta["min_q_samples"])),
-        period_s=float(meta["period_s"]), chunk_t=int(meta["decide_every"]),
-        scale_to_period=False, ends="both", impl="rounds", device="cpu")
-    act = _ReplayActuator(trace)
-    loop = t_ctl.ControlLoop(svc, policies, act, impl=impl)
-    loop.warmup()
-    every = int(meta["decide_every"])
-    out = {f: [] for f in DECISION_FIELDS}
-    k = 0
-    try:
-        for t in range(trace.counters.shape[0]):
-            for qi, q in enumerate(queues):
-                tt, tb, ht, hb = trace.counters[t, qi]
-                q.tail.tc, q.tail.blocked = float(tt), bool(tb)
-                q.head.tc, q.head.blocked = float(ht), bool(hb)
-            if trace.sampled[t]:
-                svc.sample()
-            if t % every == every - 1 and k < len(trace.tick_at):
-                act.k = k
-                dec = loop.tick()
-                for f in DECISION_FIELDS:
-                    out[f].append(np.asarray(getattr(dec, f)))
-                k += 1
-        svc.flush()
-    finally:
-        svc.stop()
-    assert loop.health()["impl_degraded"] is False
-    return {f: np.stack(v) for f, v in out.items()}
+def _replay_on_port(trace, policies, impl, monkeypatch):
+    """The port's own ``workloads.replay`` (a fresh
+    ``FleetMonitorService`` + ``ControlLoop`` re-driven from the
+    recorded sensing stream) on the CPU; its loop must not degrade to
+    the numpy form."""
+    loops = []
+
+    class _Loop(t_loop.ControlLoop):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loops.append(self)
+
+    monkeypatch.setattr(t_trace, "ControlLoop", _Loop)
+    out = t_trace.replay(trace, policies, impl=impl, device="cpu")
+    assert len(loops) == 1
+    assert loops[0].health()["impl_degraded"] is False
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -309,11 +259,12 @@ def recorded():
 
 
 @pytest.mark.parametrize("impl", ["numpy", "jit"])
-def test_trace_replay_reproduces_decisions_bit_for_bit(recorded, impl):
+def test_trace_replay_reproduces_decisions_bit_for_bit(recorded, impl,
+                                                        monkeypatch):
     tr = recorded
     ps = _port_policies(make_policies("full",
                                       decide_every=tr.meta["decide_every"]))
-    out = _replay_on_port(tr, ps, impl)
+    out = _replay_on_port(tr, ps, impl, monkeypatch)
     acted = 0
     for f, want in tr.decisions.items():
         assert out[f].dtype.kind in "biu"

@@ -208,6 +208,26 @@ def test_host_monitor_matches_jax(spec):
             jh.observed_blocking_fraction()
 
 
+@pytest.mark.parametrize("spec", [dict(window=16, min_q_samples=16), {},
+                                  dict(window=32, sigma_mode="stderr")],
+                         ids=["w16", "default", "stderr"])
+def test_host_monitor_long_stream_matches_jax(spec):
+    """Over many epochs, resets and a phase change, the port's
+    incremental filters and bare-ufunc reductions give the JAX package's
+    numpy HostMonitor bit for bit."""
+    t_cfg, j_cfg = _cfgs(spec)
+    rng = np.random.default_rng(11)
+    tc = rng.poisson(rng.uniform(5, 300), 12000).astype(float)
+    tc[5000:] *= 0.4
+    blocked = rng.random(12000) < 0.05
+    th, jh = t_mon.HostMonitor(t_cfg), j_mon.HostMonitor(j_cfg)
+    got = [th.update(t, b) for t, b in zip(tc.tolist(), blocked.tolist())]
+    want = [jh.update(t, b) for t, b in zip(tc.tolist(), blocked.tolist())]
+    assert got == want and sum(got) > 10
+    assert th.estimates == jh.estimates
+    assert th.qbar == jh.qbar
+
+
 def test_sampling_period_controller_matches():
     rng = np.random.default_rng(5)
     tp, jp = t_mon.SamplingPeriodController(), \

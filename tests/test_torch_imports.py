@@ -1,8 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing
-in ``chip_smoke.py`` or ``scripts/monitor_kernel_turns.py`` (both run on
-the card's machine) imports ``jax`` or the JAX package ``repro`` (any
-``repro.*`` import would run ``repro/core/__init__.py`` and with it
-jax).  The card's machine has no jax."""
+in ``chip_smoke.py``, ``scripts/monitor_kernel_turns.py`` or
+``scripts/chaos_replica_cap.py`` (all run on the card's machine)
+imports ``jax`` or the JAX package ``repro`` (any ``repro.*`` import
+would run ``repro/core/__init__.py`` and with it jax).  The card's
+machine has no jax."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "monitor_kernel_turns.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "monitor_kernel_turns.py",
+    REPO / "scripts" / "chaos_replica_cap.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -35,7 +37,9 @@ def test_port_has_sources():
     assert any(f.name == "monitor.py" for f in FILES)
     names = {str(f.relative_to(REPO)) for f in FILES}
     for mod in ("control/policy.py", "control/loop.py", "control/group.py",
-                "streams/pipeline.py", "kernels/monitor/rounds.py"):
+                "streams/pipeline.py", "kernels/monitor/rounds.py",
+                "ft/supervisor.py", "workloads/harness.py",
+                "data/pipeline.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert (REPO / "chip_smoke.py").exists()
     assert (REPO / "src" / "repro_torch" / "kernels" / "monitor" / "csrc"

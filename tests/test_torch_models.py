@@ -239,3 +239,49 @@ def test_init_params_shapes_and_dtypes():
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(get_smoke_config(arch))
+
+
+# -- the reference's attention keywords ---------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("threshold", [16_384, 4])
+def test_attention_keywords_match_jax(causal, threshold):
+    """``attention`` takes the reference's keywords: ``causal`` passes
+    through to the flash op, and ``chunked_threshold`` (where the JAX
+    package switches to its scanned online softmax) and ``is_local``
+    (on a config without a window) change nothing."""
+    from repro.models.attention import attention as j_attention
+    from repro_torch.models.attention import attention as t_attention
+    cfg, jm, jp, tm, tp = _models("smoke", torch.float32)
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (2, 24, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(24, dtype=np.int32), (2, 1))
+    j_p = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["attn"])
+    t_p = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
+    want, _ = j_attention(j_p, jnp.asarray(x), jnp.asarray(pos), cfg,
+                          is_local=True, causal=causal,
+                          compute_dtype=jnp.float32,
+                          chunked_threshold=threshold)
+    got, _ = t_attention(t_p, torch.as_tensor(x), torch.as_tensor(pos), cfg,
+                         is_local=True, causal=causal,
+                         compute_dtype=torch.float32,
+                         chunked_threshold=threshold)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_attention_refuses_cross_attention():
+    from repro_torch.models.attention import attention, init_cache_spec
+    cfg, _, _, _, tp = _models("smoke", torch.float32)
+    p = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
+    x = torch.zeros(1, 4, cfg.d_model)
+    pos = torch.arange(4)[None]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        attention(p, x, pos, cfg, kv_x=x)
+    ck = torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        attention(p, x, pos, cfg, cache_k=ck, cache_v=ck)   # static cache
+    spec = init_cache_spec(cfg, 2, 16, torch.float32, layers=3)
+    assert spec.k == ((3, 2, 16, cfg.n_kv_heads, cfg.head_dim),
+                      torch.float32)
+    assert init_cache_spec(cfg, 2, 16).v[1] == torch.bfloat16

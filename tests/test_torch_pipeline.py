@@ -53,19 +53,39 @@ def test_closed_loop_pipeline_runs_end_to_end():
 def test_closed_loop_pipeline_scales_a_slow_stage():
     """The reference's closed-loop demo at test size: a stage that takes
     a little time per item is scaled up by its loop, and nothing is
-    lost."""
+    lost.  The source runs until the loop has applied a scale-up (then
+    400 items more, so the new replicas serve some), or for 60 s: how
+    many items the loop needs to converge and act depends on how fast
+    the host runs, so a fixed count would race the loop's first ticks."""
     def heavy(x):
         time.sleep(4e-4)
         return x + 1
 
-    n = 8000                             # ~3 s at one replica
-    pipe = Pipeline([Stage("src", source=range(n)),
+    def scaled_up():
+        return any(r.outcome == "applied" and r.value > 1
+                   for r in pipe.control.log.by_policy("replicas"))
+
+    produced = [0]
+
+    def source():
+        deadline = time.monotonic() + 60.0
+        tail = None                      # items left after the scale-up
+        while tail != 0 and time.monotonic() < deadline:
+            if tail is None and produced[0] % 64 == 0 and scaled_up():
+                tail = 400
+            yield produced[0]
+            produced[0] += 1
+            if tail is not None:
+                tail -= 1
+
+    pipe = Pipeline([Stage("src", source=source()),
                      Stage("heavy", fn=heavy)], capacity=64,
                     base_period_s=1e-3, control=True, monitor_cfg=CFG,
                     device="cpu")
     pipe.fleet.warmup()
     pipe.control.warmup()
     out = pipe.run_collect(timeout_s=120)
+    n = produced[0]
     assert sorted(out) == [i + 1 for i in range(n)]
     h = pipe.control.health()
     assert h["ticks"] >= 1 and h["tick_errors"] == 0

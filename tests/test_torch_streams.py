@@ -19,7 +19,9 @@ from repro.core.monitor import run_monitor_fleet as j_run_monitor_fleet
 from repro.streams import CounterArena as JArena
 from repro.streams import FleetMonitorService as JService
 from repro.streams import InstrumentedQueue as JQueue
-from repro_torch.core.monitor import MonitorConfig, run_monitor_fleet
+from repro_torch.core.monitor import (MonitorConfig,
+                                      fleet_dispatch_trace_count,
+                                      run_monitor_fleet)
 from repro_torch.streams import (CounterArena, FleetMonitorService,
                                  FleetMonitorThread, InstrumentedQueue,
                                  MonitorThread, QueueMonitor)
@@ -185,3 +187,58 @@ def test_per_queue_monitor_thread():
     mt.stop()
     assert not mt.is_alive()
     assert qm.head.n_total > 0
+
+
+# -- the dispatch plan: one build per (config, chunk_t, padded Q) ---------------
+
+@pytest.mark.parametrize("impl", ["rounds", "cuda", "scan"])
+def test_ragged_fleet_does_not_rebuild(impl):
+    """The twin of the JAX package's no-retrace test: the dispatch plan
+    is cached per (config, impl, chunk_t, padded Q), so varying Q across
+    calls builds it once, with or without queue padding."""
+    cfg = MonitorConfig(window=8, min_q_samples=8, conv_window=6)
+    rng = np.random.default_rng(0)
+
+    def run(q, pad_q=True, blocked=True):
+        tc = rng.poisson(50, (q, 64)).astype(float)
+        blk = rng.random((q, 64)) < 0.1 if blocked else None
+        run_monitor_fleet(cfg, tc, blk, chunk_t=32, impl=impl,
+                          mode="state", block_q=16, pad_q=pad_q,
+                          device="cpu")
+
+    base = fleet_dispatch_trace_count()
+    run(3)
+    warm = fleet_dispatch_trace_count()
+    assert warm == base + 1              # the first call built the plan
+    for q in (5, 9, 16, 2, 11):
+        run(q)
+        run(q, pad_q=False, blocked=False)
+    assert fleet_dispatch_trace_count() == warm   # ragged Q: no rebuild
+    run(17)                              # the next block_q multiple
+    assert fleet_dispatch_trace_count() == warm + 1
+
+
+def test_ragged_services_share_one_dispatch_plan():
+    """Different-size FleetMonitorServices with the same static knobs
+    (the service dispatches unpadded) share one plan."""
+    cfg = MonitorConfig(window=8, min_q_samples=8, conv_window=7)
+
+    def drive(q):
+        arena = CounterArena(4 * q)
+        queues = [InstrumentedQueue(4, arena=arena) for _ in range(q)]
+        svc = FleetMonitorService(queues, cfg, period_s=1e-3, chunk_t=8,
+                                  scale_to_period=False, block_q=16,
+                                  device="cpu")
+        for _ in range(16):
+            for qu in queues:
+                qu.head.tc = 10.0
+            svc.sample()
+        svc.flush()
+        svc.stop()
+
+    drive(3)
+    warm = fleet_dispatch_trace_count()
+    for q in (5, 7, 2):
+        drive(q)
+    assert fleet_dispatch_trace_count() == warm
+
