@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor, the
 control loop that acts on it, the control plane under faults (scenario
 matrix, chaos pipeline, QoS soak, fleet rate tracking, data pipeline),
-and the serving paths of internlm2-1.8b and mamba2-2.7b at full width.
+the serving paths of internlm2-1.8b and mamba2-2.7b at full width, and
+the training path of internlm2-1.8b at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -119,6 +120,26 @@ failed check raises and exits non-zero):
    mamba2-2.7b, with ``ssd_chunk`` launched 64 times per prefill round
    and the same checks, and its trace (SSD kernel, GEMMs, conv, copies,
    other);
+(i) the training path: ``flash_attention_bwd`` against
+   ``attention_bwd_ref`` by relative L2 per output (bf16 at the training
+   shape B 2, S = T 4096, H 16, K 8, hd 128, causal, 1e-2; float32 at
+   every head dim, non-causal, S != T, tails and an explicit scale,
+   1e-4; the forward's lse against ``attention_lse_ref``; two controls
+   the gate must fail) and timed in turns with SDPA's backward; the
+   gradients of internlm2-1.8b at published widths (random float32
+   master weights, B 2 x 1024, remat "full") through the kernels against
+   the plain attention (loss rel 1e-3; the backward kernel against the
+   plain backward under the same forward, every leaf rel L2 2e-2;
+   float32 compute 1e-4; bf16 end to end within 1.5x two 1-ulp controls,
+   the bf16 noise floor); ``Trainer.fit`` on the same model with AdamW,
+   remat "dots", seq 4096, 2 microbatches of 2 rows from
+   ``DataPipeline(SyntheticLMSource)``, 8 steps on one repeated batch
+   (finite losses and grad norms, the loss down >= 10%, the history and
+   the FT rate monitor fed, one forward and one backward launch a layer
+   a microbatch; step ms, tokens/s, MFU, peak memory and a profiler
+   split of one step); and a checkpoint resumed at a 2-layer cut with
+   AdamW8bit (the step-3 loss equal to the uninterrupted run's, a
+   corrupted leaf refused), printed as one ``{"train": ...}`` line;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -191,6 +212,12 @@ TRACKER_STRAGGLERS = 16
 DATA_SEQ, DATA_BATCH = 256, 8   # examples/train_lm.py's defaults
 DATA_VOCAB = 92_672          # internlm2's vocabulary
 DATA_BATCHES = 64
+BWD_SHAPE = (2, 4096, 16, 8, 128)  # the training path's attention (B,S,H,K,hd)
+GRAD_B, GRAD_S = 2, 1024     # the model-gradient check (remat full)
+TRAIN_SEQ = 4096             # SHAPES["train_4k"]'s length
+TRAIN_MICRO, TRAIN_ROWS = 2, 2   # global batch 4 (train_4k's 256, cut)
+TRAIN_STEPS = 8
+CKPT_B, CKPT_S = 2, 512      # the checkpoint-resume cut (2 layers)
 
 
 class CheckFailed(AssertionError):
@@ -1879,12 +1906,12 @@ def conv_spans(torch, ssm):
         ssm.causal_conv1d, ssm.conv_decode_step = orig
 
 
-def _conv_kernels(torch, events):
-    """(name, µs) of the device kernels launched inside CONV_SPAN ranges:
+def _span_kernels(torch, events, span):
+    """(name, µs) of the device kernels launched inside ``span`` ranges:
     the kernels of every CPU op below such a range."""
     cpu = torch.autograd.DeviceType.CPU
     out, stack = [], [e for e in events
-                      if e.device_type == cpu and e.name == CONV_SPAN]
+                      if e.device_type == cpu and e.name == span]
     while stack:
         e = stack.pop()
         out.extend((k.name, k.duration) for k in e.kernels)
@@ -1892,32 +1919,34 @@ def _conv_kernels(torch, events):
     return out
 
 
-def _category(name: str) -> str:
+def _category(name: str, categories=_CATEGORIES) -> str:
     name = name.lower()
-    return next((c for c, keys in _CATEGORIES
+    return next((c for c, keys in categories
                  if any(k in name for k in keys)), "other")
 
 
-def _trace_split(torch, prof, wall_ms, steps):
+def _trace_split(torch, prof, wall_ms, steps, categories=_CATEGORIES,
+                 span=(CONV_SPAN, "conv")):
     """Device time per kernel category from a torch.profiler trace, per
     step: the sum of kernel durations (one stream), their count, and the
     card's idle share of the host wall time (the profiler's own overhead
-    included in the wall).  Kernels launched inside a CONV_SPAN range
-    move from their category to "conv"; the range's own device
+    included in the wall).  Kernels launched inside a ``span[0]`` range
+    move from their category to ``span[1]``; the range's own device
     annotation is no kernel."""
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    split = {c: 0.0 for c, _ in _CATEGORIES}
-    split["conv"] = split["other"] = 0.0
+    split = {c: 0.0 for c, _ in categories}
+    split[span[1]] = split["other"] = 0.0
     n = 0
     for e in events:
-        if e.device_type != cuda or e.name == CONV_SPAN:
+        if e.device_type != cuda or e.name == span[0]:
             continue
         n += 1
-        split[_category(e.name)] += e.time_range.elapsed_us() / 1e3
-    for name, us in _conv_kernels(torch, events):
-        split[_category(name)] -= us / 1e3
-        split["conv"] += us / 1e3
+        split[_category(e.name, categories)] += \
+            e.time_range.elapsed_us() / 1e3
+    for name, us in _span_kernels(torch, events, span[0]):
+        split[_category(name, categories)] -= us / 1e3
+        split[span[1]] += us / 1e3
     if n == 0:
         return None
     busy = sum(split.values())
@@ -2322,6 +2351,556 @@ def phase_ssm_model(torch, SK, SO, cfgs, models, rng, seed, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase (i): the training path
+
+
+def flash_bwd_bound(shape):
+    """Least time of one causal GQA backward at ``shape``: bf16 q, k, v
+    and float32 o, dO and lse read once, float32 dq, dk and dv written
+    once, against the five bf16 products (QK^T, dO.V^T, P^T.dO, dS.K,
+    dS^T.Q) over the unmasked score pairs at 989 TFLOP/s."""
+    B, S, H, K, hd = shape
+    nbytes = (2 * (B * S * H * hd + 2 * B * S * K * hd)
+              + 4 * (2 * B * S * H * hd + B * H * S)
+              + 4 * (B * S * H * hd + 2 * B * S * K * hd))
+    pairs = S * (S + 1) // 2
+    flops = 5 * 2.0 * B * H * hd * pairs
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        nbytes, flops
+
+
+def flash_bwd_tile_flops(shape):
+    """The backward kernels' own tensor-core work at ``shape`` (causal,
+    S = T): the five products over whole 64 x 64 tiles, masked halves of
+    the diagonal tiles included (the dK/dV kernel's QK^T, dO.V^T, P^T.dO
+    and dS^T.Q; the dQ kernel's QK^T, dO.V^T and dS.K: seven in all)."""
+    B, S, H, K, hd = shape
+    blocks = -(-S // 64)
+    tiles = blocks * (blocks + 1) // 2
+    return 7 * 2.0 * 64 * 64 * hd * tiles * B * H
+
+
+def _bwd_errs(got, want):
+    return ([_rel_l2(g, w) for g, w in zip(got, want)],
+            max(float((g - w).abs().max()) for g, w in zip(got, want)))
+
+
+def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
+    """(i.1) The backward kernel against ``attention_bwd_ref`` on the
+    card, each output by relative L2: bf16 at the training path's shape
+    (1e-2), float32 at every head dim, non-causal, S != T, tails and an
+    explicit scale (1e-4); the forward's lse against
+    ``attention_lse_ref``; two controls that the gate fails: the kernel
+    fed a natural-log lse (the base-2 hazard) and the plain version at a
+    scale 2% off.  Then timed at the path's shape in turns with SDPA's
+    backward (autograd through ``scaled_dot_product_attention``, its
+    forward outside the timed window)."""
+    import torch.nn.functional as F
+    f32, bf16 = torch.float32, torch.bfloat16
+    own = np.random.default_rng((seed, 9))
+    cases = [(BWD_SHAPE, None, bf16, True, None, 1e-2, rng)]
+    cases += [((2, 300, 4, 2, hd), None, f32, True, None, 1e-4, own)
+              for hd in AK.HEAD_DIMS]
+    cases += [((2, 300, 4, 2, 128), None, f32, False, 0.3, 1e-4, own),
+              ((1, 1000, 8, 2, 64), None, f32, True, None, 1e-4, own),
+              ((1, 1000, 8, 2, 64), None, f32, False, None, 1e-4, own),
+              ((1, 77, 4, 2, 32), 250, f32, True, 0.2, 1e-4, own),
+              ((1, 250, 4, 1, 32), 77, f32, False, None, 1e-4, own),
+              ((2, 1000, 16, 8, 128), None, bf16, False, 0.1, 1e-2, own)]
+    path_err, controls = 0.0, {}
+    for shape, T, dtype, causal, scale, tol, gen in cases:
+        B, S, H, K, hd = shape
+        q, k, v = _qkv(torch, gen, shape, dtype, dev, T)
+        do = torch.as_tensor(gen.standard_normal((B, S, H, hd)).astype(
+            np.float32), device=dev)
+        with torch.no_grad():
+            o, lse = AK.flash_attention(q, k, v, causal=causal, scale=scale,
+                                        return_lse=True)
+            got = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         scale=scale)
+            want = AR.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                        scale=scale)
+            lse_err = float((lse - AR.attention_lse_ref(
+                q, k, causal=causal, scale=scale)).abs().max())
+        torch.cuda.synchronize()
+        rels, err = _bwd_errs(got, want)
+        what = (f"flash_attention_bwd {shape} T={T or S} {str(dtype)[6:]} "
+                f"causal={causal} scale={scale or 'hd^-0.5'}")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{what}: non-finite gradients")
+        check(lse_err <= 1e-3, f"{what}: forward lse off by {lse_err}")
+        check(max(rels) <= tol, f"{what}: rel L2 dq/dk/dv {rels} over "
+              f"{tol}")
+        log(f"{what}: rel L2 dq {rels[0]:.3e} dk {rels[1]:.3e} dv "
+            f"{rels[2]:.3e} (gate {tol}), max abs err {err:.3e}, forward "
+            f"lse max abs err {lse_err:.3e}")
+        if shape == BWD_SHAPE:
+            path_err = err
+            with torch.no_grad():
+                wrong = AK.flash_attention_bwd(q, k, v, o, do,
+                                               lse / AR.LOG2E)
+                off = AR.attention_bwd_ref(q, k, v, o, do, scale=1.02
+                                           * hd ** -0.5)
+            controls = {"natural_log_lse": max(_bwd_errs(wrong,
+                                                         want)[0]),
+                        "scale_2pct_off": max(_bwd_errs(off,
+                                                        want)[0])}
+            for name, c in controls.items():
+                check(c > tol, f"control {name}: rel L2 {c} within the "
+                      f"gate {tol}, so the gate could not fail")
+            log(f"controls at {shape}: the kernel fed a natural-log lse "
+                f"rel L2 {controls['natural_log_lse']:.3e}, the plain "
+                f"version at 1.02 x scale {controls['scale_2pct_off']:.3e}"
+                f" (both must miss {tol})")
+            del wrong, off
+        del got, want
+        torch.cuda.empty_cache()
+
+    B, S, H, K, hd = BWD_SHAPE
+    q, k, v = _qkv(torch, rng, BWD_SHAPE, bf16, dev)
+    do = torch.as_tensor(rng.standard_normal((B, S, H, hd)).astype(
+        np.float32), device=dev)
+    with torch.no_grad():
+        o, lse = AK.flash_attention(q, k, v, return_lse=True)
+    kern = lambda: AK.flash_attention_bwd(q, k, v, o, do, lse)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    gt = do.transpose(1, 2).to(bf16).contiguous()
+    sdpa = lambda: torch.autograd.grad(  # noqa: E731
+        out, (qt, kt, vt), gt, retain_graph=True)
+    turns = [event_ms(torch, fn, reps=20) for fn in (kern, sdpa, sdpa, kern)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    with torch.no_grad():
+        plain_ms = event_ms(torch, lambda: AR.attention_bwd_ref(
+            q, k, v, o, do), reps=3, warm=1)
+        fwd_ms = event_ms(torch, lambda: AK.flash_attention(q, k, v),
+                          reps=20)
+        fwd_lse_ms = event_ms(torch, lambda: AK.flash_attention(
+            q, k, v, return_lse=True), reps=20)
+    del out
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, nbytes, flops = flash_bwd_bound(BWD_SHAPE)
+    tile_flops = flash_bwd_tile_flops(BWD_SHAPE)
+    log(f"flash_attention_bwd timing {BWD_SHAPE} bf16 causal, in turns "
+        f"kernel/SDPA/SDPA/kernel: " + " / ".join(f"{t:.4f}" for t in turns)
+        + " ms")
+    log(f"flash_attention_bwd {BWD_SHAPE}: {ms:.4f} ms (bound {bound_ms:.4f}"
+        f" ms by {bound_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP:"
+        f" {flops / ms / 1e9:.1f} TFLOP/s; its own seven products over "
+        f"whole tiles {tile_flops / 1e9:.1f} GFLOP: "
+        f"{tile_flops / ms / 1e9:.1f} TFLOP/s), SDPA's backward "
+        f"{lib_ms:.4f} ms "
+        f"(kernel/SDPA {ms / lib_ms:.2f}), plain {plain_ms:.4f} ms; the "
+        f"forward at this shape {fwd_ms:.4f} ms, with its lse "
+        f"{fwd_lse_ms:.4f} ms")
+    return {"max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "turns_ms": turns, "tflops": flops / ms / 1e9,
+            "tile_tflops": tile_flops / ms / 1e9, "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
+            "controls_rel_l2": controls}
+
+
+def _model_grads(torch, model, params, batch, remat):
+    from repro_torch.ckpt.manager import _flatten
+    leaves, _ = _flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss(params, batch, remat_policy=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+@contextlib.contextmanager
+def plain_attention_backward(torch, AK, AR):
+    """The flash op's backward replaced by ``attention_bwd_ref`` (float32,
+    explicit formulas): the kernel's forward with an exact backward."""
+    orig = AK.flash_attention_bwd
+
+    def plain(q, k, v, o, do, lse, *, causal=True, scale=None):
+        del lse
+        return AR.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                    scale=scale)
+    AK.flash_attention_bwd = plain
+    try:
+        yield
+    finally:
+        AK.flash_attention_bwd = orig
+
+
+@contextlib.contextmanager
+def scaled_attention_backward(torch, AK, factor):
+    """The backward kernel run at ``factor`` times the forward's scale: a
+    wrong backward under the right forward, the control for the gate of
+    the backward kernel against the plain backward."""
+    orig = AK.flash_attention_bwd
+
+    def off(q, k, v, o, do, lse, *, causal=True, scale=None):
+        scale = factor * (scale or q.shape[-1] ** -0.5)
+        return orig(q, k, v, o, do, lse, causal=causal, scale=scale)
+    off.launches = 0          # the wrapper counts on the module's name
+    AK.flash_attention_bwd = off
+    try:
+        yield
+    finally:
+        AK.flash_attention_bwd = orig
+
+
+def _rels(names, got, want):
+    return {n: _rel_l2(a, b) for n, a, b in zip(names, got, want)}
+
+
+def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
+    """(i.2) internlm2-1.8b at published widths, random float32 master
+    weights from ``--seed``, B 2 x S 1024, each layer rematerialised
+    ("full", so the plain attention fits): the loss and every parameter's
+    gradient through the kernels against the plain attention (autograd
+    through ``attention_ref``).
+
+    In bf16 compute a 24-layer model amplifies any change of the
+    attention's output, down to one float32 ulp, to ~2.5e-2 in the
+    gradients (two seeded 1-ulp controls of the plain path measure that
+    floor), so the kernels' own error shows only where that floor is
+    taken away: (a) the loss, rel 1e-3; (b) the backward kernel against
+    the plain backward under the kernel's own forward (the gradients
+    differ by the backward's bf16 products alone), every leaf rel L2
+    2e-2; (c) the whole path against plain in float32 compute (the
+    kernels' f32 instances), every leaf rel L2 1e-4; (d) the whole path
+    against plain in bf16 within 1.5x the controls' worst leaf.  The
+    backward kernel at 1.02 times the scale must miss (b).  The kernel's
+    forward with the plain backward, against plain, is reported: it
+    shows how much of (d) the backward kernel adds."""
+    cfg = cfgs.get_config(ARCH)
+    params = models.build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(seed), device=dev,
+        param_dtype=torch.float32)
+    toks = rng.integers(0, cfg.vocab_size, (GRAD_B, GRAD_S + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "targets": torch.as_tensor(toks[:, 1:], device=dev)}
+    from repro_torch.ckpt.manager import _flatten
+    names = _flatten(params)[1]
+
+    def grads(dtype, impl):
+        model = models.build_model(cfg, dtype, kernel_impl=impl)
+        return _model_grads(torch, model, params, batch, "full")
+
+    AK.reset_launch_counts()
+    (lk, gk), ms_k = _sync_ms(torch, lambda: grads(torch.bfloat16,
+                                                    "kernel"))
+    launches = AK.launch_counts()
+    (lp, gp), ms_p = _sync_ms(torch, lambda: grads(torch.bfloat16, "plain"))
+    end_to_end = _rels(names, gk, gp)
+    controls = []
+    for s in (seed, seed + 1):
+        with perturbed_plain_attention(torch, AO, 2.0 ** -23, s, dev):
+            lc, gc = grads(torch.bfloat16, "plain")
+        controls.append(_rels(names, gc, gp))
+        del gc
+    with plain_attention_backward(torch, AK, AR):
+        _, gkp = grads(torch.bfloat16, "kernel")
+    backward = _rels(names, gk, gkp)
+    plain_bwd = _rels(names, gkp, gp)
+    del gk, gp
+    with scaled_attention_backward(torch, AK, 1.02):
+        _, gks = grads(torch.bfloat16, "kernel")
+    backward_control = _rels(names, gks, gkp)
+    del gks, gkp
+    torch.cuda.empty_cache()
+    (l32, g32) = grads(torch.float32, "kernel")
+    (lp32, gp32) = grads(torch.float32, "plain")
+    f32 = _rels(names, g32, gp32)
+    del g32, gp32, params
+    torch.cuda.empty_cache()
+
+    def worst(rels):
+        n = max(rels, key=rels.get)
+        return n, rels[n]
+    floor = max(worst(c)[1] for c in controls)
+    check(launches["flash_attention"] == 2 * cfg.n_layers
+          and launches["flash_attention_bwd"] == cfg.n_layers,
+          f"grads with full remat launched {launches}, expected "
+          f"{2 * cfg.n_layers} forwards and {cfg.n_layers} backwards")
+    check(np.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp),
+          f"loss through the kernels {lk} vs plain {lp}")
+    check(worst(backward)[1] <= 2e-2, f"backward kernel vs plain backward "
+          f"under the same forward: {worst(backward)} over 2e-2")
+    check(worst(backward_control)[1] > 2e-2, f"control: the backward kernel "
+          f"at 1.02 x scale {worst(backward_control)} within 2e-2, so gate "
+          f"(b) could not fail")
+    check(worst(f32)[1] <= 1e-4, f"f32 grads, kernels vs plain: "
+          f"{worst(f32)} over 1e-4")
+    check(worst(end_to_end)[1] <= 1.5 * floor,
+          f"bf16 grads, kernels vs plain: {worst(end_to_end)} over 1.5x "
+          f"the 1-ulp controls' {floor}")
+    log(f"model grads {cfg.name} B {GRAD_B} x S {GRAD_S}, remat full: loss "
+        f"kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e},"
+        f" gate 1e-3), f32 {l32:.6f} / {lp32:.6f}; worst leaf rel L2: "
+        f"backward kernel vs plain backward (same forward, bf16) "
+        f"{worst(backward)[0]} {worst(backward)[1]:.3e} (gate 2e-2; the "
+        f"kernel at 1.02 x scale {worst(backward_control)[0]} "
+        f"{worst(backward_control)[1]:.3e} must miss it); f32 "
+        f"kernels vs plain {worst(f32)[0]} {worst(f32)[1]:.3e} (gate 1e-4);"
+        f" bf16 kernels vs plain {worst(end_to_end)[0]} "
+        f"{worst(end_to_end)[1]:.3e} against the 1-ulp controls' "
+        f"{', '.join(f'{worst(c)[1]:.3e}' for c in controls)} (gate 1.5x)"
+        f" and the kernel's forward with the plain backward's "
+        f"{worst(plain_bwd)[1]:.3e};"
+        f" {ms_k:.0f} ms with the kernels, {ms_p:.0f} ms plain (host "
+        f"clock); launches {launches}")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_1ulp_control": lc,
+            "loss_f32_kernel": l32, "loss_f32_plain": lp32,
+            "grad_rel_l2_bf16": end_to_end,
+            "grad_rel_l2_bf16_1ulp_controls": controls,
+            "grad_rel_l2_bwd_kernel_vs_plain_bwd": backward,
+            "grad_rel_l2_bwd_kernel_scale_2pct_off_vs_plain_bwd":
+                backward_control,
+            "grad_rel_l2_kernel_fwd_plain_bwd_vs_plain": plain_bwd,
+            "grad_rel_l2_f32": f32, "ms_kernel": ms_k, "ms_plain": ms_p}
+
+
+_TRAIN_CATEGORIES = (("flash_bwd", ("flash_bwd",)),
+                     ("flash_fwd", ("flash_fwd",)),
+                     ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
+                     ("copy", ("memcpy", "memset", "copy")),
+                     ("elementwise", ("elementwise", "vectorized",
+                                      "unrolled", "reduce", "softmax",
+                                      "index", "scatter", "gather", "cat")))
+OPT_SPAN = "repro.opt_update"       # profiler range around opt_update
+
+
+@contextlib.contextmanager
+def opt_spans(torch, TS):
+    """Wrap the train step's optimizer update in a profiler range, so a
+    trace can attribute its kernels."""
+    orig = TS.opt_update
+
+    def spanned(*a, **k):
+        with torch.profiler.record_function(OPT_SPAN):
+            return orig(*a, **k)
+
+    TS.opt_update = spanned
+    try:
+        yield
+    finally:
+        TS.opt_update = orig
+
+
+def _repeat_first(pipe):
+    """The pipeline's first batch, yielded once for every batch the
+    pipeline delivers: the consumer drains the monitored links at the
+    step rate while the trainer sees one repeated batch."""
+    first = None
+    for batch in pipe:
+        if first is None:
+            first = batch
+        yield first
+
+
+def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
+    """(i.3) ``Trainer.fit`` at internlm2-1.8b's published widths: AdamW,
+    ``TrainConfig``'s default remat ("dots"), seq 4096 (train_4k's
+    length), a global batch of 4 as 2 microbatches of 2 rows, fed by
+    ``DataPipeline(SyntheticLMSource)`` with its links on the card, 8
+    steps on one repeated batch, ``log_every=2``.  The links' monitor
+    must launch ``monitor_fleet`` during the fit.  Then one more step
+    under torch.profiler."""
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = cfgs.get_config(ARCH)
+    model = models.build_model(cfg, torch.bfloat16)
+    n_params = sum(int(np.prod(s)) for s in _leaves(model.param_shapes()))
+    n_embed = cfg.padded_vocab * cfg.d_model
+    state_gb = 16 * n_params / 1e9          # f32 params, grads, m and v
+    log(f"trainer memory reckoned before the run: {n_params / 1e9:.4f} B "
+        f"parameters x 16 B (f32 params, grads, m, v) = {state_gb:.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainerConfig(
+        train=TrainConfig(opt=OptConfig(lr_peak=1e-3, lr_min=1e-4,
+                                        warmup_steps=2, total_steps=100),
+                          microbatches=TRAIN_MICRO),
+        log_every=2)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, tcfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    step_ms, seen = [], {}
+    orig_step = trainer.step_fn
+
+    def timed(state, batch):
+        t = time.perf_counter()
+        out = orig_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        seen["batch"] = batch
+        return out
+    trainer.step_fn = timed
+    gb = TRAIN_MICRO * TRAIN_ROWS
+    pipe = D.DataPipeline(D.SyntheticLMSource(cfg.vocab_size,
+                                              doc_len=TRAIN_SEQ, seed=seed),
+                          seq_len=TRAIN_SEQ, batch_size=gb,
+                          queue_capacity=4, max_batches=TRAIN_STEPS + 1,
+                          device=dev).start()
+    AK.reset_launch_counts()
+    K.reset_launch_counts()
+    try:
+        hist = trainer.fit(_repeat_first(pipe), steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = AK.launch_counts()
+        monitor_launches = K.launch_counts()["monitor_fleet"]
+        rates = pipe.rates()
+        heads = pipe.fleet.state_snapshot()
+    finally:
+        pipe.stop()
+    heads = {queue.name: {
+        "epoch": int(heads.epoch[i]),
+        "last_qbar_per_s": float(heads.last_qbar[i]) / pipe.fleet.period_s,
+        "running_mean_per_s": float(heads.mean[i]) / pipe.fleet.period_s}
+        for i, queue in enumerate(pipe.fleet.queues)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    per_step = TRAIN_MICRO * cfg.n_layers    # one a layer a microbatch
+    check(len(hist) == TRAIN_STEPS // tcfg.log_every,
+          f"trainer.history holds {len(hist)} records")
+    check(all(np.isfinite([h["loss"], h["grad_norm"]]).all()
+              for h in hist), f"non-finite loss or grad norm: {hist}")
+    check(losses[-1] <= 0.9 * losses[0],
+          f"loss on the repeated batch fell from {losses[0]} to "
+          f"{losses[-1]}, less than 10%")
+    check("host0" in trainer.ft.rates.monitors,
+          "ft.rates received no step stream")
+    check(monitor_launches > 0, "the pipeline's links launched no "
+          "monitor_fleet during the fit")
+    check(launches["flash_attention"] >= per_step * TRAIN_STEPS
+          and launches["flash_attention_bwd"] == per_step * TRAIN_STEPS,
+          f"launches {launches} in {TRAIN_STEPS} steps, expected "
+          f"{per_step} of each kernel a step (more forwards under remat)")
+    med = float(np.median(step_ms[1:]))
+    tokens = gb * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn_flops = (3 * 4.0 * gb * cfg.n_heads * cfg.head_dim * pairs
+                  * cfg.n_layers)
+    model_flops = 6.0 * (n_params - n_embed) * tokens + attn_flops
+    mfu = model_flops / (med / 1e3) / PEAK_BF16_FLOPS
+
+    # one more step under the profiler, the optimizer's kernels in a range
+    from torch.profiler import ProfilerActivity, profile
+    with opt_spans(torch, TS), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, ms = _sync_ms(torch, lambda: orig_step(trainer.state,
+                                                   seen["batch"]))
+    trace = _trace_split(torch, prof, ms, 1, _TRAIN_CATEGORIES,
+                         (OPT_SPAN, "optimizer"))
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"trainer {cfg.name}: {TRAIN_STEPS} steps of {gb} x {TRAIN_SEQ} "
+        f"({TRAIN_MICRO} microbatches), remat dots, AdamW: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norms " + ", ".join(f"{h['grad_norm']:.3f}" for h in hist)
+        + f"; init {t_init:.1f} s")
+    log(f"trainer step ms " + ", ".join(f"{t:.1f}" for t in step_ms)
+        + f"; median of steps 2-{TRAIN_STEPS} {med:.1f} ms, "
+        f"{tokens / med * 1e3:.0f} tokens/s, MFU {mfu:.4f} (6 N tokens with "
+        f"N {(n_params - n_embed) / 1e9:.4f} B (the embedding table's "
+        f"gather excluded) + attention {attn_flops / 1e12:.2f} TFLOP, over "
+        f"989 TFLOP/s); peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated; reckoned state {state_gb:.2f} "
+        f"GB); launches {launches}, monitor_fleet {monitor_launches}; "
+        f"pipeline rates {rates}; link heads (consumer side, items/s) "
+        f"{heads}")
+    if trace is None:
+        log("trainer profile: no device events in the trace (not measured)")
+    else:
+        log("trainer profile (one step): " + ", ".join(
+            f"{n} {x:.3f}" for n, x in trace.items()))
+    return launches["flash_attention_bwd"], {
+        "arch": ARCH, "seq": TRAIN_SEQ, "global_batch": gb,
+        "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / med * 1e3, "mfu": mfu,
+        "model_tflop_per_step": model_flops / 1e12,
+        "peak_memory_gb": peak_gb, "reckoned_state_gb": state_gb,
+        "n_params": n_params, "launches": launches,
+        "monitor_fleet_launches": monitor_launches, "pipeline_rates": rates,
+        "pipeline_heads": heads, "trace": trace, "init_s": t_init}
+
+
+def phase_ckpt_resume(torch, cfgs, models, rng, dev, seed):
+    """(i.4) Checkpoint and resume at a 2-layer cut of internlm2 at its
+    published widths with AdamW8bit, in a temporary directory deleted
+    afterwards: saved at step 2, a fresh ``Trainer``'s ``maybe_restore``
+    returns 2 and its step-3 loss equals the uninterrupted run's to rel
+    1e-6; a corrupted leaf raises.  Bytes on disk and a blocking save's
+    seconds."""
+    import dataclasses
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(cfgs.get_config(ARCH), n_layers=2,
+                              name=f"{ARCH}-2layer")
+    model = models.build_model(cfg, torch.bfloat16)
+    toks = rng.integers(0, cfg.vocab_size, (3, CKPT_B, CKPT_S + 1))
+    batches = [{"tokens": t[:, :-1], "targets": t[:, 1:]} for t in toks]
+    train = TrainConfig(opt=OptConfig(name="adamw8bit", lr_peak=1e-3,
+                                      warmup_steps=2, total_steps=100))
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        whole = Trainer(model, TrainerConfig(train=train, log_every=1),
+                        seed=seed, device=dev)
+        want = whole.fit(iter(batches), steps=3)[2]["loss"]
+        del whole
+        tcfg = TrainerConfig(train=train, ckpt_dir=str(tmp / "run"),
+                             ckpt_every=2, log_every=1)
+        first = Trainer(model, tcfg, seed=seed, device=dev)
+        first.fit(iter(batches[:2]), steps=2)
+        del first
+        fresh = Trainer(model, tcfg, seed=seed + 1, device=dev)
+        restored = fresh.maybe_restore()
+        check(restored == 2, f"maybe_restore returned {restored}, not 2")
+        got = fresh.fit(iter(batches[2:]), steps=1)[0]["loss"]
+        check(abs(got - want) <= 1e-6 * abs(want),
+              f"resumed step-3 loss {got} vs uninterrupted {want}")
+        t0 = time.perf_counter()
+        CheckpointManager(str(tmp / "timed")).save(3, fresh.state,
+                                                   blocking=True)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in (tmp / "timed" / "step_3")
+                   .iterdir())
+        latest = fresh.ckpt.latest_step()
+        leaf = tmp / "run" / f"step_{latest}" / "leaf_0.npy"
+        arr = np.load(leaf)
+        arr.flat[0] += 1
+        np.save(leaf, arr)
+        try:
+            fresh.maybe_restore()
+        except IOError as e:
+            corrupt = str(e)
+        else:
+            corrupt = None
+        check(corrupt is not None and "corrupt" in corrupt,
+              "a corrupted leaf restored without an error")
+        del fresh
+    torch.cuda.empty_cache()
+    equal = got == want
+    how = ("bit for bit" if equal else
+           f"not bit for bit, rel {abs(got - want) / abs(want):.3e}")
+    log(f"checkpoint resume {cfg.name} (adamw8bit, {CKPT_B} x {CKPT_S}): "
+        f"maybe_restore -> {restored}; step-3 loss resumed {got!r} vs "
+        f"uninterrupted {want!r} ({how}); a blocking save {save_s:.3f} s, "
+        f"{disk / 1e9:.3f} GB on disk; corrupted leaf: {corrupt}")
+    return {"restored_step": restored, "loss_resumed": got,
+            "loss_uninterrupted": want, "bit_equal": equal,
+            "save_s": save_s, "disk_bytes": disk}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2358,6 +2937,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as SO
     from repro_torch.kernels.ssd import ref as SR
     from repro_torch.models import ssm as SSM
+    from repro_torch.train import step as TS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2366,8 +2946,9 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, together
-        libs = list(pool.map(lambda mod: mod.build(), (K, AK, SK)))
+    with ThreadPoolExecutor(4) as pool:       # one nvcc per source, together
+        libs = list(pool.map(lambda build: build(),
+                             (K.build, AK.build, AK.build_bwd, SK.build)))
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
         f"{[lib.name for lib in libs]}")
     for lib in libs:
@@ -2385,6 +2966,11 @@ def main() -> int:
     log("  flash_attention dynamic smem (B): " + ", ".join(
         f"hd {hd} bf16 {AK.shared_memory_bytes(hd, torch.bfloat16)} f32 "
         f"{AK.shared_memory_bytes(hd, torch.float32)}"
+        for hd in AK.HEAD_DIMS))
+    log("  flash_attention_bwd dynamic smem (B): " + ", ".join(
+        f"hd {hd} bf16 "
+        f"{AK.shared_memory_bytes_bwd(hd, torch.bfloat16)} f32 "
+        f"{AK.shared_memory_bytes_bwd(hd, torch.float32)}"
         for hd in AK.HEAD_DIMS))
 
     b_err = phase_batched(torch, K, R, rng, dev)
@@ -2435,12 +3021,20 @@ def main() -> int:
         torch, SK, "ssd_chunk", K, SV, model, params, rng, dev,
         spans=lambda: conv_spans(torch, SSM))
     del model, params
+    torch.cuda.empty_cache()
+    bwd = phase_flash_bwd(torch, AK, AR, rng, dev, args.seed)
+    train = {"grads": phase_train_grads(torch, AK, AR, AO, C, MD, rng,
+                                        args.seed, dev)}
+    bwd_launches, train["fit"] = phase_trainer(torch, AK, K, C, MD, TS, D,
+                                               dev, args.seed)
+    train["ckpt"] = phase_ckpt_resume(torch, C, MD, rng, dev, args.seed)
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
         {"name": "monitor_fleet", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/monitor/kernel.py:120",
-         "launches": fleet_launches + sum(fault_launches.values()),
+         "launches": (fleet_launches + sum(fault_launches.values())
+                      + train["fit"]["monitor_fleet_launches"]),
          "max_abs_err": fleet["max_abs_err"],
          "ms": fleet["ms"], "plain_ms": fleet["plain_ms"],
          "bound_ms": fleet["bound_ms"], "bound_by": fleet["bound_by"],
@@ -2465,6 +3059,14 @@ def main() -> int:
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
          "library_ms": ssd["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/attention/csrc/attention_bwd.cu",
+         "replaces": "src/repro/train/step.py:54 (jax.value_and_grad of "
+                     "src/repro/models/attention.py)",
+         "launches": bwd_launches, "max_abs_err": bwd["max_abs_err"],
+         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+         "library_ms": bwd["library_ms"]},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -2488,10 +3090,14 @@ def main() -> int:
     log(json.dumps({"service": extra}))
     log(json.dumps({"control": control}))
     log(json.dumps({"faults": {**faults, "monitor_fleet_launches": {
-        "service": fleet_launches, **fault_launches}}}))
+        "service": fleet_launches, **fault_launches,
+        "train": train["fit"]["monitor_fleet_launches"]}}}))
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,
                               **ssm_serve_stats}}))
+    log(json.dumps({"train": {"flash_attention_bwd": {k: bwd[k] for k in (
+        "ms", "library_ms", "turns_ms", "tflops", "tile_tflops", "fwd_ms",
+        "fwd_lse_ms", "controls_rel_l2")}, **train}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@ instrumented queues, monitor threads, the fleet monitor service and the
 pipeline), ``control`` (the fused decision, the loop and the group),
 ``ft`` (fault plans, heartbeats, rate trackers, the replica supervisor),
 ``workloads`` (the scenario foundry and its matrix), ``data`` (the token
-pipeline), ``configs``, ``models``, ``serve`` and ``obs``.  Entry points
-run on the card unless given ``device="cpu"``.
+pipeline), ``configs``, ``models`` (with the LM loss), ``serve``,
+``obs``, ``train`` (optimizers, the train step, the trainer) and
+``ckpt`` (checkpoints in the JAX package's layout).  The attention
+kernel has a hand-written backward, so a model trains on the card.
+Entry points run on the card unless given ``device="cpu"``.
 """

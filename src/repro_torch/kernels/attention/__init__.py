@@ -1,5 +1,5 @@
-"""Flash-attention forward (causal GQA) for Hopper, with its plain
-PyTorch version."""
+"""Flash attention (GQA, causal or not) for Hopper, forward and backward,
+with its plain PyTorch versions."""
 
 from repro_torch.kernels.attention.ops import attention_ref, flash_attention
 

@@ -75,6 +75,14 @@ constexpr int BQ = 64;        // q rows per CTA
 constexpr int BK = 64;        // kv rows per tile
 constexpr int NT = 128;       // threads per CTA
 constexpr float NEG = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// log2 of a row's sum of exponentials, from its running max m (log2
+// domain) and sum l: +inf for a row with no unmasked key, so that the
+// backward's 2^(s - lse) is 0 there, never inf or NaN
+__device__ __forceinline__ float row_lse2(float m2, float l) {
+  return l > 0.f ? m2 + log2f(l) : __int_as_float(0x7f800000);
+}
 
 template <int N>
 struct FV {
@@ -114,8 +122,9 @@ struct Layout {
 template <int HD, typename T>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, float* __restrict__ o, int S,
-                     int Tn, int H, int KH, int causal, float scale) {
+                     const T* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int Tn, int H, int KH,
+                     int causal, float scale) {
   using L = Layout<HD, T>;
   constexpr int E = L::E, QST = L::QST, KST = L::KST, PST = L::PST;
   constexpr int VW = L::VW, NC = L::NC;
@@ -276,11 +285,14 @@ __global__ void __launch_bounds__(NT)
     }
   }
 
-  // out = acc / max(l, 1e-30), rows past S dropped
+  // out = acc / max(l, 1e-30), rows past S dropped; the row's lse in
+  // base 2 where asked for (m is the natural-log max of the scaled scores)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= S) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + r] = row_lse2(m[i] * kLog2e, l[i]);
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = o + ((size_t)(b * (size_t)S + r) * H + h) * HD;
 #pragma unroll
@@ -292,8 +304,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tn, int H, int KH, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tn, int H, int KH, int causal, float scale,
            cudaStream_t stream) {
   const size_t smem = Layout<HD, T>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -303,24 +315,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<HD, T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(o), S, Tn, H, KH, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<float*>(o), lse, S, Tn, H, KH,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Tn, int H, int KH, int causal, float scale,
-             cudaStream_t stream) {
+             float* lse, int B, int S, int Tn, int H, int KH, int causal,
+             float scale, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<16, T>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<16, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                           stream);
     case 32:
-      return launch<32, T>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<32, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                           stream);
     case 64:
-      return launch<64, T>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<64, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                           stream);
     case 128:
-      return launch<128, T>(q, k, v, o, B, S, Tn, H, KH, causal, scale,
+      return launch<128, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
                             stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -591,8 +606,9 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           float* __restrict__ o, int S, int Tn, int H,
-                           int KH, int causal, float scale_log2) {
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int S, int Tn, int H, int KH, int causal,
+                           float scale_log2) {
   using G = Geo<HD>;
   constexpr int SW = G::SW, PC = G::PC, NP = G::NP;
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -775,11 +791,15 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   reg_fence(acc);
   release(empty_v(sl));
 
-  // out = acc / max(l, 1e-30), rows past S dropped
+  // out = acc / max(l, 1e-30), rows past S dropped; the row's lse (m is
+  // in the log2 domain already) where asked for
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < S)
+      lse[((size_t)b * H + h) * S + row] = row_lse2(m[r], l[r]);
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -836,8 +856,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tn, int H, int KH, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tn, int H, int KH, int causal, float scale,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!encode_map<HD>(&mq, q, B, S, H, BQ) ||
@@ -851,23 +871,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_wgmma_kernel<HD><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, static_cast<float*>(o), S, Tn, H, KH, causal,
-      scale * 1.4426950408889634f);
+      mq, mk, mv, static_cast<float*>(o), lse, S, Tn, H, KH, causal,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Tn, int H, int KH, int causal, float scale,
-             cudaStream_t stream) {
+             float* lse, int B, int S, int Tn, int H, int KH, int causal,
+             float scale, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<16>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                        stream);
     case 32:
-      return launch<32>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<32>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                        stream);
     case 64:
-      return launch<64>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<64>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                        stream);
     case 128:
-      return launch<128>(q, k, v, o, B, S, Tn, H, KH, causal, scale, stream);
+      return launch<128>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
+                         stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -901,15 +925,20 @@ int repro_flash_attention_smem(int hd, int is_bf16) {
 }
 
 // q (B,S,H,hd), k/v (B,T,KH,hd) contiguous, f32 (is_bf16 = 0) or bf16,
-// 16-byte aligned; o (B,S,H,hd) float32.  Returns a cudaError_t.
+// 16-byte aligned; o (B,S,H,hd) float32; lse (B,H,S) float32, each row's
+// log2 of sum 2^(scale log2(e) q.k), written when not null (the training
+// path's backward reads it; serving passes null).  Returns a cudaError_t.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int Tn, int H, int KH,
-                          int hd, int is_bf16, int causal, float scale,
-                          void* stream) {
+                          void* o, void* lse, int B, int S, int Tn, int H,
+                          int KH, int hd, int is_bf16, int causal,
+                          float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return tc::dispatch(hd, q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
-  return dispatch<float>(hd, q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
+    return tc::dispatch(hd, q, k, v, o, l, B, S, Tn, H, KH, causal, scale,
+                        st);
+  return dispatch<float>(hd, q, k, v, o, l, B, S, Tn, H, KH, causal, scale,
+                         st);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@ flags) and bound with ``ctypes``.  ``ssd_chunk`` launches on
 ``torch.cuda.current_stream()`` and counts its launches in
 ``ssd_chunk.launches``.  On CPU tensors it runs the plain PyTorch
 version from ``ref.py``; on CUDA tensors it launches the kernel or
-raises — it never falls back.
+raises — it never falls back.  The kernel has no backward yet: on the
+card it raises when grad mode is on and an input requires grad, rather
+than cut the gradient.
 """
 
 from __future__ import annotations
@@ -76,6 +78,13 @@ def ssd_chunk(x, dt, A, Bm, Cm):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {x.device}")
     ins = {"x": x, "dt": dt, "A": A, "B": Bm, "C": Cm}
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in ins.values()):
+        raise NotImplementedError(
+            "ssd_chunk's kernel has no backward, so a loss through it would "
+            "give the mamba projections no gradient: training an ssm model "
+            "on the card needs the SSD backward kernel (ROADMAP.md, Queue 2 "
+            "item 5); on the CPU the plain version trains it")
     for name, t in ins.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")

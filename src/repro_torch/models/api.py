@@ -1,5 +1,6 @@
-"""Model facade: one object per architecture exposing init, prefill,
-decode_step and the cache — what the serving engine needs.
+"""Model facade: one object per architecture exposing init, loss,
+prefill, decode_step and the cache — what the trainer and the serving
+engine need.
 
 Parameters are a nested dict of tensors in the JAX package's layout
 (layers stacked on a leading axis, e.g. ``wq`` (L, d, H, hd)), so the
@@ -46,10 +47,15 @@ def _map_tree(tree, fn, path=()):
 
 
 def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda",
-                      compute_dtype=torch.bfloat16) -> dict:
+                      compute_dtype=torch.bfloat16,
+                      param_dtype=None) -> dict:
     """The JAX package's parameter tree (numpy arrays, same nesting and
-    layout) as the port's tensors on ``device``."""
+    layout) as the port's tensors on ``device``: weight matrices in
+    ``param_dtype`` (default: the compute dtype; float32 for the JAX
+    package's float32 training parameters as master weights), norm
+    weights and the float32 mamba leaves in float32."""
     dev = resolve_device(device)
+    pdt = param_dtype or compute_dtype
     want = Model(cfg, compute_dtype).param_shapes()
 
     def conv(path, a):
@@ -61,7 +67,7 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda",
             raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
                              f"expected {node}")
         t = torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
-        return t.to(device=dev, dtype=_leaf_dtype(path, compute_dtype))
+        return t.to(device=dev, dtype=_leaf_dtype(path, pdt))
     return _map_tree(tree, conv)
 
 
@@ -96,6 +102,14 @@ class Model:
         mats = self._defs(ll.init_creator(generator, dev, pdt))
         return _map_tree(mats, lambda path, t: t.to(
             _leaf_dtype(path, pdt)))
+
+    # ---------------- training -------------------------------------------
+    def loss(self, params, batch, *, remat_policy=None):
+        """(loss, {"ce", "aux"}) of ``transformer.lm_loss`` on ``batch``
+        ({"tokens" or "embeds", "targets"})."""
+        return transformer.lm_loss(
+            params, self.cfg, batch, compute_dtype=self.compute_dtype,
+            remat_policy=remat_policy, kernel_impl=self.kernel_impl)
 
     # ---------------- serving ---------------------------------------------
     def prefill(self, params, batch):

@@ -6,16 +6,25 @@ the parameter trees carry across unchanged; the JAX package's
 or the conv and SSM states (ssm) ride the same loop, one layer slice at
 a time.
 
+Training: ``lm_loss`` is the next-token cross entropy of ``lm_forward``
+in mode "train", whose layers may be rematerialised in the backward
+(``_maybe_remat``).  On the card the attention differentiates through
+the hand-written backward kernel (``kernels.attention.ops``); the SSD
+kernel has no backward yet, so an ssm model trains on the CPU only.
+
 Ported: the dense and ssm families.  Not yet: MoE blocks, the hybrid
 stack, the vlm and encoder-decoder families (ROADMAP.md, Queue 1
-item 4), and training with ``lm_loss`` (Queue 1 item 5).
+item 4).
 """
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
@@ -23,8 +32,8 @@ from repro_torch.models.attention import attention, attn_param_defs
 from repro_torch.models.ssm import (mamba_block, mamba_decode_step,
                                     mamba_param_defs)
 
-__all__ = ["lm_param_defs", "lm_forward", "norm_def", "apply_norm",
-           "mlp_param_defs", "check_family"]
+__all__ = ["lm_param_defs", "lm_forward", "lm_loss", "norm_def",
+           "apply_norm", "mlp_param_defs", "check_family"]
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -165,26 +174,65 @@ def _mamba_layer(cfg: ArchConfig, x, bp, conv_state, ssm_state, decode,
     return x + out, states
 
 
-def _layer_slice(tree, i: int):
-    return {k: (_layer_slice(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+# the operators whose outputs the "dots" policies keep for the backward:
+# the matrix products (with and without batch dims) and the flash forward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.repro_torch.flash_attention_fwd.default)
+_BATCH_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_policy(saved):
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, args, kwargs
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _maybe_remat(fn, policy: Optional[str]):
+    """``fn`` as is (None), or recomputed in the backward: "full" keeps
+    only its inputs (``jax.checkpoint``); "dots" also keeps the outputs of
+    every matrix product and of the flash forward (``checkpoint_dots``),
+    "dots_no_batch" those of the products without batch dims and of the
+    flash forward (``checkpoint_dots_with_no_batch_dims``)."""
+    if policy is None:
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy in ("dots", "dots_no_batch"):
+        saved = _DOTS + (_BATCH_DOTS if policy == "dots" else ())
+        contexts = functools.partial(create_selective_checkpoint_contexts,
+                                     _save_policy(saved))
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=contexts)
+    raise ValueError(policy)
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree of leaves stacked on a leading layer axis -> one tree per
+    layer.  One ``unbind`` per leaf, so the backward stacks the layers'
+    gradients once rather than adding n full-size scatters."""
+    per = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+           for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
 def _run_attn_stack(params, cfg, x, positions, cache, pos_offset, mode,
-                    compute_dtype, attn_impl):
+                    compute_dtype, attn_impl, remat_policy=None):
     """The layers in order (the JAX package scans them).  Prefill stacks
     the fresh k/v of every layer into the cache; decode writes each
-    layer's slice of ``cache`` in place."""
+    layer's slice of ``cache`` in place; train may rematerialise each
+    layer in the backward (``_maybe_remat``)."""
     want_cache = mode in ("prefill", "decode")
+    layer = _maybe_remat(functools.partial(_attn_mlp_layer, cfg),
+                         remat_policy if mode == "train" else None)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer_slice(params["blocks"], i)
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         ck = cv = None
         if cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
-        x, (k_i, v_i) = _attn_mlp_layer(
-            cfg, x, bp, positions, ck, cv, pos_offset, want_cache,
-            compute_dtype, attn_impl)
+        x, (k_i, v_i) = layer(x, bp, positions, ck, cv, pos_offset,
+                              want_cache, compute_dtype, attn_impl)
         if want_cache and cache is None:
             ks.append(k_i)
             vs.append(v_i)
@@ -195,20 +243,23 @@ def _run_attn_stack(params, cfg, x, positions, cache, pos_offset, mode,
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def _run_ssm_stack(params, cfg, x, cache, mode, compute_dtype, ssd_impl):
+def _run_ssm_stack(params, cfg, x, cache, mode, compute_dtype, ssd_impl,
+                   remat_policy=None):
     """The mamba layers in order.  Prefill stacks every layer's fresh
     conv and SSM states into the cache; decode reads each layer's slice
     of ``cache`` and writes the new states back in place.  A prefill
-    given a cache continues from its states and returns new ones."""
+    given a cache continues from its states and returns new ones; train
+    may rematerialise each layer in the backward."""
     decode = mode == "decode"
+    layer = _maybe_remat(functools.partial(_mamba_layer, cfg),
+                         remat_policy if mode == "train" else None)
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer_slice(params["blocks"], i)
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         conv_s = ssm_s = None
         if cache is not None:
             conv_s, ssm_s = cache["conv"][i], cache["ssm"][i]
-        x, (conv_new, ssm_new) = _mamba_layer(
-            cfg, x, bp, conv_s, ssm_s, decode, compute_dtype, ssd_impl)
+        x, (conv_new, ssm_new) = layer(x, bp, conv_s, ssm_s, decode,
+                                       compute_dtype, ssd_impl)
         if decode:
             cache["conv"][i] = conv_new
             cache["ssm"][i] = ssm_new
@@ -235,17 +286,19 @@ def _positions_for(B: int, S: int, pos_offset, device):
 
 def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                cache=None, pos_offset=None, mode: str = "train",
-               compute_dtype=torch.bfloat16, logits_mode: str = "full",
-               kernel_impl: str = "kernel"):
+               compute_dtype=torch.bfloat16, remat_policy=None,
+               logits_mode: str = "full", kernel_impl: str = "kernel"):
     """Run the LM.  Returns (logits, new_cache, aux_loss); aux_loss is
     the MoE router loss, zero for the dense and ssm families.
 
     logits_mode: 'full' (B,S,V) | 'last' (B,1,V) | 'none' (hidden only).
     mode: 'prefill' (returns the fresh cache), 'decode' (writes ``cache``
-    in place at ``pos_offset``) or 'train' (no cache; a forward pass —
-    the training step itself is not ported yet).  ``kernel_impl``
-    ("kernel" | "plain") selects the family's prefill op: the attention
-    (``kernels.attention.ops``) or the SSD (``kernels.ssd.ops``).
+    in place at ``pos_offset``) or 'train' (no cache; each layer
+    rematerialised in the backward as ``remat_policy`` says: None,
+    "full", "dots" or "dots_no_batch", see ``_maybe_remat``).
+    ``kernel_impl`` ("kernel" | "plain") selects the family's prefill op:
+    the attention (``kernels.attention.ops``) or the SSD
+    (``kernels.ssd.ops``).
     """
     check_family(cfg)
     if embeds is not None:
@@ -255,13 +308,14 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                               compute_dtype)
     if cfg.family == "ssm":
         x, new_cache = _run_ssm_stack(params, cfg, x, cache, mode,
-                                      compute_dtype, kernel_impl)
+                                      compute_dtype, kernel_impl,
+                                      remat_policy)
     else:
         B, S = x.shape[:2]
         positions = _positions_for(B, S, pos_offset, x.device)
         x, new_cache = _run_attn_stack(params, cfg, x, positions, cache,
                                        pos_offset, mode, compute_dtype,
-                                       kernel_impl)
+                                       kernel_impl, remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(x, params["final_norm"], cfg)
     if logits_mode == "none":
@@ -273,3 +327,23 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     logits = ll._mm(x, unembed, compute_dtype)
     logits = ll.softcap(logits.float(), cfg.final_logit_softcap)
     return logits, new_cache, aux
+
+
+def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
+            remat_policy=None, aux_weight: float = 0.01,
+            kernel_impl: str = "kernel"):
+    """Next-token cross entropy (+ the MoE load-balance aux, zero for the
+    dense and ssm families): the mean over (B, S) of logsumexp(logits) -
+    logits[target], the full logits in float32.  Returns (loss, {"ce",
+    "aux"})."""
+    logits, _, aux = lm_forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        mode="train", compute_dtype=compute_dtype,
+        remat_policy=remat_policy, logits_mode="full",
+        kernel_impl=kernel_impl)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1,
+                       batch["targets"].long()[..., None])[..., 0]
+    ce = torch.mean(lse - tgt)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

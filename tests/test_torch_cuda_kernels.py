@@ -21,7 +21,10 @@ import torch
 from repro_torch.core.monitor import (MonitorConfig, fleet_monitor_init,
                                       run_monitor_fleet)
 from repro_torch.kernels.attention import kernel as AK
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention import ops as AO
+from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                               attention_lse_ref,
+                                               attention_ref)
 from repro_torch.kernels.monitor import kernel as K
 from repro_torch.kernels.monitor import ops as MO
 from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
@@ -40,6 +43,7 @@ def cuda():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     K.build()
     AK.build()
+    AK.build_bwd()
     SK.build()
     return torch.device("cuda")
 
@@ -492,6 +496,88 @@ def test_flash_attention_cuda_launches_or_raises(cuda):
         q48, k48, v48 = _qkv((1, 64, 2, 1, 48), 1, torch.float32, cuda)
         AK.flash_attention(q48, k48, v48)
     assert AK.flash_attention.launches == before + 1
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# (shape (B,S,H,K,hd), T or None, dtype, causal, scale, rel L2 tolerance):
+# f32 at 1e-4 (the same arithmetic in another order), bf16 at 1e-2 (dO, P
+# and dS rounded to bf16 for the products, against float32)
+BWD_CASES = ([((2, 130, 4, 2, hd), None, torch.float32, c, None, 1e-4)
+              for hd in (16, 32, 64, 128) for c in (True, False)]
+             + [((1, 77, 4, 2, 32), 250, torch.float32, True, 0.2, 1e-4),
+                ((1, 250, 4, 1, 64), 77, torch.float32, False, None, 1e-4),
+                ((1, 1000, 8, 2, 64), None, torch.float32, True, None, 1e-4),
+                ((2, 1000, 16, 8, 128), None, torch.bfloat16, True, None,
+                 1e-2),
+                ((1, 250, 8, 2, 128), 77, torch.bfloat16, False, 0.1, 1e-2),
+                ((1, 77, 4, 4, 16), 250, torch.bfloat16, True, None, 1e-2)])
+
+
+@pytest.mark.parametrize("shape,T,dtype,causal,scale,tol", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_ref(cuda, shape, T, dtype,
+                                                causal, scale, tol):
+    """The backward kernel against ``attention_bwd_ref`` on the same o
+    and dO, each output by relative L2; the forward's lse against
+    ``attention_lse_ref`` and its output unchanged by asking for it."""
+    B, S, H, K_, hd = shape
+    q, k, v = _qkv(shape, S + hd, dtype, cuda, T=T)
+    do = torch.randn((B, S, H, hd), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    o, lse = AK.flash_attention(q, k, v, causal=causal, scale=scale,
+                                return_lse=True)
+    assert torch.equal(o, AK.flash_attention(q, k, v, causal=causal,
+                                             scale=scale))
+    torch.testing.assert_close(lse, attention_lse_ref(
+        q, k, causal=causal, scale=scale), rtol=1e-5, atol=1e-4)
+    before = AK.flash_attention_bwd.launches
+    got = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 scale=scale)
+    torch.cuda.synchronize()
+    assert AK.flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= tol
+
+
+def test_flash_attention_fn_on_the_card(cuda):
+    """The op under grad: the forward kernel with its lse and the
+    backward kernel, one launch each, gradients in the inputs' dtype and
+    equal to calling the backward wrapper directly."""
+    q, k, v = (t.requires_grad_() for t in _qkv(
+        (2, 200, 8, 4, 128), 3, torch.bfloat16, cuda))
+    counts = AK.launch_counts()
+    out = AO.flash_attention(q, k, v)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    now = AK.launch_counts()
+    assert now["flash_attention"] == counts["flash_attention"] + 1
+    assert now["flash_attention_bwd"] == counts["flash_attention_bwd"] + 1
+    with torch.no_grad():
+        o, lse = AK.flash_attention(q, k, v, return_lse=True)
+        want = AK.flash_attention_bwd(q, k, v, o, do, lse)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_kernels_refuse_grad_outside_a_function(cuda):
+    """On the card neither kernel cuts a gradient silently: with grad
+    mode on and an input that requires grad, the flash wrapper and the
+    SSD wrapper raise (the SSD has no backward kernel yet)."""
+    q, k, v = _qkv((1, 64, 2, 1, 32), 1, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        AK.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        AK.flash_attention(q, k, v)
+    x, dt, A, Bm, Cm = _ssd_inputs((1, 2, 16), 2, 16, 8, 0, cuda)
+    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
+        SK.ssd_chunk(x.requires_grad_(), dt, A, Bm, Cm)
 
 
 def _ssd_inputs(lead, H, P, N, seed, device):

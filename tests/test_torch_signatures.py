@@ -1,14 +1,15 @@
 """The port keeps the JAX package's public names and signatures.
 
-For every public name of the port's ``workloads``, ``ft`` and ``data``
-modules, and for the repaired ``models.attention`` names, the port's
-``inspect.signature`` must match the reference's: the same parameter
-names in the same order, of the same kinds, with the same defaults (a
-JAX dtype default matches the torch dtype of that name).  The only
-difference allowed is a trailing keyword-only ``device`` on an entry
-point that builds a monitor service or monitor state, or the port's
-``impl`` last on ``attention``.  A class is held by its constructor and
-by each public method it defines; a constant by its value.
+For every public name of the port's ``workloads``, ``ft``, ``data``,
+``train`` and ``ckpt`` modules, and for the repaired ``models.attention``
+names, the port's ``inspect.signature`` must match the reference's: the
+same parameter names in the same order, of the same kinds, with the same
+defaults (a JAX dtype default matches the torch dtype of that name).
+The only difference allowed is a trailing keyword-only ``device`` on an
+entry point that builds a monitor service, monitor state or a trainer's
+state, or the port's ``impl`` last on ``attention``.  A class is held by
+its constructor and by each public method it defines; a constant by its
+value.
 """
 
 import dataclasses
@@ -21,13 +22,14 @@ import torch
 
 MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "workloads.trace", "workloads.harness", "ft.inject",
-           "ft.failures", "ft.supervisor", "data.pipeline")
-PACKAGES = ("workloads", "ft", "data")
+           "ft.failures", "ft.supervisor", "data.pipeline",
+           "train.optimizer", "train.step", "train.trainer", "ckpt.manager")
+PACKAGES = ("workloads", "ft", "data", "train", "ckpt")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
 # the port's extra trailing parameter, by name
 EXTRA = {"attention": "impl"}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
-          "DataPipeline"}
+          "DataPipeline", "Trainer"}
 
 
 def _pair(mod):
