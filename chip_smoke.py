@@ -122,10 +122,13 @@ failed check raises and exits non-zero):
    other);
 (i) the training path: ``flash_attention_bwd`` against
    ``attention_bwd_ref`` by relative L2 per output (bf16 at the training
-   shape B 2, S = T 4096, H 16, K 8, hd 128, causal, 1e-2; float32 at
-   every head dim, non-causal, S != T, tails and an explicit scale,
-   1e-4; the forward's lse against ``attention_lse_ref``; two controls
-   the gate must fail) and timed in turns with SDPA's backward; the
+   shape B 2, S = T 4096, H 16, K 8, hd 128, causal, and at every head
+   dim with GQA 1-4, S != T both ways, ragged and non-causal, 1e-2;
+   float32 at every head dim, non-causal, S != T, tails and an explicit
+   scale, 1e-4; the forward's lse against ``attention_lse_ref``; two
+   calls equal to the bit; two controls the gate must fail; no ptxas
+   spills in its tensor-core kernels at hd 128) and timed in turns with
+   SDPA's backward, with a profiler split over its three kernels; the
    gradients of internlm2-1.8b at published widths (random float32
    master weights, B 2 x 1024, remat "full") through the kernels against
    the plain attention (loss rel 1e-3; the backward kernel against the
@@ -1768,7 +1771,7 @@ def phase_model(torch, AK, AO, cfgs, models, rng, seed, dev):
     model = models.build_model(cfg, torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
-                               device=dev)
+                               torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -2275,7 +2278,7 @@ def phase_ssm_model(torch, SK, SO, cfgs, models, rng, seed, dev):
     model = models.build_model(cfg, torch.bfloat16)
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = model.init_params(g, device=dev)
+    params = model.init_params(g, torch.bfloat16, device=dev)
     mamba2_decay_init(torch, params["blocks"], g)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -2390,13 +2393,16 @@ def _bwd_errs(got, want):
 def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
     """(i.1) The backward kernel against ``attention_bwd_ref`` on the
     card, each output by relative L2: bf16 at the training path's shape
-    (1e-2), float32 at every head dim, non-causal, S != T, tails and an
-    explicit scale (1e-4); the forward's lse against
-    ``attention_lse_ref``; two controls that the gate fails: the kernel
-    fed a natural-log lse (the base-2 hazard) and the plain version at a
-    scale 2% off.  Then timed at the path's shape in turns with SDPA's
-    backward (autograd through ``scaled_dot_product_attention``, its
-    forward outside the timed window)."""
+    and at every head dim with GQA 1, 2 and 4, S != T both ways, S and T
+    off the 64-row blocks, causal or not (1e-2), float32 at every head
+    dim, non-causal, S != T, tails and an explicit scale (1e-4); the
+    forward's lse against ``attention_lse_ref``; two calls give equal
+    bits; two controls that the gate fails: the kernel fed a natural-log
+    lse (the base-2 hazard) and the plain version at a scale 2% off.  Then
+    timed at the path's shape in turns with SDPA's backward (autograd
+    through ``scaled_dot_product_attention``, its forward outside the
+    timed window), and the time split over its three kernels by a
+    profiler trace."""
     import torch.nn.functional as F
     f32, bf16 = torch.float32, torch.bfloat16
     own = np.random.default_rng((seed, 9))
@@ -2409,6 +2415,18 @@ def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
               ((1, 77, 4, 2, 32), 250, f32, True, 0.2, 1e-4, own),
               ((1, 250, 4, 1, 32), 77, f32, False, None, 1e-4, own),
               ((2, 1000, 16, 8, 128), None, bf16, False, 0.1, 1e-2, own)]
+    # the tensor-core kernels: (B, S, H, K, hd), T, causal, scale
+    cases += [(shape, T, bf16, causal, scale, 1e-2, own)
+              for shape, T, causal, scale in (
+                  ((2, 300, 4, 4, 16), None, True, None),
+                  ((1, 77, 4, 2, 16), 250, True, None),
+                  ((1, 250, 8, 2, 32), 77, False, 0.2),
+                  ((2, 333, 8, 8, 32), 520, True, None),
+                  ((1, 520, 8, 2, 64), 333, True, None),
+                  ((2, 190, 4, 1, 64), 300, False, None),
+                  ((1, 300, 8, 4, 128), 190, True, None),
+                  ((1, 130, 4, 1, 128), 700, True, 0.1),
+                  ((2, 700, 8, 2, 128), 130, False, None))]
     path_err, controls = 0.0, {}
     for shape, T, dtype, causal, scale, tol, gen in cases:
         B, S, H, K, hd = shape
@@ -2438,6 +2456,14 @@ def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
             f"lse max abs err {lse_err:.3e}")
         if shape == BWD_SHAPE:
             path_err = err
+            with torch.no_grad():
+                again = AK.flash_attention_bwd(q, k, v, o, do, lse,
+                                               causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: two calls differ")
+            log(f"{what}: two calls give equal bits")
+            del again
             with torch.no_grad():
                 wrong = AK.flash_attention_bwd(q, k, v, o, do,
                                                lse / AR.LOG2E)
@@ -2481,6 +2507,7 @@ def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
                           reps=20)
         fwd_lse_ms = event_ms(torch, lambda: AK.flash_attention(
             q, k, v, return_lse=True), reps=20)
+    split = bwd_kernel_split(torch, kern)
     del out
     torch.cuda.empty_cache()
     bound_ms, bound_by, nbytes, flops = flash_bwd_bound(BWD_SHAPE)
@@ -2497,11 +2524,35 @@ def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
         f"(kernel/SDPA {ms / lib_ms:.2f}), plain {plain_ms:.4f} ms; the "
         f"forward at this shape {fwd_ms:.4f} ms, with its lse "
         f"{fwd_lse_ms:.4f} ms")
+    log("flash_attention_bwd kernels (profiler, ms a call): " + (", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()) if split else
+        "not measured"))
     return {"max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "turns_ms": turns, "tflops": flops / ms / 1e9,
             "tile_tflops": tile_flops / ms / 1e9, "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
-            "controls_rel_l2": controls}
+            "controls_rel_l2": controls, "kernels_ms": split}
+
+
+def bwd_kernel_split(torch, fn, calls=5):
+    """Device ms a launch of each of the backward's kernels (prep, dK/dV,
+    dQ) from a profiler trace of ``calls`` calls (the mean over the
+    launches the trace holds); {} when the trace has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(flash_bwd_\w+?)_(?:wgmma_)?kernel", e.key)
+        if m and e.count:
+            t = getattr(e, "device_time_total", None)
+            t = e.cuda_time_total if t is None else t
+            out[m.group(1)] = t / e.count / 1e3
+    return out
 
 
 def _model_grads(torch, model, params, batch, remat):
@@ -2577,8 +2628,8 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
     shows how much of (d) the backward kernel adds."""
     cfg = cfgs.get_config(ARCH)
     params = models.build_model(cfg).init_params(
-        torch.Generator(device=dev).manual_seed(seed), device=dev,
-        param_dtype=torch.float32)
+        torch.Generator(device=dev).manual_seed(seed), torch.float32,
+        device=dev)
     toks = rng.integers(0, cfg.vocab_size, (GRAD_B, GRAD_S + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
              "targets": torch.as_tensor(toks[:, 1:], device=dev)}
@@ -2957,6 +3008,12 @@ def main() -> int:
                 f"{r['registers']} registers, {r['spill_stores']}/"
                 f"{r['spill_loads']} B spill stores/loads, {r['stack']} B "
                 f"stack, {r['smem']} B static smem")
+    spills = [r for r in ptxas_report(Path(str(libs[2]) + ".log").read_text())
+              if "wgmma" in r["kernel"]
+              and r["kernel"].split("<")[1].startswith("128,")
+              and (r["spill_stores"] or r["spill_loads"])]
+    check(not spills, f"flash_attention_bwd's tensor-core kernels spill at "
+          f"hd 128: {spills}")
     sass = sass_step_instructions(libs[0], "monitor_fleet_kernelILi32ELi16E"
                                   "Li2ELb0ELb1E")
     log(f"  monitor_fleet (state mode, time-major, 32/16/2): dynamic smem "

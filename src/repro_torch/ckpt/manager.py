@@ -55,12 +55,15 @@ def _unflatten(like, leaves: list):
 
 
 def _to_host(x) -> np.ndarray:
+    """A host copy of a leaf that nothing else aliases: the writer thread
+    reads it while the train loop updates the state in place (a CPU
+    tensor's ``.numpy()`` is a view of its live memory)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
-            x = x.float()
-        return x.cpu().numpy()
-    return np.asarray(x)
+            return x.float().cpu().numpy()          # .float() copies
+        return x.cpu().numpy().copy()
+    return np.array(x)
 
 
 def _crc(arr: np.ndarray) -> int:

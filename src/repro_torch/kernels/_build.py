@@ -2,8 +2,9 @@
 interface: ``nvcc`` at first use, ``ctypes`` to bind.
 
 The library lands in ``build/repro_torch/`` at the repository root,
-named after the source and a hash of its text and flags, so a changed
-source or flag builds anew and an unchanged one loads what is there.
+named after the source and a hash of its text, the headers (``*.cuh``)
+beside it and its flags, so a changed source, header or flag builds anew
+and an unchanged one loads what is there.
 nvcc's report (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<library>.log``; ``ptxas_report`` reads it per
 kernel.  Nothing is built at import.
@@ -64,8 +65,10 @@ class NvccLibrary:
     def build(self) -> Path:
         """Compile and load the library; returns its path."""
         with self._lock:
-            digest = hashlib.sha256(self.source.read_bytes()
-                                    + " ".join(self.flags).encode()
+            text = self.source.read_bytes() + b"".join(
+                h.read_bytes()
+                for h in sorted(self.source.parent.glob("*.cuh")))
+            digest = hashlib.sha256(text + " ".join(self.flags).encode()
                                     ).hexdigest()
             out = _build_dir() / f"lib{self.source.stem}-{digest[:16]}.so"
             if self._loaded is not None and self._loaded[0] == out:

@@ -63,11 +63,11 @@
 // the output divides by max(l, 1e-30), so a wholly masked row yields 0,
 // not NaN.  Causal blocks stop at the diagonal.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through
-                   // cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma (shared with the backward)
 
 namespace {
 
@@ -364,117 +364,11 @@ struct Geo {
   // 1024 bytes of alignment slack, Q, the K and V rings, the mbarriers
   static constexpr int SMEM =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (4 * STAGES + 1);
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
   static_assert(HD % 16 == 0 && HD <= 128 && NP * PC == HD, "head dim");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// wait until the phase of parity `parity` has completed; a wait that has
-// not ended after 10 s traps (a launch error) rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const uint64_t t0 = global_ns();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (global_ns() - t0 > 10000000000ull) asm volatile("trap;");
-  }
-}
-
-// box (c0.., c1, c2.., c3) of a 4-d tensor map -> shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout
-template <int HD>
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (Geo<HD>::LAYOUT << 62);
-}
-
-// K-major operand (Q as A, K as B): rows of SW bytes, 8-row groups SW * 8
-// bytes apart; the leading offset is unused with a swizzle
-template <int HD>
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return gmma_desc<HD>(addr, 16, Geo<HD>::SW * 8);
-}
-
-// MN-major operand (V as B): head-dim panels `panel` bytes apart (leading),
-// 8-row groups along the kv (K) dimension SW * 8 bytes apart (stride)
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t panel) {
-  return gmma_desc<HD>(addr, panel, Geo<HD>::SW * 8);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma region
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using namespace hopper;
 
 // (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi): hi + lo
 // equals (a, b) to ~2^-17 relative, where hi alone is 2^-9
@@ -485,120 +379,6 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// The wgmma instructions, register lists spelled out as PTX needs them.
-
-// d (64 x 64, f32) = (acc ? d : 0) + A . B; A and B from shared memory
-// (K-major descriptors)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 16, f32) += A . B; A (64 x 16 bf16) from registers in the
-// accumulator's row layout, B from shared memory (MN-major descriptor)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (64 x 32, f32) += A . B; A (64 x 16 bf16) from registers in the
-// accumulator's row layout, B from shared memory (MN-major descriptor)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (64 x 64, f32) += A . B; A (64 x 16 bf16) from registers in the
-// accumulator's row layout, B from shared memory (MN-major descriptor)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (64 x 128, f32) += A . B; A (64 x 16 bf16) from registers in the
-// accumulator's row layout, B from shared memory (MN-major descriptor)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 template <int HD>
@@ -692,7 +472,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk * 16) / PC * BQ * SW + (kk * 16) % PC * 2;
       const uint32_t offk = (kk * 16) / PC * BK * SW + (kk * 16) % PC * 2;
-      wgmma_ss(sc, desc_k<HD>(sQ + off), desc_k<HD>(ka + offk), kk > 0);
+      wgmma_ss(sc, desc_k<SW>(sQ + off), desc_k<SW>(ka + offk), kk > 0);
     }
     wg_commit();
   };
@@ -702,7 +482,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
     const uint32_t va = sV + s * G::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = desc_mn<HD>(va + kk * 16 * SW, BK * SW);
+      const uint64_t dv = desc_mn<SW>(va + kk * 16 * SW, BK * SW);
       wgmma_rs(acc, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
                phi[4 * kk + 3], dv);
       wgmma_rs(acc, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
@@ -814,55 +594,15 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// (B, L, NH, HD) bf16 as the 4-d map (HD, NH, L, B) with boxes of one
-// panel (PC head dims) x `rows` rows of one head; out-of-bounds reads as 0
-template <int HD>
-bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
-                int rows) {
-  using G = Geo<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)NH, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)NH * HD * 2,
-                                 (cuuint64_t)L * NH * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::PC, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const EncodeTiledFn enc = encoder();
-  return enc != nullptr &&
-         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             G::TMA_SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tn, int H, int KH, int causal, float scale,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!encode_map<HD>(&mq, q, B, S, H, BQ) ||
-      !encode_map<HD>(&mk, k, B, Tn, KH, BK) ||
-      !encode_map<HD>(&mv, v, B, Tn, KH, BK))
+  constexpr int SW = Geo<HD>::SW;
+  if (!encode_map<HD, SW>(&mq, q, B, S, H, BQ) ||
+      !encode_map<HD, SW>(&mk, k, B, Tn, KH, BK) ||
+      !encode_map<HD, SW>(&mv, v, B, Tn, KH, BK))
     return (int)cudaErrorInvalidValue;
   const int smem = Geo<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(

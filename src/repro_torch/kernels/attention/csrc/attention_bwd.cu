@@ -18,48 +18,87 @@
 // with query head h on kv head h / (H/K), causal aligned at the first
 // position or not, any S and T, hd 16, 32, 64 or 128.
 //
-// Deterministic: two kernels a call and no float atomics.  (b) runs first:
-// one CTA per (64-row q block, q head, batch) computes D for its rows,
-// writes it (and, for bf16, dO rounded to bf16) for (a), and loops over the
-// key blocks up to the diagonal accumulating dQ in registers.  (a) then
-// runs one CTA per (64-row key block, kv head, batch): it loops over the G
-// query heads of its group and over the q blocks the causal mask leaves,
-// accumulating dK and dV in registers, so the sum over the group is a
-// fixed-order loop inside the CTA.
-//
 // What bounds it on the card: at the training path's shape (B 2, S = T
 // 4096, H 16, K 8, hd 128, bf16, causal) the five products over the
-// unmasked pairs are ~0.34 TFLOP against ~0.34 GB of traffic, so the tensor
-// cores bound it (bf16, 989 TFLOP/s), ~0.35 ms.  This first design does
-// seven products over whole tiles (both kernels recompute P and dP), and is
-// simple:
+// unmasked pairs are 343.7 GFLOP against ~0.34 GB of traffic, so the
+// tensor cores bound it (bf16, 989 TFLOP/s): 0.3475 ms.
 //
-// bf16 inputs: mma.sync.m16n8k16 bf16 products with float32 accumulation
-// (dO, P and dS rounded to bf16 for their products, as the JAX package's
-// bf16 compute rounds them), 128 threads a CTA, each warp owning 16 rows
-// of the CTA's block.  The tiles sit in shared memory as bf16 rows padded
-// by 16 bytes (conflict-free ldmatrix); the operands come in by ldmatrix
-// (.trans where the product runs along the rows of a tile).  The scores
-// and dP of a 16 x 32 strip live in registers, and their accumulator
-// layout is the A fragment of the next product, so P and dS never touch
-// shared memory.  The streamed tiles (K and V in (b); Q, bf16 dO, lse and D
-// in (a)) load by cp.async into two stages, the next while the current
-// one's products run; (b) keeps its Q and dO A fragments in registers.
-// Two CTAs share an SM (105 KB of shared memory each at hd 128).  wgmma,
-// TMA and a persistent grid are later work.
+// bf16 inputs: three kernels on the tensor cores, in the manner of
+// FlashAttention-3.  It replaces a first design (mma.sync.m16n8k16 fed by
+// ldmatrix, each warp re-reading the streamed tiles from shared memory for
+// its 16 rows, cp.async copies addressed by every thread, a grid of one CTA
+// per block with the causal tail on a few SMs: 198 TFLOP/s of its own
+// products, 3.0x SDPA's backward).
+//
+// (p) flash_bwd_prep_kernel: D = rowsum(dO o) in float32 (a fixed
+//     butterfly over the row's lanes) and dO rounded to bf16, so that the
+//     main kernels can load bf16 dO by TMA; lse and D copied into rows
+//     padded to a multiple of ROW_PAD, rows past S holding lse = +inf and
+//     D = 0, so that a 64-row block of both is one TMA box of a 3-d map.
+// Both main kernels run NWG = 2 consumer warpgroups a CTA and a producer
+// warpgroup whose one working thread keeps a ring of TMA loads full
+// (mbarriers: full and empty per stage, full and empty for the resident
+// tiles).  384 threads a CTA get 168 registers a thread; the producer
+// gives its registers to the consumers (setmaxnreg: it keeps 24, each
+// consumer gets 240), which hold two 64 x hd float32 accumulators.
+// (a) flash_bwd_dkdv_wgmma_kernel: a CTA owns 128 keys of one kv head at
+//     a time, 64 a consumer warpgroup, with K and V resident in shared
+//     memory, and walks the (query head of the group, q block) steps,
+//     query heads outermost in a fixed order; the producer TMA-loads Q,
+//     bf16 dO and the rows' lse and D of each step into a ring of
+//     DKDV_STAGES stages.  Per step and warpgroup:
+//       S^T  = K.Q^T, dP^T = V.dO^T   wgmma m64n64k16, both operands
+//                                     K-major in shared memory
+//       P^T, dS^T                     in registers on the accumulator
+//                                     layout, which is the A fragment of
+//       dV += P^T.dO, dK += dS^T.Q    wgmma m64n{hd}k16, A from registers,
+//                                     B (dO, Q) MN-major in shared memory
+//     in the order S^T; P^T; dV and dP^T together; dS^T; dK, left in
+//     flight while the next step's S^T runs.  dP^T is issued after P^T is
+//     made, not beside S^T: with its accumulators live during the
+//     exponentials a consumer would spill at hd 128.
+// (b) flash_bwd_dq_wgmma_kernel: a CTA owns 128 query rows of one head, 64
+//     a consumer warpgroup, Q and bf16 dO resident, and streams the K and
+//     V blocks up to the diagonal through a ring of DQ_STAGES stages: S =
+//     Q.K^T and dP = dO.V^T (m64n64k16, shared memory), dQ += dS.K (A
+//     from registers, K MN-major), the dQ product left in flight while the
+//     next step's S and dP run.
+// Seven products over whole tiles, not five: both (a) and (b) recompute S
+// and dP.  A fused five-product kernel would sum dQ over key blocks from
+// several CTAs, which needs float atomics (another sum order every run)
+// or a per-q-block semaphore that admits the key blocks in order and
+// stalls the CTAs that wait on it; two kernels keep every sum a fixed
+// loop inside one CTA, so two calls give equal bits (the checkpoint
+// resume's bit-for-bit check depends on it).
+//
+// Both main kernels are persistent: min(tiles, SMs x CTAs an SM) CTAs
+// walk a static list of tiles ordered longest first ((a): key blocks in
+// ascending order, whose causal work, the q blocks from the diagonal on
+// times G, falls with the key; (b): q blocks in descending order, the
+// ragged last one leading), dealt out in a snake (CTA c takes tile c of
+// the first round, grid - 1 - c of the second, ...), so the causal tail
+// is spread over the card and each CTA's work stays near the mean.
+// Which SM takes a tile does not change its result.
+//
+// Rounding: dO, P and dS are rounded to bf16 for their products, as the
+// JAX package's bf16 compute rounds them; every sum is float32.  Masks:
+// TMA fills rows past S or T with zeros, which would give P = 2^-lse for
+// a zero key, so keys past T, rows past S and the causal upper triangle
+// are masked explicitly on the tiles that cross them; rows past S also
+// read the padded lse = +inf, and rows with no unmasked key carry lse =
+// +inf from the forward, so they give P = 0, never NaN.
 //
 // float32 inputs: the CUDA cores in float32 FMAs (67 TFLOP/s peak), which
-// hold the float32 gate; 256 threads a CTA, every tile in shared memory with
-// odd row strides, each thread owning 4 x 4 of a 64 x 64 product and
-// 4 x hd/16 of a 64 x hd one.
-//
-// Both: masked pairs (causal, past T) give P = 0 exactly; rows past S read
-// lse = +inf and D = 0, so they give P = 0 too; rows with no unmasked key
-// carry lse = +inf from the forward and give 0, never NaN.
+// hold the float32 gate; two kernels, (b) then (a), one CTA per 64-row
+// block, 256 threads, every tile in shared memory with odd row strides,
+// each thread owning 4 x 4 of a 64 x 64 product and 4 x hd/16 of a 64 x hd
+// one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma (shared with the forward)
 
 namespace {
 
@@ -71,49 +110,59 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16: wgmma + TMA (see the note at the top)
 
 namespace tc {
 
-constexpr int NT = 128;  // four warps, 16 rows of the block each
+using namespace hopper;
 
-template <int HD>
+// consumer warpgroups a CTA, the producer's and each consumer's registers
+// after setmaxnreg, the stages of (a)'s and (b)'s rings (see the note)
+constexpr int NWG = 2;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int DKDV_STAGES = 2;
+constexpr int DQ_STAGES = 3;
+constexpr int ROW_PAD = 128;  // lse/D rows padded to this
+static_assert((168 - PRODUCER_REGS) * 128 >= (CONSUMER_REGS - 168) * 128 * NWG,
+              "the producer frees the registers the consumers take");
+
+template <int HD, int ST>
 struct Geo {
-  static constexpr int LD = HD + 8;  // bf16 row stride: rows 16 B apart
-  static constexpr int TILE = BM * LD;
-  // two resident tiles, two stages of two streamed ones, and two stages
-  // of (lse, D) rows
-  static constexpr int SMEM = 6 * TILE * 2 + 4 * BM * 4;
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle bytes
+  static constexpr int PC = SW / 2;       // head dims per panel (a row of
+  static constexpr int NP = HD / PC;      // SW bytes); panels per row
+  static constexpr int NT = 128 * (NWG + 1);  // consumers, then producer
+  static constexpr int RES = 64 * NWG;        // rows of a resident tile
+  static constexpr uint32_t TILE = BM * HD * 2;       // a streamed tile
+  static constexpr uint32_t RES_TILE = RES * HD * 2;  // a resident tile
+  static constexpr uint32_t ROWS = 2 * BM * 4;  // a stage's lse and D
+  // 1024 bytes of alignment slack, two resident tiles, ST x (two streamed
+  // tiles, lse and D), the mbarriers (full and empty per stage, resident
+  // full and empty)
+  static constexpr int SMEM =
+      1024 + 2 * RES_TILE + ST * (2 * TILE + ROWS) + 8 * (2 * ST + 2);
+  static_assert(HD % 16 == 0 && HD <= 128 && NP * PC == HD, "head dim");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+template <int HD>
+using GeoA = Geo<HD, DKDV_STAGES>;
+template <int HD>
+using GeoB = Geo<HD, DQ_STAGES>;
+
+// dynamic shared memory of an instance: the larger of (a)'s and (b)'s
+template <int HD>
+constexpr int smem_bytes() {
+  return GeoA<HD>::SMEM > GeoB<HD>::SMEM ? GeoA<HD>::SMEM : GeoB<HD>::SMEM;
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d (16 x 8, f32) += A (16 x 16 bf16, row) . B (16 x 8 bf16, col)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x (the MUFU's approximation, as exp2f; results below 2^-126 flush
+// to 0, 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack(float a, float b) {
@@ -121,432 +170,568 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// A fragment of rows r0..r0+15, columns c0..c0+15 of a [row][col] tile
-template <int HD>
-__device__ __forceinline__ void frag_a(const bf16* t, int r0, int c0,
-                                       int lane, uint32_t (&a)[4]) {
-  ldsm4(saddr(t + (r0 + lane % 16) * Geo<HD>::LD + c0 + lane / 16 * 8), a);
+// x, opaque to the compiler: keeps per-step descriptor arithmetic from
+// being hoisted out of the step loop into registers held for the kernel
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
 }
 
-// B fragments of two n-tiles (n0..n0+7, n0+8..n0+15) over k0..k0+15, from
-// a tile stored [n][k] (k contiguous): b = {b0, b1 of n0; b0, b1 of n0+8}
-template <int HD>
-__device__ __forceinline__ void frag_b_nk(const bf16* t, int n0, int k0,
-                                          int lane, uint32_t (&b)[4]) {
-  ldsm4(saddr(t + (n0 + lane % 8 + lane / 16 * 8) * Geo<HD>::LD + k0 +
-              (lane / 8) % 2 * 8),
-        b);
-}
-
-// the same from a tile stored [k][n] (n contiguous), transposed on the way
-template <int HD>
-__device__ __forceinline__ void frag_b_kn(const bf16* t, int k0, int n0,
-                                          int lane, uint32_t (&b)[4]) {
-  ldsm4_t(saddr(t + (k0 + lane % 8 + (lane / 8) % 2 * 8) * Geo<HD>::LD +
-                n0 + lane / 16 * 8),
-          b);
-}
-
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int bytes, bool valid) {
-  // src-size 0 zero-fills the destination and reads nothing
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// rows [0, valid) of a (BM, HD) bf16 tile whose rows are `stride` elements
-// apart in device memory -> shared memory by cp.async (not waited for);
-// rows past `valid` are zero
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t stride, int valid) {
-  constexpr int V = HD / 8;  // 16-byte vectors a row
-  for (int idx = threadIdx.x; idx < BM * V; idx += NT) {
-    const int r = idx / V, c = idx % V * 8;
-    const bool in = r < valid;
-    cp_async(saddr(dst + r * Geo<HD>::LD + c), src + (in ? r * stride + c : 0),
-             16, in);
+// Shared-memory carve-up of both main kernels: the resident tiles R0, R1
+// ((a): K, V; (b): Q, dO), the streamed tiles A, B of each stage ((a): Q,
+// dO; (b): K, V), (a)'s lse and D rows, the barriers.
+template <class G, int ST>
+struct Smem {
+  uint32_t r0;  // the rest are fixed offsets from it (no registers held)
+  __device__ __forceinline__ explicit Smem(unsigned char* raw)
+      : r0((smem_addr(raw) + 1023u) & ~1023u) {}  // swizzles repeat every 1 KB
+  __device__ __forceinline__ uint32_t r1() const { return r0 + G::RES_TILE; }
+  __device__ __forceinline__ uint32_t a() const { return r1() + G::RES_TILE; }
+  __device__ __forceinline__ uint32_t b() const { return a() + ST * G::TILE; }
+  __device__ __forceinline__ uint32_t rows() const {
+    return b() + ST * G::TILE;
   }
-}
-
-// (b) dQ, and D and bf16(dO) for (a).  Grid (q blocks, H, B).  The key
-// blocks stream through two shared-memory stages: block j + 1 loads by
-// cp.async while block j's products run.  Q and bf16(dO) stay in
-// registers as A fragments.
-template <int HD>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const float* __restrict__ o,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            float* __restrict__ dq, float* __restrict__ delta,
-                            bf16* __restrict__ dob, int S, int Tn, int H,
-                            int KH, int causal, float scale) {
-  using G = Geo<HD>;
-  constexpr int LD = G::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + G::TILE;
-  bf16* Ks = dOs + G::TILE;     // two stages of K, then two of V
-  bf16* Vs = Ks + 2 * G::TILE;
-  float* lse_s = reinterpret_cast<float*>(Vs + 2 * G::TILE);
-  float* del_s = lse_s + BM;
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int q0 = qb * BM;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rows = min(BM, S - q0);
-  const size_t row_q = (size_t)H * HD;  // q, o, dO: elements between rows
-  const size_t row_k = (size_t)KH * HD;
-  const int kv_end = causal ? min(q0 + BM, Tn) : Tn;
-  const int n_tiles = (kv_end + BM - 1) / BM;
-  const auto load_kv = [&](int jt) {
-    const int t0 = jt * BM, st = jt & 1;
-    const size_t kofs = ((size_t)b * Tn + t0) * row_k + (size_t)kh * HD;
-    load_tile<HD>(Ks + st * G::TILE, k + kofs, row_k, min(BM, Tn - t0));
-    load_tile<HD>(Vs + st * G::TILE, v + kofs, row_k, min(BM, Tn - t0));
-  };
-
-  load_tile<HD>(Qs, q + ((size_t)b * S + q0) * row_q + (size_t)h * HD, row_q,
-                rows);
-  load_kv(0);
-  cp_commit();
-  // D = rowsum(dO o) in float32, two threads a row, each over half of hd
-  // in order, then their sum; dO rounded to bf16 for the products
-  {
-    const int r = tid / 2, c0 = tid % 2 * (HD / 2);
-    float acc = 0.f;
-    if (r < rows) {
-      const size_t off =
-          ((size_t)b * S + q0 + r) * row_q + (size_t)h * HD + c0;
-      for (int c = 0; c < HD / 2; c += 4) {
-        const float4 g = *reinterpret_cast<const float4*>(dout + off + c);
-        const float4 y = *reinterpret_cast<const float4*>(o + off + c);
-        acc = fmaf(g.x, y.x, acc);
-        acc = fmaf(g.y, y.y, acc);
-        acc = fmaf(g.z, y.z, acc);
-        acc = fmaf(g.w, y.w, acc);
-        const uint2 pk = make_uint2(pack(g.x, g.y), pack(g.z, g.w));
-        *reinterpret_cast<uint2*>(dOs + r * LD + c0 + c) = pk;
-        *reinterpret_cast<uint2*>(dob + off + c) = pk;
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return rows() + ST * G::ROWS + 8u * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const { return full(ST + s); }
+  __device__ __forceinline__ uint32_t res_full() const { return full(2 * ST); }
+  __device__ __forceinline__ uint32_t res_empty() const {
+    return full(2 * ST + 1);
+  }
+  __device__ void init(int tid) const {
+    constexpr int consumer_warps = 4 * NWG;
+    if (tid == 0) {
+      for (int s = 0; s < ST; ++s) {
+        mbar_init(full(s), 1);  // the producer's expect_tx arrival
+        mbar_init(empty(s), consumer_warps);
       }
-    } else {
-      for (int c = 0; c < HD / 2; c += 4)
-        *reinterpret_cast<uint2*>(dOs + r * LD + c0 + c) = make_uint2(0u, 0u);
+      mbar_init(res_full(), 1);
+      mbar_init(res_empty(), consumer_warps);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (tid % 2 == 0) {
-      const bool in = r < rows;
-      del_s[r] = in ? acc : 0.f;
-      lse_s[r] = in ? lse[((size_t)b * H + h) * S + q0 + r] : inf();
-      if (in) delta[((size_t)b * H + h) * S + q0 + r] = acc;
-    }
+    __syncthreads();
   }
-  cp_wait_all();
-  __syncthreads();
+};
 
-  const int g = lane / 4, t = lane % 4;
-  const int rw = warp * 16;  // the warp's first row in the block
-  float lse_r[2], del_r[2];
+// two floats at a shared-memory address
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// the i-th tile of CTA c of `grid`: the static longest-first list dealt
+// out in a snake (c in even rounds, grid - 1 - c in odd ones), so each
+// CTA's sum of work stays near the mean; -1 past the list
+__device__ __forceinline__ int tile_of(int c, int i, int grid, int n_tiles) {
+  const int t = i * grid + ((i & 1) ? grid - 1 - c : c);
+  return t < n_tiles ? t : -1;
+}
+
+// this warp is done with what the barrier guards
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// k-step kk (16 head dims) of a K-major operand: rows `row0`.. of a tile
+// of `rows` rows at `tile`
+template <class G>
+__device__ __forceinline__ uint64_t kstep(uint32_t tile, int rows, int row0,
+                                          int kk) {
+  return desc_k<G::SW>(tile + (kk * 16) / G::PC * rows * G::SW +
+                       row0 * G::SW + (kk * 16) % G::PC * 2);
+}
+
+// d = A.B^T over hd: A rows row0.. of the `rows`-row tile at `ta`, B the
+// 64-row streamed tile at `tb`, both K-major; issued, not committed
+template <class G, int HD>
+__device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t ta,
+                                         int rows, int row0, uint32_t tb) {
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    lse_r[e] = lse_s[rw + g + 8 * e];
-    del_r[e] = del_s[rw + g + 8 * e];
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(d, kstep<G>(ta, rows, row0, kk), kstep<G>(tb, BM, 0, kk),
+             kk > 0);
+}
+
+// d += A.B over 64 rows of B: A 64 x 64 bf16 pairs in registers (pairs
+// 4 kk .. 4 kk + 3 the fragment of k-step kk), B the 64-row streamed tile
+// at `tb`, MN-major; issued, not committed
+template <class G, int N>
+__device__ __forceinline__ void issue_nn(float (&d)[N], const uint32_t (&a)[16],
+                                         uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < BM / 16; ++kk)
+    wgmma_rs(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+             desc_mn<G::SW>(tb + kk * 16 * G::SW, BM * G::SW));
+}
+
+// (p) D = rowsum(dO o) and bf16(dO); lse and D into padded rows.  HD / 4
+// lanes a row, each over 4 head dims, then a butterfly over the lanes.
+// Rows are (b, h, s) with s < S_pad; s >= S writes the padding.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    flash_bwd_prep_kernel(const float* __restrict__ o,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ dob, float* __restrict__ rows,
+                          int B, int S, int H, int S_pad) {
+  constexpr int L = HD / 4;
+  const int part = threadIdx.x % L;
+  const long long total = (long long)B * H * S_pad;
+  const long long vr =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  const int s = (int)(vr % S_pad);
+  const long long bh = vr / S_pad;  // b * H + h
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  const bool in = vr < total && s < S;
+  float acc = 0.f;
+  if (in) {
+    const size_t off = (((size_t)b * S + s) * H + h) * HD + part * 4;
+    const float4 g = *reinterpret_cast<const float4*>(dout + off);
+    const float4 y = *reinterpret_cast<const float4*>(o + off);
+    acc = fmaf(g.x, y.x, acc);
+    acc = fmaf(g.y, y.y, acc);
+    acc = fmaf(g.z, y.z, acc);
+    acc = fmaf(g.w, y.w, acc);
+    *reinterpret_cast<uint2*>(dob + off) =
+        make_uint2(pack(g.x, g.y), pack(g.z, g.w));
   }
-  uint32_t qf[HD / 16][4], df[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    frag_a<HD>(Qs, rw, kk * 16, lane, qf[kk]);
-    frag_a<HD>(dOs, rw, kk * 16, lane, df[kk]);
-  }
-  const float sl2 = scale * kLog2e;
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int t0 = jt * BM;
-    const bf16* Kt = Ks + (jt & 1) * G::TILE;
-    const bf16* Vt = Vs + (jt & 1) * G::TILE;
-    if (jt + 1 < n_tiles) {  // the other stage was freed by the last barrier
-      load_kv(jt + 1);
-      cp_commit();
-    }
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;  // key columns c0..c0+31 of the tile
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t bb[4];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          frag_b_nk<HD>(Kt, c0 + np * 16, kk * 16, lane, bb);
-          mma(s[2 * np], qf[kk], bb[0], bb[1]);
-          mma(s[2 * np + 1], qf[kk], bb[2], bb[3]);
-          frag_b_nk<HD>(Vt, c0 + np * 16, kk * 16, lane, bb);
-          mma(dp[2 * np], df[kk], bb[0], bb[1]);
-          mma(dp[2 * np + 1], df[kk], bb[2], bb[3]);
-        }
-      }
-      // dS = P (dP - D) in place of s; element (n, e): row rw + g + 8 (e/2),
-      // key t0 + c0 + 8 n + 2 t + e % 2
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = q0 + rw + g + 8 * (e / 2);
-          const int col = t0 + c0 + 8 * n + 2 * t + e % 2;
-          const bool ok = col < Tn && (!causal || col <= row);
-          const float p = ok ? exp2f(fmaf(s[n][e], sl2, -lse_r[e / 2])) : 0.f;
-          s[n][e] = p * (dp[n][e] - del_r[e / 2]);
-        }
-      // dQ += dS . K[c0 .. c0 + 31]
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const uint32_t a[4] = {pack(s[2 * ks][0], s[2 * ks][1]),
-                               pack(s[2 * ks][2], s[2 * ks][3]),
-                               pack(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                               pack(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-#pragma unroll
-        for (int n0 = 0; n0 < HD; n0 += 16) {
-          uint32_t bb[4];
-          frag_b_kn<HD>(Kt, c0 + ks * 16, n0, lane, bb);
-          mma(acc[n0 / 8], a, bb[0], bb[1]);
-          mma(acc[n0 / 8 + 1], a, bb[2], bb[3]);
-        }
-      }
-    }
-    cp_wait_all();
-    __syncthreads();  // the next stage has landed; this one is free
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = rw + g + 8 * e;
-    if (r >= rows) continue;
-    float* dst = dq + ((size_t)b * S + q0 + r) * row_q + (size_t)h * HD;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * e] * scale, acc[n][2 * e + 1] * scale);
+  for (int m = L / 2; m >= 1; m /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0 && vr < total) {
+    rows[bh * S_pad + s] = in ? lse[bh * S + s] : inf();
+    rows[total + bh * S_pad + s] = in ? acc : 0.f;
   }
 }
 
-// (a) dK and dV.  Grid (key blocks, KH, B); reads D and bf16(dO) from (b).
-// The (query head, q block) steps stream Q, bf16(dO), lse and D through
-// two shared-memory stages, step i + 1 loading by cp.async while step i's
-// products run.
-template <int HD>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const bf16* __restrict__ dob,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int S, int Tn, int H, int KH, int causal,
-                              float scale) {
-  using G = Geo<HD>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + G::TILE;
-  bf16* Qs = Vs + G::TILE;      // two stages of Q, then two of dO
-  bf16* dOs = Qs + 2 * G::TILE;
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * G::TILE);  // two stages
-  float* del_s = lse_s + 2 * BM;
+// (a) dK and dV.  Tiles: key blocks of RES keys x kv heads x batch, key
+// block outermost (longest first).  Steps of a tile: (query head gi, q
+// block) for the q blocks from the diagonal on, q blocks innermost.
+template <int HD, int ST>
+__global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap trows,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int B, int S, int Tn,
+                                int H, int KH, int causal, float scale) {
+  using G = Geo<HD, ST>;
+  constexpr int SW = G::SW, PC = G::PC, NP = G::NP, RES = G::RES;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  const Smem<G, ST> sm(bwd_smem);
+  const int tid = threadIdx.x;
+  sm.init(tid);
 
-  const int kb = blockIdx.x;  // heaviest causal first: block 0 sees all q
-  const int kh = blockIdx.y, b = blockIdx.z;
   const int GH = H / KH;
-  const int t0 = kb * BM;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rw = warp * 16;
-  const size_t row_q = (size_t)H * HD, row_k = (size_t)KH * HD;
-  const int krows = min(BM, Tn - t0);
-  const float sl2 = scale * kLog2e;
-  // steps i = (query head gi, q block qt_begin + it), q blocks innermost
-  const int qt_begin = causal ? t0 / BM : 0;
-  const int n_qt = (S + BM - 1) / BM - qt_begin;
-  const int n_steps = n_qt > 0 ? GH * n_qt : 0;
-  const auto load_step = [&](int i) {
-    const int st = i & 1;
-    const int h = kh * GH + i / n_qt;
-    const int q0 = (qt_begin + i % n_qt) * BM;
-    const int rows = min(BM, S - q0);
-    const size_t qofs = ((size_t)b * S + q0) * row_q + (size_t)h * HD;
-    load_tile<HD>(Qs + st * G::TILE, q + qofs, row_q, rows);
-    load_tile<HD>(dOs + st * G::TILE, dob + qofs, row_q, rows);
-    if (tid < BM) {
-      const bool in = tid < rows;
-      const size_t at = ((size_t)b * H + h) * S + q0 + (in ? tid : 0);
-      cp_async(saddr(lse_s + st * BM + tid), lse + at, 4, in);
-      cp_async(saddr(del_s + st * BM + tid), delta + at, 4, in);
+  const int n_qb = (S + BM - 1) / BM;
+  const int n_tiles = (Tn + RES - 1) / RES * KH * B;
+
+  if (tid >= 128 * NWG) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 128 * NWG) {
+      int it = 0, nt = 0;
+      for (int i = 0, t; (t = tile_of(blockIdx.x, i, gridDim.x, n_tiles)) >= 0;
+           ++i) {
+        const int kb = t / (KH * B), kh = t % KH, b = t / KH % B;
+        const int q_first = causal ? kb * RES / BM * BM : 0;
+        if (q_first >= S) continue;
+        mbar_wait(sm.res_empty(), (nt++ & 1) ^ 1);
+        mbar_expect_tx(sm.res_full(), 2 * G::RES_TILE);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(sm.r0 + p * RES * SW, &tk, sm.res_full(), p * PC, kh,
+                   kb * RES, b);
+          tma_load(sm.r1() + p * RES * SW, &tv, sm.res_full(), p * PC, kh,
+                   kb * RES, b);
+        }
+        for (int h = kh * GH; h < kh * GH + GH; ++h)
+          for (int q0 = q_first; q0 < S; q0 += BM, ++it) {
+            const int s = it % ST;
+            mbar_wait(sm.empty(s), ((it / ST) & 1) ^ 1);  // 1st pass: free
+            mbar_expect_tx(sm.full(s), 2 * G::TILE + G::ROWS);
+            for (int p = 0; p < NP; ++p) {
+              tma_load(sm.a() + s * G::TILE + p * BM * SW, &tq, sm.full(s),
+                       p * PC, h, q0, b);
+              tma_load(sm.b() + s * G::TILE + p * BM * SW, &tdo, sm.full(s),
+                       p * PC, h, q0, b);
+            }
+            // lse and D of the rows: (q0.., b H + h, 0..1) of the rows map
+            tma_load3(sm.rows() + s * G::ROWS, &trows, sm.full(s), q0,
+                      b * H + h, 0);
+          }
+      }
     }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each tile; a
+  // thread holds accumulator rows (keys) r0 and r0 + 8, columns 8 j + cq
+  // and + 1 (element 4 j + 2 r + e: row r0 + 8 r, column 8 j + cq + e).
+  // Software-pipelined: step i's dK product is left in flight while step
+  // i + 1's S^T is issued; step i's stage is released once that product
+  // is done.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const float sl2 = scale * kLog2e;
+  float adk[HD / 2], adv[HD / 2], st[32], dpt[32];
+  uint32_t pa[16];  // P^T, then dS^T, as bf16 pairs
+  int it = 0, nt = 0;
+  for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
+       ++ti) {
+    const int kb = t / (KH * B), kh = t % KH, b = t / KH % B;
+    const int k0 = kb * RES, kw0 = k0 + 64 * wg;
+    const int qlo = causal ? min(k0 / BM, n_qb) : 0;
+    const int nq = n_qb - qlo;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+    if (nq > 0) {
+      mbar_wait(sm.res_full(), nt & 1);
+      ++nt;
+      int held = -1;  // the stage the dK product in flight reads
+      for (int i = 0; i < nq * GH; ++i, ++it) {
+        const int q0 = (qlo + i % nq) * BM;
+        const int s = it % ST;
+        mbar_wait(sm.full(s), (it / ST) & 1);
+        if (kw0 >= Tn || (causal && kw0 > q0 + BM - 1)) {
+          // no pair of this warpgroup's: free the stage, and the one the
+          // product in flight reads (the next live step may reuse it)
+          if (held >= 0) {
+            wg_wait<0>();
+            reg_fence(adk);
+            release(sm.empty(held), lane);
+            held = -1;
+          }
+          release(sm.empty(s), lane);
+          continue;
+        }
+        const uint32_t qs = sm.a() + s * G::TILE, dos = sm.b() + s * G::TILE;
+        const uint32_t kres = opaque(sm.r0), vres = opaque(sm.r1());
+        const uint32_t lse_s = sm.rows() + s * G::ROWS;  // shared addresses
+        const uint32_t del_s = lse_s + BM * 4;
+        reg_fence(st);
+        reg_fence(dpt);
+        wg_fence();
+        issue_nt<G, HD>(st, kres, RES, 64 * wg, qs);   // S^T = K.Q^T
+        wg_commit();
+        wg_wait<0>();  // the last dK product and S^T are in
+        reg_fence(st);
+        reg_fence(adk);
+        reg_fence(pa);
+        if (held >= 0) release(sm.empty(held), lane);
+        const bool edge = (causal && kw0 + 63 > q0) || kw0 + 64 > Tn ||
+                          q0 + BM > S;
+        float2 l;  // the lse of columns 8 j + cq, + 1
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e >> 2) + cq + (e & 1);  // query q0 + col
+          if ((e & 3) == 0) l = lds2(lse_s + 4 * (col - (e & 1)));
+          float p = ex2(fmaf(st[e], sl2, -((e & 1) ? l.y : l.x)));
+          if (edge) {
+            const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr = q0 + col;
+            if (key >= Tn || qr >= S || (causal && key > qr)) p = 0.f;
+          }
+          st[e] = p;
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) pa[j] = pack(st[2 * j], st[2 * j + 1]);
+        reg_fence(pa);
+        reg_fence(adv);
+        wg_fence();
+        // dV += P^T.dO, then dP^T = V.dO^T (issued only now: live beside
+        // P^T's registers, its 32 accumulators would spill at hd 128)
+        issue_nn<G>(adv, pa, dos);
+        wg_commit();
+        issue_nt<G, HD>(dpt, vres, RES, 64 * wg, dos);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(adv);
+        reg_fence(pa);
+        reg_fence(dpt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d = lds2(del_s + 8 * 4 * j + 4 * cq);
+#pragma unroll
+          for (int e = 4 * j; e < 4 * j + 4; ++e)
+            dpt[e] = st[e] * (dpt[e] - ((e & 1) ? d.y : d.x));
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) pa[j] = pack(dpt[2 * j], dpt[2 * j + 1]);
+        reg_fence(pa);
+        reg_fence(adk);
+        wg_fence();
+        issue_nn<G>(adk, pa, qs);  // dK += dS^T.Q, left in flight
+        wg_commit();
+        held = s;
+      }
+      wg_wait<0>();
+      reg_fence(adk);
+      if (held >= 0) release(sm.empty(held), lane);
+      release(sm.res_empty(), lane);
+    }
+    // dK = scale acc, dV = acc, keys past T dropped
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw0 + r0 + 8 * r;
+      if (key >= Tn) continue;
+      const size_t off = (((size_t)b * Tn + key) * KH + kh) * HD + cq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(dk + off + 8 * j) = make_float2(
+            adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(dv + off + 8 * j) =
+            make_float2(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// (b) dQ.  Tiles: q blocks of RES rows x heads x batch, q block outermost
+// in descending order (longest first).  Steps: the key blocks of 64 from
+// 0 to the diagonal (causal) or to T.
+template <int HD, int ST>
+__global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ rows,
+                              float* __restrict__ dq, int B, int S, int Tn,
+                              int H, int KH, int S_pad, int causal,
+                              float scale) {
+  using G = Geo<HD, ST>;
+  constexpr int SW = G::SW, PC = G::PC, NP = G::NP, RES = G::RES;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  const Smem<G, ST> sm(bwd_smem);
+  const int tid = threadIdx.x;
+  sm.init(tid);
+
+  const int GH = H / KH;
+  const int n_rb = (S + RES - 1) / RES;
+  const int n_tiles = n_rb * H * B;
+  // key blocks of the tile whose rows start at q0
+  const auto n_kv = [&](int q0) {
+    const int end = causal ? min(q0 + RES, Tn) : Tn;
+    return (end + BM - 1) / BM;
   };
 
-  const size_t kofs = ((size_t)b * Tn + t0) * row_k + (size_t)kh * HD;
-  load_tile<HD>(Ks, k + kofs, row_k, krows);
-  load_tile<HD>(Vs, v + kofs, row_k, krows);
-  if (n_steps > 0) load_step(0);
-  cp_commit();
-  cp_wait_all();
-  __syncthreads();
-
-  float ak[HD / 8][4], av[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
-
-#pragma unroll 1
-  for (int i = 0; i < n_steps; ++i) {
-    const int q0 = (qt_begin + i % n_qt) * BM;
-    const bf16* Qt = Qs + (i & 1) * G::TILE;
-    const bf16* dOt = dOs + (i & 1) * G::TILE;
-    const float* lse_t = lse_s + (i & 1) * BM;
-    const float* del_t = del_s + (i & 1) * BM;
-    if (i + 1 < n_steps) {  // the other stage was freed by the last barrier
-      load_step(i + 1);
-      cp_commit();
-    }
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;  // q columns c0..c0+31 of the block
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 keys
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        uint32_t a[4], bb[4];
-        frag_a<HD>(Ks, rw, kk, lane, a);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          frag_b_nk<HD>(Qt, c0 + np * 16, kk, lane, bb);
-          mma(s[2 * np], a, bb[0], bb[1]);
-          mma(s[2 * np + 1], a, bb[2], bb[3]);
+  if (tid >= 128 * NWG) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 128 * NWG) {
+      int it = 0, nt = 0;
+      for (int i = 0, t; (t = tile_of(blockIdx.x, i, gridDim.x, n_tiles)) >= 0;
+           ++i, ++nt) {
+        const int q0 = (n_rb - 1 - t / (H * B)) * RES;
+        const int h = t % H, b = t / H % B, kh = h / GH;
+        mbar_wait(sm.res_empty(), (nt & 1) ^ 1);
+        mbar_expect_tx(sm.res_full(), 2 * G::RES_TILE);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(sm.r0 + p * RES * SW, &tq, sm.res_full(), p * PC, h, q0, b);
+          tma_load(sm.r1() + p * RES * SW, &tdo, sm.res_full(), p * PC, h, q0,
+                   b);
         }
-        frag_a<HD>(Vs, rw, kk, lane, a);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          frag_b_nk<HD>(dOt, c0 + np * 16, kk, lane, bb);
-          mma(dp[2 * np], a, bb[0], bb[1]);
-          mma(dp[2 * np + 1], a, bb[2], bb[3]);
-        }
-      }
-      // P^T into s, dS^T into dp; element (n, e): key t0 + rw + g +
-      // 8 (e/2), query q0 + c0 + 8 n + 2 t + e % 2
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t0 + rw + g + 8 * (e / 2);
-          const int qc = c0 + 8 * n + 2 * t + e % 2;
-          const bool ok = key < Tn && q0 + qc < S &&
-                          (!causal || key <= q0 + qc);
-          const float p = ok ? exp2f(fmaf(s[n][e], sl2, -lse_t[qc])) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - del_t[qc]);
-        }
-      // dV += P^T . dO[c0 .. c0 + 31], dK += dS^T . Q[c0 .. c0 + 31]
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const uint32_t ap[4] = {pack(s[2 * ks][0], s[2 * ks][1]),
-                                pack(s[2 * ks][2], s[2 * ks][3]),
-                                pack(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                                pack(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-        const uint32_t ad[4] = {pack(dp[2 * ks][0], dp[2 * ks][1]),
-                                pack(dp[2 * ks][2], dp[2 * ks][3]),
-                                pack(dp[2 * ks + 1][0], dp[2 * ks + 1][1]),
-                                pack(dp[2 * ks + 1][2], dp[2 * ks + 1][3])};
-#pragma unroll
-        for (int n0 = 0; n0 < HD; n0 += 16) {
-          uint32_t bb[4];
-          frag_b_kn<HD>(dOt, c0 + ks * 16, n0, lane, bb);
-          mma(av[n0 / 8], ap, bb[0], bb[1]);
-          mma(av[n0 / 8 + 1], ap, bb[2], bb[3]);
-          frag_b_kn<HD>(Qt, c0 + ks * 16, n0, lane, bb);
-          mma(ak[n0 / 8], ad, bb[0], bb[1]);
-          mma(ak[n0 / 8 + 1], ad, bb[2], bb[3]);
+        const int nk = n_kv(q0);
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int s = it % ST;
+          mbar_wait(sm.empty(s), ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(sm.full(s), 2 * G::TILE);
+          for (int p = 0; p < NP; ++p) {
+            tma_load(sm.a() + s * G::TILE + p * BM * SW, &tk, sm.full(s),
+                     p * PC, kh, j * BM, b);
+            tma_load(sm.b() + s * G::TILE + p * BM * SW, &tv, sm.full(s),
+                     p * PC, kh, j * BM, b);
+          }
         }
       }
     }
-    cp_wait_all();
-    __syncthreads();  // the next stage has landed; this one is free
+    return;
   }
 
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; a thread holds
+  // rows r0, r0 + 8 of them (accumulator layout as in (a)).  Pipelined as
+  // (a): step j's dQ product runs while step j + 1's S and dP are issued.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const float sl2 = scale * kLog2e;
+  const size_t plane = (size_t)B * H * S_pad;
+  float adq[HD / 2], sc[32], dp[32];
+  uint32_t da[16];
+  int it = 0, nt = 0;
+  for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
+       ++ti, ++nt) {
+    const int q0 = (n_rb - 1 - t / (H * B)) * RES, qw0 = q0 + 64 * wg;
+    const int h = t % H, b = t / H % B;
+    // the rows' lse and D (padded: rows past S read +inf and 0)
+    float lse_r[2], del_r[2];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = rw + g + 8 * e;
-    if (r >= krows) continue;
-    const size_t off = ((size_t)b * Tn + t0 + r) * row_k + (size_t)kh * HD;
+    for (int r = 0; r < 2; ++r) {
+      const size_t at = ((size_t)b * H + h) * S_pad + qw0 + r0 + 8 * r;
+      lse_r[r] = rows[at];
+      del_r[r] = rows[plane + at];
+    }
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + 8 * n + 2 * t) =
-          make_float2(ak[n][2 * e] * scale, ak[n][2 * e + 1] * scale);
-      *reinterpret_cast<float2*>(dv + off + 8 * n + 2 * t) =
-          make_float2(av[n][2 * e], av[n][2 * e + 1]);
+    for (int i = 0; i < HD / 2; ++i) adq[i] = 0.f;
+    mbar_wait(sm.res_full(), nt & 1);
+    const int nk = n_kv(q0);
+    int held = -1;  // the stage the dQ product in flight reads
+    for (int j = 0; j < nk; ++j, ++it) {
+      const int t0 = j * BM;
+      const int s = it % ST;
+      mbar_wait(sm.full(s), (it / ST) & 1);
+      if (qw0 >= S || (causal && t0 > qw0 + 63)) {
+        if (held >= 0) {  // as in (a)
+          wg_wait<0>();
+          reg_fence(adq);
+          release(sm.empty(held), lane);
+          held = -1;
+        }
+        release(sm.empty(s), lane);
+        continue;
+      }
+      const uint32_t ks = sm.a() + s * G::TILE, vs = sm.b() + s * G::TILE;
+      const uint32_t qres = opaque(sm.r0), dores = opaque(sm.r1());
+      reg_fence(sc);
+      reg_fence(dp);
+      wg_fence();
+      issue_nt<G, HD>(sc, qres, RES, 64 * wg, ks);  // S = Q.K^T
+      wg_commit();
+      issue_nt<G, HD>(dp, dores, RES, 64 * wg, vs);  // dP = dO.V^T
+      wg_commit();
+      wg_wait<1>();  // the last dQ product and S are in
+      reg_fence(sc);
+      reg_fence(adq);
+      reg_fence(da);
+      if (held >= 0) release(sm.empty(held), lane);
+      const bool edge = (causal && t0 + 63 > qw0) || t0 + BM > Tn ||
+                        qw0 + 64 > S;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int rr = (e >> 1) & 1;
+        float p = ex2(fmaf(sc[e], sl2, -lse_r[rr]));
+        if (edge) {
+          const int key = t0 + 8 * (e >> 2) + cq + (e & 1);
+          const int row = qw0 + r0 + 8 * rr;
+          if (key >= Tn || row >= S || (causal && key > row)) p = 0.f;
+        }
+        sc[e] = p;
+      }
+      wg_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - del_r[(e >> 1) & 1]);
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) da[jj] = pack(dp[2 * jj], dp[2 * jj + 1]);
+      reg_fence(da);
+      reg_fence(adq);
+      wg_fence();
+      issue_nn<G>(adq, da, ks);  // dQ += dS.K, left in flight
+      wg_commit();
+      held = s;
+    }
+    wg_wait<0>();
+    reg_fence(adq);
+    if (held >= 0) release(sm.empty(held), lane);
+    release(sm.res_empty(), lane);
+    // dQ = scale acc, rows past S dropped
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw0 + r0 + 8 * r;
+      if (row >= S) continue;
+      float* dst = dq + (((size_t)b * S + row) * H + h) * HD + cq;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj)
+        *reinterpret_cast<float2*>(dst + 8 * jj) = make_float2(
+            adq[4 * jj + 2 * r] * scale, adq[4 * jj + 2 * r + 1] * scale);
     }
   }
+}
+
+// persistent grid of `kernel`: min(tiles, SMs x CTAs an SM).  The kernel
+// must have been given 168 registers a thread, or the consumers'
+// setmaxnreg.inc would wait for registers that never come: refused rather
+// than launched.
+template <class G, typename K>
+int persistent_grid(K kernel, int tiles, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (attr.numRegs != 168) return (int)cudaErrorInvalidConfiguration;
+  const int threads = G::NT, smem = G::SMEM;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  return 0;
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* delta, void* dob, int B, int S, int Tn, int H, int KH,
+           void* rows, void* dob, int B, int S, int Tn, int H, int KH,
            int causal, float scale, cudaStream_t st) {
-  const int smem = Geo<HD>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+  using GA = GeoA<HD>;
+  using GB = GeoB<HD>;
+  constexpr int SW = GA::SW;
+  const int S_pad = (S + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  const long long prep_threads = (long long)B * H * S_pad * (HD / 4);
+  flash_bwd_prep_kernel<HD><<<(unsigned)((prep_threads + 255) / 256), 256, 0,
+                              st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<bf16*>(dob),
+      static_cast<float*>(rows), B, S, H, S_pad);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_mma_kernel<HD><<<dim3((S + BM - 1) / BM, H, B), NT, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(dq), static_cast<float*>(delta),
-      static_cast<bf16*>(dob), S, Tn, H, KH, causal, scale);
+
+  CUtensorMap qa, ka, va, da, qb, kb, vb, db;
+  if (!encode_map<HD, SW>(&qa, q, B, S, H, BM) ||
+      !encode_map<HD, SW>(&da, dob, B, S, H, BM) ||
+      !encode_map<HD, SW>(&ka, k, B, Tn, KH, GA::RES) ||
+      !encode_map<HD, SW>(&va, v, B, Tn, KH, GA::RES) ||
+      !encode_map<HD, SW>(&qb, q, B, S, H, GB::RES) ||
+      !encode_map<HD, SW>(&db, dob, B, S, H, GB::RES) ||
+      !encode_map<HD, SW>(&kb, k, B, Tn, KH, BM) ||
+      !encode_map<HD, SW>(&vb, v, B, Tn, KH, BM))
+    return (int)cudaErrorInvalidValue;
+  const float* r = static_cast<const float*>(rows);
+  // the rows as (S_pad, B H, 2): a box is one q block's lse and D
+  CUtensorMap ra;
+  if (!encode_map_f32(&ra, rows, S_pad, B * H, 2, BM, 1, 2))
+    return (int)cudaErrorInvalidValue;
+
+  const auto ka_fn = flash_bwd_dkdv_wgmma_kernel<HD, DKDV_STAGES>;
+  const auto kb_fn = flash_bwd_dq_wgmma_kernel<HD, DQ_STAGES>;
+  int grid = 0;
+  int rc = persistent_grid<GA>(ka_fn, (Tn + GA::RES - 1) / GA::RES * KH * B,
+                               &grid);
+  if (rc != 0) return rc;
+  ka_fn<<<grid, GA::NT, GA::SMEM, st>>>(
+      qa, ka, va, da, ra, static_cast<float*>(dk), static_cast<float*>(dv), B,
+      S, Tn, H, KH, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_mma_kernel<HD>
-      <<<dim3((Tn + BM - 1) / BM, KH, B), NT, smem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dob),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<float*>(dk), static_cast<float*>(dv), S, Tn, H, KH,
-          causal, scale);
+  rc = persistent_grid<GB>(kb_fn, (S + GB::RES - 1) / GB::RES * H * B, &grid);
+  if (rc != 0) return rc;
+  kb_fn<<<grid, GB::NT, GB::SMEM, st>>>(qb, kb, vb, db, r,
+                                        static_cast<float*>(dq), B, S, Tn, H,
+                                        KH, S_pad, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -845,22 +1030,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// dynamic shared memory of the instances for (hd, input type), bytes
+// dynamic shared memory of the instances for (hd, input type), bytes (for
+// bf16 the larger of the dK/dV and dQ kernels')
 int repro_flash_attention_bwd_smem(int hd, int is_bf16) {
   switch (hd) {
-    case 16: return is_bf16 ? tc::Geo<16>::SMEM : simt::Geo<16>::SMEM;
-    case 32: return is_bf16 ? tc::Geo<32>::SMEM : simt::Geo<32>::SMEM;
-    case 64: return is_bf16 ? tc::Geo<64>::SMEM : simt::Geo<64>::SMEM;
-    case 128: return is_bf16 ? tc::Geo<128>::SMEM : simt::Geo<128>::SMEM;
+    case 16: return is_bf16 ? tc::smem_bytes<16>() : simt::Geo<16>::SMEM;
+    case 32: return is_bf16 ? tc::smem_bytes<32>() : simt::Geo<32>::SMEM;
+    case 64: return is_bf16 ? tc::smem_bytes<64>() : simt::Geo<64>::SMEM;
+    case 128: return is_bf16 ? tc::smem_bytes<128>() : simt::Geo<128>::SMEM;
     default: return 0;
   }
 }
 
 // q (B,S,H,hd), k/v (B,T,KH,hd) contiguous, f32 (is_bf16 = 0) or bf16;
 // o, dout (B,S,H,hd) and lse (B,H,S) float32 from the forward; outputs dq
-// (B,S,H,hd), dk/dv (B,T,KH,hd) float32; scratch delta (B,H,S) float32
-// and, for bf16, dob (B,S,H,hd) bf16.  All 16-byte aligned.  Launches (b)
-// then (a) on `stream`.  Returns a cudaError_t.
+// (B,S,H,hd), dk/dv (B,T,KH,hd) float32; scratch delta, float32: (B,H,S)
+// for float32 inputs, 2 x (B,H,S_pad) for bf16 (lse, then D, with S_pad =
+// S rounded up to a multiple of 128), and for bf16 dob (B,S,H,hd) bf16.
+// All 16-byte aligned.  Launches on `stream` (f32: (b) then (a); bf16:
+// (p), (a), (b)).  Returns a cudaError_t.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dq, void* dk, void* dv,

@@ -42,6 +42,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "attention_bwd.cu"
 NVCC_FLAGS = COMMON_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)
+BWD_ROW_PAD = 128    # tc::ROW_PAD in attention_bwd.cu
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -214,9 +215,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     is_bf16 = q.dtype == torch.bfloat16
-    delta = torch.empty((B, H, S), dtype=f32, device=dev)
-    dob = torch.empty((B, S, H, hd), dtype=torch.bfloat16,
-                      device=dev) if is_bf16 else None
+    # scratch: D (B,H,S) for f32; for bf16 lse and D with rows padded to
+    # a multiple of BWD_ROW_PAD, and dO rounded to bf16
+    if is_bf16:
+        delta = torch.empty((2, B, H, -(-S // BWD_ROW_PAD) * BWD_ROW_PAD),
+                            dtype=f32, device=dev)
+        dob = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
+    else:
+        delta, dob = torch.empty((B, H, S), dtype=f32, device=dev), None
     lib = _LIBRARY_BWD.lib()
     with torch.cuda.device(dev):
         rc = lib.repro_flash_attention_bwd(

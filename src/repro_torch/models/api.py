@@ -92,16 +92,16 @@ class Model:
     def param_shapes(self) -> dict:
         return self._defs(ll.shape_creator())
 
-    def init_params(self, generator: torch.Generator, device="cuda",
-                    param_dtype=None) -> dict:
+    def init_params(self, generator: torch.Generator,
+                    param_dtype=torch.float32, *, device="cuda") -> dict:
         """Random weights from ``generator`` (which must live on
-        ``device``'s type); matrices in ``param_dtype`` (default: the
+        ``device``'s type); matrices in ``param_dtype`` (float32 master
+        weights by default, as the reference's; serving passes the
         compute dtype), norm weights float32."""
         dev = resolve_device(device)
-        pdt = param_dtype or self.compute_dtype
-        mats = self._defs(ll.init_creator(generator, dev, pdt))
+        mats = self._defs(ll.init_creator(generator, dev, param_dtype))
         return _map_tree(mats, lambda path, t: t.to(
-            _leaf_dtype(path, pdt)))
+            _leaf_dtype(path, param_dtype)))
 
     # ---------------- training -------------------------------------------
     def loss(self, params, batch, *, remat_policy=None):
@@ -153,7 +153,7 @@ class Model:
         return ({"k": kv.k, "v": kv.v},
                 {"k": kv_axes, "v": kv_axes})
 
-    def init_cache(self, batch: int, max_seq: int, device="cuda"):
+    def init_cache(self, batch: int, max_seq: int, *, device="cuda"):
         dev = resolve_device(device)
         spec, _ = self.cache_spec(batch, max_seq)
         return {n: torch.zeros(shape, dtype=dt, device=dev)

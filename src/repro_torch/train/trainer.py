@@ -43,8 +43,8 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = model.init_params(gen, device=self.device,
-                                   param_dtype=tcfg.param_dtype)
+        params = model.init_params(gen, tcfg.param_dtype,
+                                   device=self.device)
         opt = init_opt_state(tcfg.train.opt.name, params)
         self.state = {"params": params, "opt": opt,
                       "step": torch.zeros((), dtype=torch.int32,

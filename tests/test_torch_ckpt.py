@@ -73,6 +73,36 @@ def test_ckpt_crash_mid_write_is_invisible(tmp_path):
     assert step == 5
 
 
+def test_nonblocking_save_snapshots_before_in_place_updates(tmp_path):
+    """A non-blocking save writes the state as it was at the call, even
+    when every leaf is then updated in place before the writer runs (the
+    train step updates its state in place).  The writer is held back on
+    the manager's lock until the updates are done, so the order is
+    forced, not raced."""
+    mgr = CheckpointManager(str(tmp_path))
+    state = {"w": torch.randn(64, 32), "h": torch.randn(8).to(torch.bfloat16),
+             "n": np.arange(6, dtype=np.float32),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    before = {k: (v.clone() if isinstance(v, torch.Tensor) else v.copy())
+              for k, v in state.items()}
+    with mgr._lock:
+        mgr.save(3, state)
+        state["w"].add_(1)
+        state["h"].add_(1)
+        state["n"] += 1
+        state["step"].add_(1)
+    mgr.wait()
+    got, step = mgr.restore({k: (v.clone() if isinstance(v, torch.Tensor)
+                                 else v.copy())
+                             for k, v in before.items()})
+    assert step == 3
+    for k, v in before.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+        else:
+            np.testing.assert_array_equal(got[k], v)
+
+
 def test_restore_follows_the_like_state_device_and_dtype(tmp_path):
     """Tensors come back on the like state's device and in its dtype
     (bf16 goes through float32 on disk, exactly); a non-tensor like leaf

@@ -257,6 +257,37 @@ def test_tile_staging_mirror(time_major, rows, tc):
         assert len(np.unique(sl % 32)) == sel.sum()
 
 
+_BWD = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                          AK.SOURCE_BWD.read_text())}
+
+
+def _bwd_smem_bytes(hd, nwg, stages):
+    """tc::Geo<HD, NWG, ST>::SMEM: 1024 bytes of alignment slack, two
+    resident tiles of 64 NWG rows, per stage two streamed 64-row tiles and
+    64 lse and 64 D floats, and the mbarriers."""
+    tile, res = 64 * hd * 2, 64 * nwg * hd * 2
+    return 1024 + 2 * res + stages * (2 * tile + 2 * 64 * 4) + 8 * (
+        2 * stages + 2)
+
+
+def _bwd_instance_smem(hd):
+    return max(_bwd_smem_bytes(hd, _BWD["NWG"], _BWD["DKDV_STAGES"]),
+               _bwd_smem_bytes(hd, _BWD["NWG"], _BWD["DQ_STAGES"]))
+
+
+@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+def test_bwd_shared_memory_fits_every_instance(hd):
+    """Both bf16 backward kernels fit a CTA's 232 448 bytes at every head
+    dim."""
+    assert _bwd_instance_smem(hd) <= SMEM_MAX == 232448
+
+
+def test_bwd_shared_memory_mirror_matches_the_library(cuda):
+    for hd in AK.HEAD_DIMS:
+        assert AK.shared_memory_bytes_bwd(hd, torch.bfloat16) == \
+            _bwd_instance_smem(hd)
+
+
 def test_fleet_shared_memory_fits_every_instance():
     """Each instantiated (W, CW, R) fits a CTA's shared memory, and the
     default config's CTA leaves room for several on an SM."""
@@ -504,7 +535,9 @@ def _rel_l2(a, b):
 
 # (shape (B,S,H,K,hd), T or None, dtype, causal, scale, rel L2 tolerance):
 # f32 at 1e-4 (the same arithmetic in another order), bf16 at 1e-2 (dO, P
-# and dS rounded to bf16 for the products, against float32)
+# and dS rounded to bf16 for the products, against float32).  The bf16
+# cases hold the tensor-core kernels at every head dim, GQA 1, 2 and 4,
+# S != T both ways, S and T off the 64-row blocks, causal or not.
 BWD_CASES = ([((2, 130, 4, 2, hd), None, torch.float32, c, None, 1e-4)
               for hd in (16, 32, 64, 128) for c in (True, False)]
              + [((1, 77, 4, 2, 32), 250, torch.float32, True, 0.2, 1e-4),
@@ -513,7 +546,17 @@ BWD_CASES = ([((2, 130, 4, 2, hd), None, torch.float32, c, None, 1e-4)
                 ((2, 1000, 16, 8, 128), None, torch.bfloat16, True, None,
                  1e-2),
                 ((1, 250, 8, 2, 128), 77, torch.bfloat16, False, 0.1, 1e-2),
-                ((1, 77, 4, 4, 16), 250, torch.bfloat16, True, None, 1e-2)])
+                ((1, 77, 4, 4, 16), 250, torch.bfloat16, True, None, 1e-2)]
+             + [((2, 130, 4, 2, hd), None, torch.bfloat16, c, None, 1e-2)
+                for hd in (16, 32, 64, 128) for c in (True, False)]
+             + [((1, 190, 4, 1, 128), 300, torch.bfloat16, True, None, 1e-2),
+                ((1, 300, 8, 8, 64), 190, torch.bfloat16, True, None, 1e-2),
+                ((2, 333, 4, 2, 128), 520, torch.bfloat16, False, None,
+                 1e-2),
+                ((2, 520, 4, 4, 32), 333, torch.bfloat16, True, 0.2, 1e-2),
+                ((1, 200, 8, 2, 16), 77, torch.bfloat16, False, None, 1e-2),
+                ((1, 100, 4, 4, 64), 700, torch.bfloat16, True, None,
+                 1e-2)])
 
 
 @pytest.mark.parametrize("shape,T,dtype,causal,scale,tol", BWD_CASES)
@@ -542,6 +585,37 @@ def test_flash_attention_bwd_kernel_matches_ref(cuda, shape, T, dtype,
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert bool(torch.isfinite(g).all())
         assert _rel_l2(g, w) <= tol
+
+
+@pytest.mark.parametrize("shape,T,causal", [
+    ((2, 1000, 16, 8, 128), None, True), ((1, 250, 8, 2, 64), 77, False),
+    ((1, 77, 4, 4, 16), 250, True)])
+def test_flash_attention_bwd_bf16_is_deterministic(cuda, shape, T, causal):
+    """No float atomics: two calls on the same inputs give equal bits."""
+    B, S, H, K_, hd = shape
+    q, k, v = _qkv(shape, 11, torch.bfloat16, cuda, T=T)
+    do = torch.randn((B, S, H, hd), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    o, lse = AK.flash_attention(q, k, v, causal=causal, return_lse=True)
+    first = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_kernels_do_not_spill(cuda):
+    """ptxas's report of the backward library: the tensor-core kernels
+    at hd 128 keep everything in registers."""
+    from pathlib import Path
+
+    from repro_torch.kernels._build import ptxas_report
+    rep = ptxas_report(Path(str(AK.build_bwd()) + ".log").read_text())
+    mine = [r for r in rep if "wgmma" in r["kernel"]
+            and r["kernel"].split("<")[1].startswith("128,")]
+    assert len(mine) == 2
+    for r in mine:
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 
 
 def test_flash_attention_fn_on_the_card(cuda):

@@ -220,7 +220,8 @@ def test_params_carry_across_unchanged():
 def test_init_params_shapes_and_dtypes():
     cfg = get_smoke_config(ARCH)
     m = build_model(cfg, torch.bfloat16)
-    p = m.init_params(torch.Generator().manual_seed(0), device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0), torch.bfloat16,
+                      device="cpu")
     assert tuple(p["blocks"]["mlp"]["w_gate"].shape) == (
         cfg.n_layers, cfg.d_model, cfg.d_ff)
     assert p["embed"].dtype == torch.bfloat16
@@ -229,8 +230,25 @@ def test_init_params_shapes_and_dtypes():
     w = p["blocks"]["attn"]["wq"].float()
     bound = 3.0 / cfg.d_model ** 0.5
     assert float(w.abs().max()) <= bound * 1.01
-    q = m.init_params(torch.Generator().manual_seed(0), device="cpu")
+    q = m.init_params(torch.Generator().manual_seed(0), torch.bfloat16,
+                      device="cpu")
     torch.testing.assert_close(q["embed"], p["embed"])
+
+
+def test_init_params_takes_the_reference_dtype_argument():
+    """``init_params(key, param_dtype=float32)`` as in the reference: a
+    positional dtype is the parameters' dtype, and with none the matrices
+    are float32 master weights whatever the compute dtype; the same
+    generator seed gives the same draws in either dtype."""
+    m = build_model(get_smoke_config(ARCH), torch.bfloat16)
+    f = m.init_params(torch.Generator().manual_seed(0), device="cpu")
+    b = m.init_params(torch.Generator().manual_seed(0), torch.bfloat16,
+                      device="cpu")
+    assert f["embed"].dtype == torch.float32
+    assert f["blocks"]["attn"]["wq"].dtype == torch.float32
+    assert b["embed"].dtype == torch.bfloat16
+    assert b["final_norm"]["w"].dtype == torch.float32
+    assert torch.equal(b["embed"], f["embed"].to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-7b",

@@ -161,7 +161,7 @@ def smoke_model():
     cfg = get_smoke_config("internlm2-1.8b")
     model = build_model(cfg, torch.float32)
     params = model.init_params(torch.Generator().manual_seed(0),
-                               device="cpu")
+                               torch.float32, device="cpu")
     return model, params
 
 

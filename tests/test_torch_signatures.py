@@ -1,15 +1,18 @@
 """The port keeps the JAX package's public names and signatures.
 
 For every public name of the port's ``workloads``, ``ft``, ``data``,
-``train`` and ``ckpt`` modules, and for the repaired ``models.attention``
-names, the port's ``inspect.signature`` must match the reference's: the
-same parameter names in the same order, of the same kinds, with the same
-defaults (a JAX dtype default matches the torch dtype of that name).
-The only difference allowed is a trailing keyword-only ``device`` on an
-entry point that builds a monitor service, monitor state or a trainer's
-state, or the port's ``impl`` last on ``attention``.  A class is held by
-its constructor and by each public method it defines; a constant by its
-value.
+``train``, ``ckpt`` and ``models.api`` modules, and for the repaired
+``models.attention`` names, the port's ``inspect.signature`` must match
+the reference's: the same parameter names in the same order, of the same
+kinds, with the same defaults (a JAX dtype default matches the torch
+dtype of that name).  The only differences allowed are a trailing
+keyword-only ``device`` on an entry point that builds a monitor service,
+monitor state, parameters, a cache or a trainer's state; the port's
+``impl`` last on ``attention`` and ``kernel_impl`` last on the model
+facade; a ``jax.random`` key taken as a ``torch.Generator`` named
+``generator``; and the names listed in ``PORT_ONLY`` and ``NOT_PORTED``.
+A class is held by its constructor and by each public method it defines;
+a constant by its value.
 """
 
 import dataclasses
@@ -23,13 +26,24 @@ import torch
 MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "workloads.trace", "workloads.harness", "ft.inject",
            "ft.failures", "ft.supervisor", "data.pipeline",
-           "train.optimizer", "train.step", "train.trainer", "ckpt.manager")
+           "train.optimizer", "train.step", "train.trainer", "ckpt.manager",
+           "models.api")
 PACKAGES = ("workloads", "ft", "data", "train", "ckpt")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
 # the port's extra trailing parameter, by name
-EXTRA = {"attention": "impl"}
+EXTRA = {"attention": "impl", "Model": "kernel_impl",
+         "build_model": "kernel_impl"}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
-          "DataPipeline", "Trainer"}
+          "DataPipeline", "Trainer", "init_params", "init_cache"}
+# a jax.random key is a torch.Generator in the port
+RENAMED = {"key": "generator"}
+# public names only the port has: the JAX parameter tree as tensors
+PORT_ONLY = {"models.api": ["params_from_numpy"]}
+# the reference's sharding and dry-run tools, which the port does not
+# carry (no mesh: the port runs on one card)
+NOT_PORTED = {("models.api", "Model.abstract_params"),
+              ("models.api", "Model.param_axes"),
+              ("models.api", "Model.input_specs")}
 
 
 def _pair(mod):
@@ -50,7 +64,8 @@ def _cases():
                         continue
                     if isinstance(val, (classmethod, staticmethod)):
                         val = val.__func__
-                    if inspect.isfunction(val):
+                    if (inspect.isfunction(val) and (mod, f"{name}.{attr}")
+                            not in NOT_PORTED):
                         cases.append((mod, f"{name}.{attr}"))
     cases += [("models.attention", n) for n in ATTENTION]
     return cases
@@ -97,7 +112,17 @@ def test_package_names_match():
         assert t_pkg.__all__ == j_pkg.__all__, pkg
     for mod in MODULES:
         t_mod, j_mod = _pair(mod)
-        assert t_mod.__all__ == j_mod.__all__, mod
+        assert t_mod.__all__ == j_mod.__all__ + PORT_ONLY.get(mod, []), mod
+
+
+def test_unported_methods_are_absent():
+    """The listed exceptions stay true: a method ported later must come
+    off ``NOT_PORTED`` and be held to the reference."""
+    for mod, dotted in NOT_PORTED:
+        t_mod, j_mod = _pair(mod)
+        _get(j_mod, dotted)
+        with pytest.raises(AttributeError):
+            _get(t_mod, dotted)
 
 
 @pytest.mark.parametrize("mod,name", _cases(),
@@ -129,7 +154,8 @@ def test_signature_matches_the_reference(mod, name):
         ps = ps[:-1]
     if last in EXTRA and ps and ps[-1].name == EXTRA[last]:
         ps = ps[:-1]
-    assert [p.name for p in ps] == [p.name for p in ref]
+    assert ([p.name for p in ps]
+            == [RENAMED.get(r.name, r.name) for r in ref])
     for p, r in zip(ps, ref):
         assert p.kind == r.kind, p.name
         assert _same_default(p.default, r.default), (

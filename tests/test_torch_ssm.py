@@ -213,7 +213,8 @@ def test_params_carry_across_with_f32_leaves():
                                       np.asarray(jp["blocks"][name]))
     assert tp["blocks"]["w_x"].dtype == torch.bfloat16
     assert tp["blocks"]["ln"]["w"].dtype == torch.float32
-    p = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+    p = tm.init_params(torch.Generator().manual_seed(0), torch.bfloat16,
+                       device="cpu")
     assert p["blocks"]["A_log"].dtype == torch.float32
     assert float(p["blocks"]["D_skip"].min()) == 1.0
     bad = jax.tree_util.tree_map(np.asarray, jp)
