@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the fleet monitor, the
 control loop that acts on it, the control plane under faults (scenario
 matrix, chaos pipeline, QoS soak, fleet rate tracking, data pipeline),
-the serving paths of internlm2-1.8b and mamba2-2.7b at full width, and
-the training path of internlm2-1.8b at full width.
+the serving paths of internlm2-1.8b and mamba2-2.7b at full width, the
+training path of internlm2-1.8b at full width, and the encoder-decoder
+(whisper-large-v3, full width) and MoE (phi3.5-moe, published widths at
+16 of 32 layers) families.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -85,9 +87,9 @@ failed check raises and exits non-zero):
    every dispatch, the decision's CUDA graph on every tick): >= 12 cells,
    controlled availability >= 0.9, fault-free vs_static >= 0.95, storm
    vs_static >= 1.2, one graph build per policy config; every cell
-   recorded and its trace replayed on the host (numpy decision): every
-   boolean and replica target equal, capacity targets +/-1 slot on
-   <= 0.1% of decisions;
+   recorded, and the 8 controlled storm cells' traces replayed on the
+   host (numpy decision): every boolean and replica target equal,
+   capacity targets +/-1 slot on <= 0.1% of decisions;
 (e) the supervised chaos pipeline (``control_bench.chaos_recovery``'s
    full mode: 4000 items paced at 1100/s, a 1.5 ms stage of 2 replicas,
    3 seeded kills and a monitor-thread death, a ``ReplicaSupervisor``):
@@ -143,6 +145,38 @@ failed check raises and exits non-zero):
    split of one step); and a checkpoint resumed at a 2-layer cut with
    AdamW8bit (the step-3 loss equal to the uninterrupted run's, a
    corrupted leaf refused), printed as one ``{"train": ...}`` line;
+(j) the encoder-decoder and MoE families.  (j.1) whisper-large-v3 at
+   published widths (32 + 32 layers, d 1280, 20 heads x 64, d_ff 5120,
+   vocab 51 968) with random bf16 weights and stub frames (8, 1536,
+   1280) from ``--seed``, through ``Model.prefill``/``decode_step``: the
+   encoder (32 flash launches) and a 4-token prefill (96: encoder,
+   decoder self, cross with S 4 != T 1536) through the kernel and the
+   plain attention -- encoder states and last logits within rel L2 1e-4
+   in float32 compute (the kernel at 1.02 x its scale must miss), and
+   in bf16 within max(1e-2, 1.5x a 1-ulp control of the plain path);
+   decode agrees with prefill in float32 at full depth (same token,
+   logits 1e-4); 64 greedy tokens at batch 8 (encoder, prefill and
+   decode ms, tokens/s); the flash forward against the plain version
+   (1e-3) at (8, 1536, 20, 20, 64) non-causal, at the cross shape and
+   at the decoder's causal self shapes (8 x 4 and 2 x 448, G 1), the
+   encoder's timed in turns with SDPA (bound 0.0977 ms by operations).
+   (j.2) one gradient of ``whisper_loss`` at published widths (float32
+   master weights, frames 2 x 1536, 2 x 448 targets, remat "full") under
+   phase (i.2)'s gates and controls: 192 forward and 96 backward launches,
+   the backward at hd 64, non-causal, S != T.  (j.3) phi3.5-moe (d 4096,
+   32/8 heads x 128, 16 experts top-2 of d_ff 6400, vocab 32 064) cut
+   to 16 layers (21.1 B parameters, 42.1 GB bf16): the flash forward
+   against the plain version (1e-3) at (8, 1024, 32, 8, 128) causal and
+   at a ragged round of 8 x 1479; an 8 x 1024 prefill through the
+   kernel and the plain attention (bf16 rel L2 and the
+   share of flipped routes reported; gated in float32 at a 2-layer cut,
+   rel L2 1e-4, the 1.02 x scale kernel must miss), then phase 8's
+   traffic through ``serve.Engine`` (16 flash launches a prefill round,
+   ``monitor_fleet`` on the lanes, engine tokens == direct decode) with
+   a trace split into flash, GEMMs, sort, gather/scatter, copies and
+   other.  One ``{"serve": ...}`` line per model; Whisper's prefill and
+   the MoE rounds count into ``flash_attention``'s launches, Whisper's
+   gradient into ``flash_attention_bwd``'s;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -152,7 +186,8 @@ failed check raises and exits non-zero):
    estimate of the fold, bf16, warm-cache and per-call times in the
    ``service`` line; phases (a)-(c) in the ``control`` line, (d)-(h) in
    the ``faults`` line, and ``monitor_fleet``'s launches summed over
-   phase 4 and (d)-(h).
+   phase 4 and (d)-(h); before them a ``{"wall_s": ...}`` line with each
+   group of phases' wall time (host clock) and the total.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -221,6 +256,17 @@ TRAIN_SEQ = 4096             # SHAPES["train_4k"]'s length
 TRAIN_MICRO, TRAIN_ROWS = 2, 2   # global batch 4 (train_4k's 256, cut)
 TRAIN_STEPS = 8
 CKPT_B, CKPT_S = 2, 512      # the checkpoint-resume cut (2 layers)
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_PROMPT = 4           # decoder prompt tokens of the serving check
+WHISPER_NEW = 64             # greedy tokens after the prompt
+WHISPER_MAX_SEQ = 448        # Whisper's decoder context (n_text_ctx)
+WHISPER_GRAD_B, WHISPER_GRAD_S = 2, 448   # the gradient check's targets
+WHISPER_FLASH_SHAPE = (8, 1536, 20, 20, 64)  # its encoder's attention
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 16              # of 32: 42.1 GB of bf16 weights, room left
+                             # for the Engine's cache at 8 x 2048
+MOE_ROUND_S = 1479           # a ragged round length (prompts 512-1536)
+MOE_F32_LAYERS = 2           # the float32 gate's cut (10.5 GB of weights)
 
 
 class CheckFailed(AssertionError):
@@ -250,6 +296,16 @@ def noisy_streams(rng, Q, T, p_block=0.06):
     base = rng.uniform(100, 400, (Q, 1)).astype(np.float32)
     tc = rng.poisson(base, (Q, T)).astype(np.float32)
     blocked = rng.random((Q, T), dtype=np.float32) < p_block
+    return tc, blocked
+
+
+def noisy_streams_on_card(torch, seed, Q, T, dev, p_block=0.06):
+    """``noisy_streams``' recipe drawn on the card from ``seed``: a numpy
+    draw of 8e8 Poisson counts takes about a minute of host time."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.rand((Q, 1), generator=g, device=dev) * 300.0 + 100.0
+    tc = torch.poisson(base.expand(Q, T).contiguous(), generator=g)
+    blocked = torch.rand((Q, T), generator=g, device=dev) < p_block
     return tc, blocked
 
 
@@ -326,13 +382,12 @@ def phase_batched(torch, K, ref, rng, dev):
     return errs
 
 
-def phase_fleet(torch, K, M, ref, rng, dev):
+def phase_fleet(torch, K, M, ref, rng, dev, seed):
     """Fused scan at S = 2e5 x T = 4096 against the plain version on the
     card, the float64 host monitor, and full mode on a slice."""
     cfg = M.MonitorConfig()
-    tc, blocked = noisy_streams(rng, N_STREAMS, N_PERIODS)
-    tc_d = torch.as_tensor(tc, device=dev)
-    blk_d = torch.as_tensor(blocked, device=dev)
+    tc_d, blk_d = noisy_streams_on_card(torch, seed, N_STREAMS, N_PERIODS,
+                                        dev)
     t0 = time.perf_counter()
     st_k, _ = M.run_monitor_fleet(cfg, tc_d, blk_d, chunk_t=CHUNK,
                                   impl="cuda", mode="state", device=dev)
@@ -361,11 +416,15 @@ def phase_fleet(torch, K, M, ref, rng, dev):
     # float64 host oracle on 64 sampled streams: exact epochs and last
     # q-bar to rtol 1e-4.  Over 4096 periods a stream can cross the exact
     # convergence threshold in float32 one step apart from float64 (the
-    # JAX package's own f32 scan does so on stream 184271 of seed 0: 56
-    # epochs against the host's 57).  Such a stream passes only if an
-    # independent f32 implementation -- the per-queue run_monitor on the
-    # host -- lands on the kernel's epoch count and estimate.
+    # JAX package's own f32 scan does so on stream 184271 of the numpy
+    # draw of seed 0: 56 epochs against the host's 57).  Such a stream
+    # passes only if an independent f32 implementation -- the per-queue
+    # run_monitor on the host -- lands on the kernel's epoch count and
+    # estimate.
     pick = rng.choice(N_STREAMS, 64, replace=False)
+    rows = torch.as_tensor(pick, device=dev)
+    tc, blocked = (dict(zip(pick, t[rows].cpu().numpy()))
+                   for t in (tc_d, blk_d))
     f32_only = []
     for q in pick:
         hm = M.HostMonitor(cfg)
@@ -1028,7 +1087,8 @@ def phase_matrix(torch, K, CT, W, dev, seed):
     ``run_matrix`` at the scenarios' full horizons, every controlled cell
     a ``ControlGroup`` on the card (``monitor_fleet`` on each dispatch,
     the decision's CUDA graph on each tick).  Each cell is recorded and
-    its trace replayed on the host (numpy decision, CPU monitor)."""
+    the storm cells' traces are replayed on the host (numpy decision, CPU
+    monitor): every scenario and policy, under the faults."""
     from repro_torch.workloads import harness as H
     cells, walls = [], []
     real = H.run_cell
@@ -1069,13 +1129,14 @@ def phase_matrix(torch, K, CT, W, dev, seed):
     check(builds <= len(configs),
           f"{builds} decision graph builds for {len(configs)} configs")
 
-    # the replay gate: each controlled cell's recorded sensing stream
-    # through the port's replay on the host, numpy decision
+    # the replay gate: each controlled storm cell's recorded sensing
+    # stream through the port's replay on the host, numpy decision (the
+    # fault-free half, another 20 s of host time, is cut for time)
     t0 = time.perf_counter()
     n_dec = boundary = 0
-    for c in cells:
-        if c.policy == "static":
-            continue
+    replayed = [c for c in cells if c.policy != "static"
+                and c.fault != "none"]
+    for c in replayed:
         tr = c.trace
         out = W.replay(tr, W.make_policies(
             c.policy, decide_every=tr.meta["decide_every"]),
@@ -1117,8 +1178,9 @@ def phase_matrix(torch, K, CT, W, dev, seed):
         f"host clock), {launches} monitor_fleet launches, {builds} "
         f"decision graph builds; controlled availability >= "
         f"{min_avail:.4f}, fault-free vs_static >= {min_noharm:.3f}, storm "
-        f"vs_static >= {min_storm:.3f}; replay of {len(ctl)} cells on the "
-        f"host in {replay_s:.2f} s: every boolean and replica target "
+        f"vs_static >= {min_storm:.3f}; replay of {len(replayed)} storm "
+        f"cells on the host in {replay_s:.2f} s: every boolean and replica "
+        f"target "
         f"equal, {boundary} of {n_dec} capacity decisions +/-1 slot; "
         f"step/full/storm {card_cell_s:.3f} s on the card's path, "
         f"{cpu_cell_s:.3f} s with the monitor and decision on the CPU")
@@ -1670,13 +1732,13 @@ def phase_flash(torch, AK, AR, rng, dev, seed):
     return path_err
 
 
-def flash_bound(shape):
-    """Least time of one causal GQA forward at ``shape`` (bf16 in, f32
+def flash_bound(shape, causal=True):
+    """Least time of one GQA forward at ``shape`` (S = T; bf16 in, f32
     out): each input read once and the output written once, against the
     FLOPs of the unmasked score pairs (QK^T and P.V, 2 each)."""
     B, S, H, K, hd = shape
     nbytes = 2 * (B * S * H * hd + 2 * B * S * K * hd) + 4 * B * S * H * hd
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4.0 * B * H * hd * pairs
     t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
@@ -1959,10 +2021,10 @@ def _trace_split(torch, prof, wall_ms, steps, categories=_CATEGORIES,
             **{f"{c}_ms": v / steps for c, v in split.items()}}
 
 
-def phase_profile(torch, model, params, rows, dev):
+def phase_profile(torch, model, params, rows, dev, categories=_CATEGORIES):
     """One prefill round and 8 decode steps of the serving path under
-    torch.profiler: where the device time goes, and how idle the card
-    is."""
+    torch.profiler: where the device time goes (by ``categories``), and
+    how idle the card is."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     B, L = rows.shape
@@ -1974,7 +2036,7 @@ def phase_profile(torch, model, params, rows, dev):
         with profile(activities=acts) as prof:
             (logits, c), ms = _sync_ms(torch, lambda: model.prefill(
                 params, {"tokens": toks}))
-        out["prefill"] = _trace_split(torch, prof, ms, 1)
+        out["prefill"] = _trace_split(torch, prof, ms, 1, categories)
         cache = decode_cache(model, c, B, L, dev)
         cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
         pos = torch.full((B,), L, device=dev)
@@ -1990,7 +2052,8 @@ def phase_profile(torch, model, params, rows, dev):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             _, ms = _sync_ms(torch, decode)
-        out["decode_step"] = _trace_split(torch, prof, ms, steps)
+        out["decode_step"] = _trace_split(torch, prof, ms, steps,
+                                          categories)
     for k, v in out.items():
         if v is None:
             log(f"profile {k}: no device events in the trace (not measured)")
@@ -2001,11 +2064,13 @@ def phase_profile(torch, model, params, rows, dev):
 
 
 def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
-                spans=contextlib.nullcontext, prompts=None):
+                spans=contextlib.nullcontext, prompts=None,
+                categories=_CATEGORIES):
     """A serving path: requests through the engine's QoS lanes, batched
     prefill through the kernel ``kname`` of module ``KK`` (one launch
-    per layer per round), greedy decode.  ``spans`` wraps the trace;
-    the requests' prompts are appended to ``prompts`` when given."""
+    per layer per round), greedy decode.  ``spans`` wraps the trace,
+    which splits by ``categories``; the requests' prompts are appended
+    to ``prompts`` when given."""
     eng = serve.Engine(model, params, serve.ServeConfig(
         batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
         device=dev)
@@ -2058,7 +2123,7 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
     rows = np.repeat(solo.tokens[None], SERVE_B, axis=0)
     direct, pre_ms, dec_ms = direct_generate(torch, model, params, rows, dev)
     with spans():
-        trace = phase_profile(torch, model, params, rows, dev)
+        trace = phase_profile(torch, model, params, rows, dev, categories)
     check(np.array_equal(solo.out, direct[0]),
           f"engine tokens {solo.out} != direct decode {direct[0]}")
     new_tokens = SERVE_REQS * SERVE_NEW
@@ -2633,6 +2698,20 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
     toks = rng.integers(0, cfg.vocab_size, (GRAD_B, GRAD_S + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
              "targets": torch.as_tensor(toks[:, 1:], device=dev)}
+    _, stats = grad_gates(torch, AK, AR, AO, models, cfg, params, batch,
+                          cfg.n_layers, seed, dev,
+                          f"B {GRAD_B} x S {GRAD_S}")
+    return stats
+
+
+def grad_gates(torch, AK, AR, AO, models, cfg, params, batch, n_attn, seed,
+               dev, what):
+    """The gradient gates (a)-(d) of ``phase_train_grads`` on ``cfg``'s
+    model with float32 master weights ``params`` and ``batch``, each
+    layer rematerialised ("full"); ``n_attn`` attention layers, so a
+    gradient launches the forward kernel twice and the backward once for
+    each.  Returns (the backward's launches in the kernel run, the
+    stats)."""
     from repro_torch.ckpt.manager import _flatten
     names = _flatten(params)[1]
 
@@ -2672,10 +2751,10 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
         n = max(rels, key=rels.get)
         return n, rels[n]
     floor = max(worst(c)[1] for c in controls)
-    check(launches["flash_attention"] == 2 * cfg.n_layers
-          and launches["flash_attention_bwd"] == cfg.n_layers,
+    check(launches["flash_attention"] == 2 * n_attn
+          and launches["flash_attention_bwd"] == n_attn,
           f"grads with full remat launched {launches}, expected "
-          f"{2 * cfg.n_layers} forwards and {cfg.n_layers} backwards")
+          f"{2 * n_attn} forwards and {n_attn} backwards")
     check(np.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp),
           f"loss through the kernels {lk} vs plain {lp}")
     check(worst(backward)[1] <= 2e-2, f"backward kernel vs plain backward "
@@ -2688,7 +2767,7 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
     check(worst(end_to_end)[1] <= 1.5 * floor,
           f"bf16 grads, kernels vs plain: {worst(end_to_end)} over 1.5x "
           f"the 1-ulp controls' {floor}")
-    log(f"model grads {cfg.name} B {GRAD_B} x S {GRAD_S}, remat full: loss "
+    log(f"model grads {cfg.name} {what}, remat full: loss "
         f"kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e},"
         f" gate 1e-3), f32 {l32:.6f} / {lp32:.6f}; worst leaf rel L2: "
         f"backward kernel vs plain backward (same forward, bf16) "
@@ -2703,7 +2782,8 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
         f"{worst(plain_bwd)[1]:.3e};"
         f" {ms_k:.0f} ms with the kernels, {ms_p:.0f} ms plain (host "
         f"clock); launches {launches}")
-    return {"loss_kernel": lk, "loss_plain": lp, "loss_1ulp_control": lc,
+    return launches["flash_attention_bwd"], {
+            "loss_kernel": lk, "loss_plain": lp, "loss_1ulp_control": lc,
             "loss_f32_kernel": l32, "loss_f32_plain": lp32,
             "grad_rel_l2_bf16": end_to_end,
             "grad_rel_l2_bf16_1ulp_controls": controls,
@@ -2952,10 +3032,432 @@ def phase_ckpt_resume(torch, cfgs, models, rng, dev, seed):
             "save_s": save_s, "disk_bytes": disk}
 
 
+# ---------------------------------------------------------------------------
+# (j) the encoder-decoder and MoE families: whisper-large-v3, phi3.5-moe
+
+
+@contextlib.contextmanager
+def scaled_flash_forward(torch, AK, factor):
+    """The forward kernel run at ``factor`` times the model's scale: a
+    wrong attention, the control that the kernel-vs-plain gates of the
+    model phases must fail."""
+    orig = AK.flash_attention
+
+    def off(q, k, v, *, causal=True, scale=None, return_lse=False):
+        scale = factor * (scale or q.shape[-1] ** -0.5)
+        return orig(q, k, v, causal=causal, scale=scale,
+                    return_lse=return_lse)
+    off.launches = 0          # the wrapper counts on the module's name
+    AK.flash_attention = off
+    try:
+        yield
+    finally:
+        AK.flash_attention = orig
+
+
+def phase_whisper(torch, AK, AO, WH, cfgs, models, rng, seed, dev):
+    """(j.1) whisper-large-v3 at published widths (32 + 32 layers, d 1280,
+    20 heads x 64, d_ff 5120, vocab 51 968 padded), random bf16 weights
+    and stub frames (8, 1536, 1280) from ``--seed``, served through
+    ``Model.prefill`` and ``Model.decode_step`` (the reference serves
+    Whisper through ``Model`` only: its ``Engine`` takes no frames).
+
+    A prompt of 4 tokens at batch 8: the encoder (32 flash launches) and
+    the prefill (96: 32 encoder, 32 decoder self, 32 cross with S 4 != T
+    1536), through the kernel and through the plain attention.  Gates:
+    in float32 compute on the same weights (the kernels' f32 instances)
+    the encoder states and the last logits within rel L2 1e-4 of plain
+    (1e-2 would pass an attention error the model can see), and the
+    kernel at 1.02 x its scale must miss; in bf16 within 1.5x a 1-ulp
+    control of the plain path (the bf16 floor of a 64-layer stack, as in
+    phase (i)).  Decode agrees with prefill in float32 at full depth
+    (prefill 3 tokens, decode the 4th over the caches: the 4-token
+    prefill's token, logits within 1e-4).  Then 64 greedy tokens at
+    batch 8 in bf16, self cache 448 (Whisper's decoder context)."""
+    cfg = cfgs.get_config(WHISPER_ARCH)
+    bf16, f32 = torch.bfloat16, torch.float32
+    model = models.build_model(cfg, bf16)
+    plain = models.build_model(cfg, bf16, kernel_impl="plain")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               bf16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    B, P = SERVE_B, WHISPER_PROMPT
+    frames = torch.as_tensor(rng.standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32), device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                           device=dev)
+    batch = {"frames": frames, "tokens": toks}
+
+    def encode(m, p):
+        return WH.whisper_encode(p, cfg, frames, m.compute_dtype,
+                                 kernel_impl=m.kernel_impl)
+
+    def runs(m, p, pl):
+        """(encoder, last logits) through the kernel, the plain
+        attention, the plain attention 1 ulp off, the kernel at 1.02 x
+        scale."""
+        out = {"kernel": (encode(m, p), m.prefill(p, batch)[0]),
+               "plain": (encode(pl, p), pl.prefill(p, batch)[0])}
+        with perturbed_plain_attention(torch, AO, 2.0 ** -23, seed, dev):
+            out["ulp"] = (encode(pl, p), pl.prefill(p, batch)[0])
+        with scaled_flash_forward(torch, AK, 1.02):
+            out["scaled"] = (encode(m, p), m.prefill(p, batch)[0])
+        return {k: {"enc": _rel_l2(v[0], out["plain"][0]),
+                    "logits": _rel_l2(v[1], out["plain"][1])}
+                for k, v in out.items() if k != "plain"}, out["kernel"]
+
+    with torch.inference_mode():
+        encode(model, params)                              # warm-up
+        model.prefill(params, batch)
+        AK.reset_launch_counts()
+        enc, enc_ms = _sync_ms(torch, lambda: encode(model, params))
+        enc_launches = AK.launch_counts()["flash_attention"]
+        AK.reset_launch_counts()
+        (lk, cache), pre_ms = _sync_ms(torch, lambda: model.prefill(params,
+                                                                    batch))
+        launches = AK.launch_counts()["flash_attention"]
+        rel16, _ = runs(model, params, plain)
+        p32 = _map(params, lambda t: t.float())
+        m32 = models.build_model(cfg, f32)
+        rel32, (_, l32) = runs(m32, p32, models.build_model(
+            cfg, f32, kernel_impl="plain"))
+        # decode agrees with prefill: P - 1 tokens, then the P-th
+        _, c = m32.prefill(p32, {"frames": frames, "tokens": toks[:, :-1]})
+        c = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
+             if n in ("k", "v") else t for n, t in c.items()}
+        ld, _ = WH.whisper_forward(
+            p32, cfg, tokens=toks[:, -1:], cache=c,
+            pos_offset=torch.full((B,), P - 1, device=dev), mode="decode",
+            compute_dtype=f32, logits_mode="last")
+        dec_rel = _rel_l2(ld, l32)
+        dec_same = bool(torch.equal(ld[:, -1].argmax(-1),
+                                    l32[:, -1].argmax(-1)))
+        del p32, c
+        torch.cuda.empty_cache()
+        # greedy decode in bf16 over the self cache and the static cross
+        cache_d = model.init_cache(B, WHISPER_MAX_SEQ, device=dev)
+        for n in ("k", "v"):
+            cache_d[n][:, :, :P] = cache[n]
+        for n in ("ck", "cv"):
+            cache_d[n].copy_(cache[n])
+        del cache
+        cur = torch.argmax(lk[:, -1], -1).to(torch.int32)
+        pos = torch.full((B,), P, device=dev)
+        model.decode_step(params, cache_d, cur, pos)       # warm-up, same
+        outs = [cur]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WHISPER_NEW - 1):
+            cur, cache_d = model.decode_step(params, cache_d, cur, pos)
+            pos = pos + 1
+            outs.append(cur)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (WHISPER_NEW - 1)
+        gen = torch.stack(outs, 1).cpu().numpy()
+        c_bytes = sum(t.numel() * t.element_size() for t in cache_d.values())
+    del model, plain, params, cache_d
+    torch.cuda.empty_cache()
+    n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+    floor = {k: 1.5 * v for k, v in rel16["ulp"].items()}
+    check(enc_launches == cfg.encoder_layers and launches == n_attn,
+          f"flash_attention launched {enc_launches} times in the encoder "
+          f"and {launches} in a prefill, expected {cfg.encoder_layers} and "
+          f"{n_attn}")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(enc).all()),
+          "non-finite whisper encoder states or prefill logits")
+    for k in ("enc", "logits"):
+        check(rel32["kernel"][k] <= 1e-4, f"whisper f32 {k}: kernel vs "
+              f"plain rel L2 {rel32['kernel'][k]} over 1e-4")
+        check(rel32["scaled"][k] > 1e-4, f"control: whisper f32 {k} with "
+              f"the kernel at 1.02 x scale {rel32['scaled'][k]} within "
+              f"1e-4, so the gate could not fail")
+        check(rel16["kernel"][k] <= max(1e-2, floor[k]),
+              f"whisper bf16 {k}: kernel vs plain rel L2 "
+              f"{rel16['kernel'][k]} over 1e-2 and 1.5x the 1-ulp "
+              f"control's {rel16['ulp'][k]}")
+    check(dec_same and dec_rel <= 1e-4, f"whisper f32 decode vs prefill: "
+          f"same token {dec_same}, logits rel L2 {dec_rel}")
+    check(gen.shape == (B, WHISPER_NEW)
+          and bool(((gen >= 0) & (gen < cfg.padded_vocab)).all()),
+          f"whisper greedy tokens {gen.shape}")
+    tok_s = B * 1e3 / dec_ms
+    log(f"model {cfg.name}: {cfg.encoder_layers} + {cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab}; weights "
+        f"{w_bytes / 1e9:.3f} GB bf16 (init {t_init:.1f} s)")
+    log(f"whisper: encoder {B} x {cfg.encoder_seq} {enc_ms:.1f} ms "
+        f"({enc_launches} flash launches), prefill with a {P}-token prompt "
+        f"{pre_ms:.1f} ms ({launches} flash launches), decode "
+        f"{dec_ms:.2f} ms a token at batch {B} ({tok_s:.1f} tokens/s, "
+        f"{WHISPER_NEW} tokens, caches {c_bytes / 1e6:.1f} MB) (host "
+        f"clock, synchronized)")
+    log(f"whisper kernel vs plain attention, rel L2 (encoder / last "
+        f"logits): f32 {rel32['kernel']['enc']:.3e} / "
+        f"{rel32['kernel']['logits']:.3e} (gate 1e-4; the kernel at 1.02 x "
+        f"scale {rel32['scaled']['enc']:.3e} / "
+        f"{rel32['scaled']['logits']:.3e} must miss it); bf16 "
+        f"{rel16['kernel']['enc']:.3e} / {rel16['kernel']['logits']:.3e} "
+        f"against the 1-ulp control's {rel16['ulp']['enc']:.3e} / "
+        f"{rel16['ulp']['logits']:.3e} (gate max(1e-2, 1.5x)); decode vs "
+        f"prefill f32 logits {dec_rel:.3e}, same token {dec_same}")
+    return launches, {"weight_bytes": w_bytes, "encoder_ms": enc_ms,
+                      "prefill_ms": pre_ms, "prompt_len": P,
+                      "decode_ms_per_token": dec_ms,
+                      "decode_tokens_per_s": tok_s, "new_tokens": WHISPER_NEW,
+                      "cache_bytes": c_bytes, "rel_l2_f32": rel32,
+                      "rel_l2_bf16": rel16, "decode_vs_prefill_rel_l2":
+                      dec_rel, "encoder_launches": enc_launches}
+
+
+def flash_cases(torch, AK, AR, cases, dev, what):
+    """The bf16 kernel against its plain version at each (shape
+    (B,S,H,K,hd), T or None for S, causal, generator): 1e-3, as phase 6.
+    Returns the largest abs error."""
+    err = 0.0
+    for shape, T, causal, gen in cases:
+        q, k, v = _qkv(torch, gen, shape, torch.bfloat16, dev, T)
+        got = AK.flash_attention(q, k, v, causal=causal)
+        want = AR.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        name = (f"flash_attention {what} {shape} T={T or shape[1]} bf16 "
+                f"causal={causal}")
+        check(bool(torch.isfinite(got).all()
+                   and ((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all()),
+              f"{name}: max abs err {e} over tol 1e-3")
+        log(f"{name}: max abs err {e:.3e} (tol 1e-3)")
+        err = max(err, e)
+    return err
+
+
+def kernel_flash_whisper(torch, AK, AR, rng, dev, seed):
+    """The flash forward at Whisper's shapes, bf16, against the plain
+    version (1e-3, as phase 6): the encoder's (8, 1536, 20, 20, 64)
+    non-causal, the prefill's cross-attention (S 4, T 1536), the
+    decoder's causal self-attention (G 1) at the prefill's S 4 and the
+    gradient's (2, 448); then the encoder's timed in turns with SDPA
+    (kernel, SDPA, SDPA, kernel)."""
+    import torch.nn.functional as F
+    B, S, H, K, hd = WHISPER_FLASH_SHAPE
+    own = np.random.default_rng((seed, 10))
+    err = flash_cases(torch, AK, AR, [
+        (WHISPER_FLASH_SHAPE, None, False, rng),
+        ((B, WHISPER_PROMPT, H, K, hd), S, False, rng),
+        ((B, WHISPER_PROMPT, H, K, hd), None, True, own),
+        ((WHISPER_GRAD_B, WHISPER_GRAD_S, H, K, hd), None, True, own)],
+        dev, "whisper")
+    q, k, v = _qkv(torch, rng, WHISPER_FLASH_SHAPE, torch.bfloat16, dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kern = lambda: AK.flash_attention(q, k, v, causal=False)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=False)
+    turns = [event_ms(torch, fn, reps=50) for fn in (kern, sdpa, sdpa, kern)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    plain_ms = event_ms(torch, lambda: AR.attention_ref(q, k, v,
+                                                        causal=False), reps=5)
+    bound_ms, bound_by, nbytes, flops = flash_bound(WHISPER_FLASH_SHAPE,
+                                                    causal=False)
+    log(f"flash_attention {WHISPER_FLASH_SHAPE} bf16 non-causal, in turns "
+        f"kernel/SDPA/SDPA/kernel: " + " / ".join(f"{t:.4f}" for t in turns)
+        + f" ms; {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
+        f"{flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib_ms:.4f} ms "
+        f"(kernel/SDPA {ms / lib_ms:.2f}), plain {plain_ms:.4f} ms; max abs "
+        f"err {err:.3e} (tol 1e-3)")
+    return {"shape": WHISPER_FLASH_SHAPE, "ms": ms, "library_ms": lib_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "turns_ms": turns, "max_abs_err": err,
+            "tflops": flops / ms / 1e9}
+
+
+def kernel_flash_moe(torch, AK, AR, dev, seed):
+    """The flash forward at phi3.5-moe's shapes, bf16, causal, GQA 4 at
+    hd 128, against the plain version (1e-3, as phase 6): the 8 x 1024
+    prefill and a ragged Engine round of 8 x 1479 (the serve phase's
+    rounds pad to their longest prompt of 512-1536 tokens)."""
+    own = np.random.default_rng((seed, 11))
+    return flash_cases(torch, AK, AR, [
+        ((SERVE_B, PREFILL_S, 32, 8, 128), None, True, own),
+        ((SERVE_B, MOE_ROUND_S, 32, 8, 128), None, True, own)], dev, "moe")
+
+
+def phase_whisper_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
+    """(j.2) one gradient of ``whisper_loss`` at published widths: random
+    float32 master weights from ``--seed``, frames (2, 1536, 1280) and
+    B 2 x 448 target tokens, remat "full", under phase (i.2)'s gates
+    (``grad_gates``): the flash backward at hd 64, non-causal, S 448 !=
+    T 1536 in cross-attention, 96 launches a gradient."""
+    cfg = cfgs.get_config(WHISPER_ARCH)
+    params = models.build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(seed + 1), torch.float32,
+        device=dev)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (WHISPER_GRAD_B, WHISPER_GRAD_S + 1))
+    batch = {"frames": torch.as_tensor(rng.standard_normal(
+                 (WHISPER_GRAD_B, cfg.encoder_seq, cfg.d_model),
+                 dtype=np.float32), device=dev),
+             "tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "targets": torch.as_tensor(toks[:, 1:], device=dev)}
+    out = grad_gates(torch, AK, AR, AO, models, cfg, params, batch,
+                     cfg.encoder_layers + 2 * cfg.n_layers, seed, dev,
+                     f"frames {WHISPER_GRAD_B} x {cfg.encoder_seq}, targets "
+                     f"{WHISPER_GRAD_B} x {WHISPER_GRAD_S}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def moe_routes(torch, TF):
+    """Record each MoE layer's chosen experts (sorted per token) from the
+    router probabilities ``moe_block`` returns."""
+    orig, routes = TF.moe_block, []
+
+    def rec(x, p, cfg, compute_dtype=torch.bfloat16):
+        y, probs = orig(x, p, cfg, compute_dtype=compute_dtype)
+        routes.append(torch.topk(probs, cfg.n_experts_active,
+                                 dim=-1).indices.sort(-1).values)
+        return y, probs
+    TF.moe_block = rec
+    try:
+        yield routes
+    finally:
+        TF.moe_block = orig
+
+
+def flipped_share(a, b):
+    """Share of (layer, token) whose expert set differs between two
+    ``moe_routes`` records."""
+    return sum(float((x != y).any(-1).float().mean())
+               for x, y in zip(a, b)) / max(len(a), 1)
+
+
+_MOE_CATEGORIES = (("flash_attention", ("flash_fwd",)),
+                   ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
+                   ("sort", ("sort", "topk")),
+                   ("gather_scatter", ("gather", "scatter", "index")),
+                   ("copy", ("memcpy", "memset", "copy")),
+                   ("reduce", ("reduce",)))
+
+
+def phase_moe(torch, AK, AO, MK, serve, TF, cfgs, models, rng, seed, dev):
+    """(j.3) phi3.5-moe at published widths (d 4096, 32/8 heads x 128, 16
+    experts top-2 of d_ff 6400, vocab 32 064), cut to 16 of its 32
+    layers: 21.1 B parameters, 42.1 GB of random bf16 weights from
+    ``--seed``, which leaves room for the Engine's cache at 8 x 2048.
+
+    A prefill of 8 x 1024 through the kernel and through the plain
+    attention in bf16: the rel L2 of the last logits and the share of
+    (layer, token) routes that flip between the two are reported, not
+    gated (a ~1e-3 change of a hidden state that flips a token's top-2
+    moves its output a lot).  The gate is in float32 compute at a
+    2-layer cut of the same weights: last logits within rel L2 1e-4 of
+    plain, and the kernel at 1.02 x scale must miss.  Then phase 8's
+    traffic through ``serve.Engine`` (16 flash launches a prefill round,
+    ``monitor_fleet`` on the lanes, the engine's tokens equal to a direct
+    decode) and a trace split into flash, GEMMs, the dispatch's sort and
+    gather/scatter, copies and other."""
+    import dataclasses
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = dataclasses.replace(cfgs.get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = models.build_model(cfg, bf16)
+    plain = models.build_model(cfg, bf16, kernel_impl="plain")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               bf16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, PREFILL_S)), device=dev)}
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        AK.reset_launch_counts()
+        with moe_routes(torch, TF) as rk:
+            (lk, _), ms_k = _sync_ms(torch, lambda: model.prefill(params,
+                                                                  batch))
+        launches = AK.launch_counts()["flash_attention"]
+        with moe_routes(torch, TF) as rp:
+            (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params,
+                                                                  batch))
+        with perturbed_plain_attention(torch, AO, 2.0 ** -23, seed, dev):
+            lc, _ = plain.prefill(params, batch)
+        rel16, ctrl16 = _rel_l2(lk, lp), _rel_l2(lc, lp)
+        flip16 = flipped_share(rk, rp)
+        del rk, rp
+        # float32 at a 2-layer cut of the same weights
+        c32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+        p32 = {k: _map(v, lambda t: t[:MOE_F32_LAYERS].float())
+               if k == "blocks" else
+               (_map(v, lambda t: t.float()) if isinstance(v, dict)
+                else v.float()) for k, v in params.items()}
+        m32 = models.build_model(c32, f32)
+        with moe_routes(torch, TF) as rk32:
+            l32k, _ = m32.prefill(p32, batch)
+        with moe_routes(torch, TF) as rp32:
+            l32p, _ = models.build_model(c32, f32, kernel_impl="plain"
+                                         ).prefill(p32, batch)
+        with scaled_flash_forward(torch, AK, 1.02):
+            l32s, _ = m32.prefill(p32, batch)
+        rel32, rel32s = _rel_l2(l32k, l32p), _rel_l2(l32s, l32p)
+        flip32 = flipped_share(rk32, rp32)
+        del p32, rk32, rp32
+    torch.cuda.empty_cache()
+    check(launches == cfg.n_layers, f"flash_attention launched {launches} "
+          f"times in a {cfg.n_layers}-layer MoE prefill")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(l32k).all()),
+          "non-finite MoE prefill logits")
+    check(rel32 <= 1e-4, f"MoE f32 logits ({MOE_F32_LAYERS} layers): kernel "
+          f"vs plain rel L2 {rel32} over 1e-4")
+    check(rel32s > 1e-4, f"control: MoE f32 logits with the kernel at 1.02 x"
+          f" scale {rel32s} within 1e-4, so the gate could not fail")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"model {cfg.name} cut to {cfg.n_layers} of 32 layers: d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.head_dim}, {cfg.n_experts} experts top-"
+        f"{cfg.n_experts_active} of d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}; {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.3f} GB bf16 (init {t_init:.1f} s)")
+    log(f"MoE prefill {SERVE_B} x {PREFILL_S}: kernel {ms_k:.1f} ms, plain "
+        f"attention {ms_p:.1f} ms (host clock, synchronized), {launches} "
+        f"flash launches; last logits kernel vs plain: bf16 rel L2 "
+        f"{rel16:.3e} with {flip16:.4%} of routes flipped (1-ulp control "
+        f"{ctrl16:.3e}), f32 at {MOE_F32_LAYERS} layers {rel32:.3e} with "
+        f"{flip32:.4%} flipped (gate 1e-4; the kernel at 1.02 x scale "
+        f"{rel32s:.3e} must miss it)")
+    serve_launches, stats = phase_serve(torch, AK, "flash_attention", MK,
+                                        serve, model, params, rng, dev,
+                                        categories=_MOE_CATEGORIES)
+    del model, plain, params
+    torch.cuda.empty_cache()
+    return serve_launches, {
+        "layers": cfg.n_layers, "parameters": n_params,
+        "weight_bytes": w_bytes, "prefill_8x1024_ms": ms_k,
+        "prefill_8x1024_plain_attn_ms": ms_p, "logits_rel_l2_bf16": rel16,
+        "logits_rel_l2_bf16_1ulp_control": ctrl16,
+        "routes_flipped_bf16": flip16, "logits_rel_l2_f32": rel32,
+        "logits_rel_l2_f32_scaled_control": rel32s,
+        "routes_flipped_f32": flip32, **stats}
+
+
+@contextlib.contextmanager
+def _wall(walls, name):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        walls[name] = time.perf_counter() - t0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "monitor" / "csrc"
             / "monitor.cu").exists():
         print("chip_smoke.py: the repro_torch sources are not beside this "
@@ -2988,6 +3490,8 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as SO
     from repro_torch.kernels.ssd import ref as SR
     from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models import whisper as WH
     from repro_torch.train import step as TS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3030,31 +3534,41 @@ def main() -> int:
         f"{AK.shared_memory_bytes_bwd(hd, torch.float32)}"
         for hd in AK.HEAD_DIMS))
 
-    b_err = phase_batched(torch, K, R, rng, dev)
-    st_seed = phase_fleet(torch, K, M, R, rng, dev)
-    fleet = kernel_fleet_at_path(torch, K, M, R, O, st_seed, rng, dev, sass,
-                                 args.seed)
-    del st_seed
-    fleet_launches, svc, path = phase_service(torch, K, M, S, dev)
-    control = phase_control(torch, K, CT, CL, CP, path, dev)
-    path["svc"].stop()
-    del path
-    control.update(phase_pipeline(torch, K, CT, S, M, dev))
-    step_launches = phase_step_path(torch, K, O, M, rng, dev)
-    batched = kernel_batched_at_path(torch, K, R, rng, dev,
-                                     max(b_err.values()), args.seed)
-    flash_err = phase_flash(torch, AK, AR, rng, dev, args.seed)
-    flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
-    model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
-                                             args.seed, dev)
-    prompts = []
-    flash_launches, serve_stats = phase_serve(
-        torch, AK, "flash_attention", K, SV, model, params, rng, dev,
-        prompts=prompts)
-    control.update(phase_serve_control(torch, AK, "flash_attention", K, SV,
-                                       model, params, prompts, dev))
-    del model, params
-    torch.cuda.empty_cache()
+    walls = {"start, build": time.perf_counter() - start}
+
+    def wall(name):
+        """Time a phase of the run into ``walls`` (host clock)."""
+        return _wall(walls, name)
+
+    with wall("1-4 monitor kernels, service"):
+        b_err = phase_batched(torch, K, R, rng, dev)
+        st_seed = phase_fleet(torch, K, M, R, rng, dev, args.seed)
+        fleet = kernel_fleet_at_path(torch, K, M, R, O, st_seed, rng, dev,
+                                     sass, args.seed)
+        del st_seed
+        fleet_launches, svc, path = phase_service(torch, K, M, S, dev)
+    with wall("a-b control, pipeline"):
+        control = phase_control(torch, K, CT, CL, CP, path, dev)
+        path["svc"].stop()
+        del path
+        control.update(phase_pipeline(torch, K, CT, S, M, dev))
+        step_launches = phase_step_path(torch, K, O, M, rng, dev)
+        batched = kernel_batched_at_path(torch, K, R, rng, dev,
+                                         max(b_err.values()), args.seed)
+    with wall("5-6 flash"):
+        flash_err = phase_flash(torch, AK, AR, rng, dev, args.seed)
+        flash = kernel_flash_at_path(torch, AK, AR, rng, dev, flash_err)
+    with wall("7-8 internlm2, c serve control"):
+        model, params, model_stats = phase_model(torch, AK, AO, C, MD, rng,
+                                                 args.seed, dev)
+        prompts = []
+        flash_launches, serve_stats = phase_serve(
+            torch, AK, "flash_attention", K, SV, model, params, rng, dev,
+            prompts=prompts)
+        control.update(phase_serve_control(torch, AK, "flash_attention", K,
+                                           SV, model, params, prompts, dev))
+        del model, params
+        torch.cuda.empty_cache()
     fault_launches, faults = {}, {}
     for ph, fn in (("d", lambda: phase_matrix(torch, K, CT, W, dev,
                                               args.seed)),
@@ -3066,25 +3580,41 @@ def main() -> int:
                                                     args.seed)),
                    ("h", lambda: phase_data(torch, K, D, S, dev,
                                             args.seed))):
-        t0 = time.perf_counter()
-        fault_launches[ph], stats = fn()
+        with wall(ph):
+            fault_launches[ph], stats = fn()
         faults.update(stats)
-        faults[f"phase_{ph}_wall_s"] = time.perf_counter() - t0
-    ssd_err = phase_ssd(torch, SK, SR, SO, rng, dev)
-    ssd = kernel_ssd_at_path(torch, SK, SR, rng, dev, ssd_err)
-    model, params, ssm_model_stats = phase_ssm_model(
-        torch, SK, SO, C, MD, rng, args.seed, dev)
-    ssd_launches, ssm_serve_stats = phase_serve(
-        torch, SK, "ssd_chunk", K, SV, model, params, rng, dev,
-        spans=lambda: conv_spans(torch, SSM))
-    del model, params
-    torch.cuda.empty_cache()
-    bwd = phase_flash_bwd(torch, AK, AR, rng, dev, args.seed)
-    train = {"grads": phase_train_grads(torch, AK, AR, AO, C, MD, rng,
-                                        args.seed, dev)}
-    bwd_launches, train["fit"] = phase_trainer(torch, AK, K, C, MD, TS, D,
-                                               dev, args.seed)
-    train["ckpt"] = phase_ckpt_resume(torch, C, MD, rng, dev, args.seed)
+        faults[f"phase_{ph}_wall_s"] = walls[ph]
+    with wall("9-11 ssd, mamba2"):
+        ssd_err = phase_ssd(torch, SK, SR, SO, rng, dev)
+        ssd = kernel_ssd_at_path(torch, SK, SR, rng, dev, ssd_err)
+        model, params, ssm_model_stats = phase_ssm_model(
+            torch, SK, SO, C, MD, rng, args.seed, dev)
+        ssd_launches, ssm_serve_stats = phase_serve(
+            torch, SK, "ssd_chunk", K, SV, model, params, rng, dev,
+            spans=lambda: conv_spans(torch, SSM))
+        del model, params
+        torch.cuda.empty_cache()
+    with wall("i.1 flash backward"):
+        bwd = phase_flash_bwd(torch, AK, AR, rng, dev, args.seed)
+    with wall("i.2-i.4 grads, trainer, ckpt"):
+        train = {"grads": phase_train_grads(torch, AK, AR, AO, C, MD, rng,
+                                            args.seed, dev)}
+        bwd_launches, train["fit"] = phase_trainer(torch, AK, K, C, MD, TS,
+                                                   D, dev, args.seed)
+        train["ckpt"] = phase_ckpt_resume(torch, C, MD, rng, dev, args.seed)
+        torch.cuda.empty_cache()
+    with wall("j.1 whisper serve"):
+        whisper_launches, whisper = phase_whisper(torch, AK, AO, WH, C, MD,
+                                                  rng, args.seed, dev)
+        whisper["flash"] = kernel_flash_whisper(torch, AK, AR, rng, dev,
+                                                args.seed)
+    with wall("j.2 whisper gradient"):
+        wbwd_launches, whisper["grads"] = phase_whisper_grads(
+            torch, AK, AR, AO, C, MD, rng, args.seed, dev)
+    with wall("j.3 moe"):
+        moe_flash_err = kernel_flash_moe(torch, AK, AR, dev, args.seed)
+        moe_launches, moe = phase_moe(torch, AK, AO, K, SV, TF, C, MD, rng,
+                                      args.seed, dev)
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -3105,7 +3635,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:25",
-         "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+         "launches": flash_launches + whisper_launches + moe_launches,
+         "max_abs_err": max(flash["max_abs_err"],
+                            whisper["flash"]["max_abs_err"], moe_flash_err),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
@@ -3120,7 +3652,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/attention/csrc/attention_bwd.cu",
          "replaces": "src/repro/train/step.py:54 (jax.value_and_grad of "
                      "src/repro/models/attention.py)",
-         "launches": bwd_launches, "max_abs_err": bwd["max_abs_err"],
+         "launches": bwd_launches + wbwd_launches,
+         "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
          "library_ms": bwd["library_ms"]},
@@ -3152,6 +3685,10 @@ def main() -> int:
     log(json.dumps({"serve": {"arch": ARCH, **model_stats, **serve_stats}}))
     log(json.dumps({"serve": {"arch": SSM_ARCH, **ssm_model_stats,
                               **ssm_serve_stats}}))
+    log(json.dumps({"serve": {"arch": WHISPER_ARCH, **whisper}}))
+    log(json.dumps({"serve": {"arch": MOE_ARCH, **moe}}))
+    walls["total"] = time.perf_counter() - start
+    log(json.dumps({"wall_s": walls}))
     log(json.dumps({"train": {"flash_attention_bwd": {k: bwd[k] for k in (
         "ms", "library_ms", "turns_ms", "tflops", "tile_tflops", "fwd_ms",
         "fwd_lse_ms", "controls_rel_l2")}, **train}}))

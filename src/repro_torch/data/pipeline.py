@@ -105,10 +105,16 @@ class DataPipeline:
 
     def _reader(self, shard: int):
         packed = pack_tokens(iter(self._source), self.seq_len)
-        for i, seq in enumerate(packed):
+        for seq in packed:
+            # push in short waits, so that ``stop`` ends a reader held
+            # by a full queue (once the batcher is done, nothing drains
+            # it): a reader left retrying its push takes the GIL ~1000
+            # times a second for as long as the process lives
+            while not self.q_seq.push(seq, timeout=0.05):
+                if self._stopped.is_set():
+                    return
             if self._stopped.is_set():
                 return
-            self.q_seq.push(seq)
 
     def _batcher(self):
         n = 0

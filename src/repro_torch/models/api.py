@@ -23,13 +23,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.monitor import resolve_device
 from repro_torch.models import layers as ll
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.attention import check_supported, init_cache_spec
 from repro_torch.models.ssm import F32_LEAVES, init_ssm_cache_spec
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
 
-_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "ln")
+_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "ln",
+          "ln_x", "enc_norm")
 
 
 def _leaf_dtype(path: tuple, compute_dtype):
@@ -82,11 +83,13 @@ class Model:
 
     def __post_init__(self):
         transformer.check_family(self.cfg)
-        if self.cfg.family == "dense":
+        if self.cfg.family != "ssm":
             check_supported(self.cfg)
 
     # ---------------- parameters -----------------------------------------
     def _defs(self, mk):
+        if self.cfg.is_encdec:
+            return whisper.whisper_param_defs(self.cfg, mk)
         return transformer.lm_param_defs(self.cfg, mk)
 
     def param_shapes(self) -> dict:
@@ -106,7 +109,12 @@ class Model:
     # ---------------- training -------------------------------------------
     def loss(self, params, batch, *, remat_policy=None):
         """(loss, {"ce", "aux"}) of ``transformer.lm_loss`` on ``batch``
-        ({"tokens" or "embeds", "targets"})."""
+        ({"tokens" or "embeds", "targets"}), or of
+        ``whisper.whisper_loss`` ({"frames", "tokens", "targets"})."""
+        if self.cfg.is_encdec:
+            return whisper.whisper_loss(
+                params, self.cfg, batch, compute_dtype=self.compute_dtype,
+                remat_policy=remat_policy, kernel_impl=self.kernel_impl)
         return transformer.lm_loss(
             params, self.cfg, batch, compute_dtype=self.compute_dtype,
             remat_policy=remat_policy, kernel_impl=self.kernel_impl)
@@ -114,25 +122,37 @@ class Model:
     # ---------------- serving ---------------------------------------------
     def prefill(self, params, batch):
         """Full-sequence pass; returns (last_logits (B,1,V), cache) with
-        cache {"k", "v"}: (L, B, S, K, hd) in the compute dtype (dense),
-        or {"conv": (L, B, K-1, d_inner + 2N) in the compute dtype,
-        "ssm": (L, B, H, P, N) float32} (ssm)."""
+        cache {"k", "v"}: (L, B, S, K, hd) in the compute dtype (dense,
+        moe; enc-dec adds the encoder's "ck", "cv": (L, B, enc_seq, K,
+        hd), and takes ``batch["frames"]``), or {"conv": (L, B, K-1,
+        d_inner + 2N) in the compute dtype, "ssm": (L, B, H, P, N)
+        float32} (ssm)."""
+        cfg, kw = self.cfg, dict(compute_dtype=self.compute_dtype,
+                                 kernel_impl=self.kernel_impl)
+        if cfg.is_encdec:
+            enc = whisper.whisper_encode(params, cfg, batch["frames"], **kw)
+            return whisper.whisper_forward(
+                params, cfg, tokens=batch["tokens"], enc_out=enc,
+                mode="prefill", logits_mode="last", **kw)
         logits, cache, _ = transformer.lm_forward(
-            params, self.cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), mode="prefill",
-            compute_dtype=self.compute_dtype, logits_mode="last",
-            kernel_impl=self.kernel_impl)
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), mode="prefill", logits_mode="last",
+            **kw)
         return logits, cache
 
     def decode_step(self, params, cache, tokens, pos):
         """One decode step.  tokens: (B,) int; pos: (B,) int — write
         offset into the cache.  Returns (next_tokens, cache); the cache
         is updated in place (the JAX package donates it)."""
-        logits, new_cache, _ = transformer.lm_forward(
-            params, self.cfg, tokens=tokens[:, None], cache=cache,
-            pos_offset=pos, mode="decode",
-            compute_dtype=self.compute_dtype, logits_mode="last",
-            kernel_impl=self.kernel_impl)
+        kw = dict(tokens=tokens[:, None], cache=cache, pos_offset=pos,
+                  mode="decode", compute_dtype=self.compute_dtype,
+                  logits_mode="last", kernel_impl=self.kernel_impl)
+        if self.cfg.is_encdec:
+            logits, new_cache = whisper.whisper_forward(params, self.cfg,
+                                                        **kw)
+        else:
+            logits, new_cache, _ = transformer.lm_forward(params, self.cfg,
+                                                          **kw)
         next_tokens = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tokens, new_cache
 
@@ -150,8 +170,13 @@ class Model:
             return spec, axes
         kv = init_cache_spec(cfg, batch, max_seq, cdt)
         kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-        return ({"k": kv.k, "v": kv.v},
-                {"k": kv_axes, "v": kv_axes})
+        spec, axes = {"k": kv.k, "v": kv.v}, {"k": kv_axes, "v": kv_axes}
+        if cfg.is_encdec:       # the encoder's keys and values
+            x = init_cache_spec(cfg, batch, cfg.encoder_seq, cdt)
+            x_axes = ("layers", "batch", "enc_seq", "kv_heads", "head_dim")
+            spec.update(ck=x.k, cv=x.v)
+            axes.update(ck=x_axes, cv=x_axes)
+        return spec, axes
 
     def init_cache(self, batch: int, max_seq: int, *, device="cuda"):
         dev = resolve_device(device)

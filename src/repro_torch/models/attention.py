@@ -1,4 +1,4 @@
-"""GQA attention with a KV cache.
+"""GQA attention with a KV cache, self- and cross-attention.
 
 Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
 (B, T, K, hd) with G = H // K query heads per KV head.
@@ -8,15 +8,19 @@ Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
   Hopper kernel, on the CPU its plain version.  Its float32 result is
   cast to the compute dtype before ``wo``.  (The JAX package runs its
   own plain softmax below 16384² score entries and a scanned online
-  softmax above; both compute the kernel's function.)
-* **Decode** over the cache is the plain masked softmax, as the JAX
-  package leaves it to XLA.
+  softmax above; both compute the kernel's function.)  Cross-attention
+  (``kv_x``: k and v projected from the encoder states, no RoPE on k)
+  goes through the same op, non-causal, with S != T.
+* **Decode** over the cache, and attention over a static (cross)
+  cache, is the plain masked softmax, as the JAX package leaves it to
+  XLA: scores are the products of the compute dtype summed in float32
+  (the reference's ``preferred_element_type``): the cache is regrouped
+  in its own dtype, never copied to float32.
 
-Self-attention only, with RoPE: cross-attention (enc-dec), M-RoPE (vlm),
-sliding windows and attention-logit softcaps are not ported yet — the
-flash kernel has neither of the last two (ROADMAP.md, Queue 1 item 4).
-``attention`` takes the JAX package's keywords all the same: a value
-that needs one of those families raises ``NotImplementedError``.
+M-RoPE (vlm), sliding windows and attention-logit softcaps are not
+ported yet — the flash kernel has neither of the last two (ROADMAP.md,
+Queue 1 item 4).  ``attention`` takes the JAX package's keywords all the
+same: a config that needs one of those raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -101,26 +105,45 @@ def _update_cache(ck, cv, k_new, v_new, pos):
     return ck, cv
 
 
+def _f32_scores(qg, k):
+    """qg (B,S,K,G,hd), k (B,T,K,hd) in one dtype -> q.k^T (B,K,G,S,T)
+    float32: the products of that dtype summed in float32.  On the card
+    a bf16 k goes into ``bmm`` with a float32 output (products of bf16
+    are exact in float32): its (B*K, T, hd) layout is a bf16 copy of the
+    cache when T > 1, never a float32 one."""
+    B, S, K, G, hd = qg.shape
+    T = k.shape[1]
+    if qg.dtype == torch.float32 or qg.device.type != "cuda":
+        return torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+    a = qg.permute(0, 2, 3, 1, 4).reshape(B * K, G * S, hd)
+    b = k.permute(0, 2, 1, 3).reshape(B * K, T, hd)
+    return torch.bmm(a, b.transpose(1, 2),
+                     out_dtype=torch.float32).reshape(B, K, G, S, T)
+
+
 def attention(p, x, positions, cfg: ArchConfig, *,
               is_local=None, cache_k=None, cache_v=None, pos_offset=None,
               kv_x=None, causal: bool = True, compute_dtype=torch.bfloat16,
               return_kv: bool = False, chunked_threshold: int = 16_384,
               impl: str = "kernel"):
-    """GQA self-attention:
+    """GQA attention, as the JAX package's:
 
-    * prefill: cache_* None; attention over x through the flash op,
-      causal unless ``causal=False`` (``impl`` selects the kernel or the
-      plain version, see ``kernels.attention.ops``); with ``return_kv``
+    * prefill: cache_* None; k/v from x, or from ``kv_x`` (B, T, D) for
+      cross-attention; through the flash op (``impl`` selects the kernel
+      or the plain version, see ``kernels.attention.ops``), causal
+      unless ``causal=False`` or ``kv_x`` is given; with ``return_kv``
       the fresh k/v are returned as the cache;
     * decode:  cache_k/v (B, S_max, K, hd) written in place at
-      pos_offset (B,), then the plain masked softmax over the cache.
+      pos_offset (B,), then the plain masked softmax over the cache;
+    * a static cache (cross-attention decode): cache_k/v given with
+      ``pos_offset`` None are the keys and values as they are; the
+      plain softmax over them, causal only if ``causal`` and no
+      ``kv_x``; the cache is returned unchanged.
 
     positions: (B, S) int.  Returns (out, (new_cache_k, new_cache_v)).
 
-    The JAX package's keywords: ``is_local`` selects sliding-window
-    masking, which only a config with a window uses (those raise in
-    ``check_supported``); ``kv_x`` (cross-attention) and a static cache
-    (``cache_k`` without ``pos_offset``) raise ``NotImplementedError``.
+    ``is_local`` selects sliding-window masking, which only a config
+    with a window uses (those raise in ``check_supported``).
     ``chunked_threshold`` is where the JAX package switches to its
     scanned online softmax; the port's prefill is the blocked flash op
     at every length, which computes the same function, so it changes
@@ -128,42 +151,49 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     """
     del chunked_threshold
     check_supported(cfg)
-    if kv_x is not None or (cache_k is not None and pos_offset is None):
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention (kv_x, or a static encoder "
-            "cache) is not ported yet (ROADMAP.md, Queue 1 item 4)")
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     scale = cfg.qk_scale if cfg.qk_scale else hd ** -0.5
+    static = cache_k is not None and pos_offset is None
 
     q = _mm(x, p["wq"], compute_dtype)
-    k = _mm(x, p["wk"], compute_dtype)
-    v = _mm(x, p["wv"], compute_dtype)
     if cfg.rope_mode == "rope":
         q = rope_apply(q, positions, cfg.rope_theta)
-        k = rope_apply(k, positions, cfg.rope_theta)
+    if not static:            # a static cache holds k and v already
+        src = x if kv_x is None else kv_x
+        k = _mm(src, p["wk"], compute_dtype)
+        v = _mm(src, p["wv"], compute_dtype)
+        if cfg.rope_mode == "rope" and kv_x is None:
+            k = rope_apply(k, positions, cfg.rope_theta)
     wo = p["wo"].reshape(H * hd, D)
 
     if cache_k is None:
         out = attn_ops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            scale=scale, impl=impl)
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=causal and kv_x is None, scale=scale, impl=impl)
         out = _mm(out.to(compute_dtype).reshape(B, S, H * hd), wo,
                   compute_dtype)
         return out, ((k, v) if return_kv else (None, None))
 
-    cache_k, cache_v = _update_cache(cache_k, cache_v, k, v, pos_offset)
-    T = cache_k.shape[1]
-    qg = q.reshape(B, S, K, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(),
-                          cache_k.float()) * scale
-    q_abs = (pos_offset.to(torch.long)[:, None]
-             + torch.arange(S, device=x.device)[None, :])      # (B, S)
-    mask = (torch.arange(T, device=x.device)[None, None, :]
-            <= q_abs[..., None])                                # (B, S, T)
-    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    if not static:
+        cache_k, cache_v = _update_cache(cache_k, cache_v, k, v,
+                                         pos_offset)
+    ck, cv = cache_k.to(compute_dtype), cache_v.to(compute_dtype)
+    T = ck.shape[1]
+    scores = _f32_scores(q.reshape(B, S, K, G, hd), ck) * scale
+    t_idx = torch.arange(T, device=x.device)
+    mask = None
+    if pos_offset is not None:
+        q_abs = (pos_offset.to(torch.long)[:, None]
+                 + torch.arange(S, device=x.device)[None, :])   # (B, S)
+        mask = t_idx[None, None, :] <= q_abs[..., None]          # (B, S, T)
+    elif causal and kv_x is None:
+        mask = (t_idx[None, :]
+                <= torch.arange(S, device=x.device)[:, None])[None]
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(compute_dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, cache_v.to(compute_dtype))
+    out = torch.einsum("bkgst,btkh->bskgh", w, cv)
     return (_mm(out.reshape(B, S, H * hd), wo, compute_dtype),
             (cache_k, cache_v))

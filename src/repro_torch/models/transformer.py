@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense and SSM families.
+"""Decoder-only LM assembly: the dense, MoE and SSM families.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package, so
 the parameter trees carry across unchanged; the JAX package's
@@ -6,15 +6,21 @@ the parameter trees carry across unchanged; the JAX package's
 or the conv and SSM states (ssm) ride the same loop, one layer slice at
 a time.
 
+An MoE layer (``models.moe``) takes the MLP's place and adds its
+router's load-balance loss to the stack's aux, which ``lm_loss`` adds at
+``aux_weight`` (0.01).
+
 Training: ``lm_loss`` is the next-token cross entropy of ``lm_forward``
 in mode "train", whose layers may be rematerialised in the backward
 (``_maybe_remat``).  On the card the attention differentiates through
 the hand-written backward kernel (``kernels.attention.ops``); the SSD
 kernel has no backward yet, so an ssm model trains on the CPU only.
 
-Ported: the dense and ssm families.  Not yet: MoE blocks, the hybrid
-stack, the vlm and encoder-decoder families (ROADMAP.md, Queue 1
-item 4).
+Ported: the dense, moe and ssm families here, and the audio
+encoder-decoder in ``models.whisper``.  Not yet: the hybrid stack and
+the vlm family (ROADMAP.md, Queue 1 item 4); a config with an
+attention-logit softcap or a sliding window (grok-1, gemma2) raises in
+``models.attention.check_supported``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
 from repro_torch.models.attention import attention, attn_param_defs
+from repro_torch.models.moe import (moe_block, moe_param_defs,
+                                    router_aux_loss)
 from repro_torch.models.ssm import (mamba_block, mamba_decode_step,
                                     mamba_param_defs)
 
@@ -38,14 +46,6 @@ __all__ = ["lm_param_defs", "lm_forward", "lm_loss", "norm_def",
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise for model families the port does not run yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, "
-            "Queue 1 item 4)")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid stack is not ported yet: its shared "
@@ -55,7 +55,7 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and embedding inputs are not ported yet "
             "(ROADMAP.md, Queue 1 item 4)")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "audio"):
         raise ValueError(cfg.family)
 
 
@@ -109,7 +109,10 @@ def _attn_mlp_block_defs(mk, prefix: str, cfg: ArchConfig, *,
                                  layers=layers)
         p["ln2_post"] = norm_def(mk, f"{prefix}.ln2_post", cfg,
                                  layers=layers)
-    p["mlp"] = mlp_param_defs(mk, f"{prefix}.mlp", cfg, layers=layers)
+    if cfg.is_moe:
+        p["moe"] = moe_param_defs(mk, f"{prefix}.moe", cfg, layers=layers)
+    else:
+        p["mlp"] = mlp_param_defs(mk, f"{prefix}.mlp", cfg, layers=layers)
     return p
 
 
@@ -152,13 +155,18 @@ def _attn_mlp_layer(cfg: ArchConfig, x, bp, positions, cache_k, cache_v,
         a_out = apply_norm(a_out, bp["ln1_post"], cfg)
     x = x + a_out
     h = apply_norm(x, bp["ln2"], cfg)
-    if cfg.mlp_act in ("swiglu", "geglu"):
+    aux = None                 # the router loss of an MoE layer
+    if "moe" in bp:
+        m_out, probs = moe_block(h, bp["moe"], cfg,
+                                 compute_dtype=compute_dtype)
+        aux = router_aux_loss(probs)
+    elif cfg.mlp_act in ("swiglu", "geglu"):
         m_out = ll.glu_mlp(h, bp["mlp"], cfg.mlp_act, compute_dtype)
     else:
         m_out = ll.gelu_mlp(h, bp["mlp"], compute_dtype)
     if cfg.post_block_norm:
         m_out = apply_norm(m_out, bp["ln2_post"], cfg)
-    return x + m_out, new_kv
+    return x + m_out, new_kv, aux
 
 
 def _mamba_layer(cfg: ArchConfig, x, bp, conv_state, ssm_state, decode,
@@ -222,25 +230,28 @@ def _run_attn_stack(params, cfg, x, positions, cache, pos_offset, mode,
     """The layers in order (the JAX package scans them).  Prefill stacks
     the fresh k/v of every layer into the cache; decode writes each
     layer's slice of ``cache`` in place; train may rematerialise each
-    layer in the backward (``_maybe_remat``)."""
+    layer in the backward (``_maybe_remat``).  Returns (x, cache, the
+    sum of the MoE layers' router losses or None)."""
     want_cache = mode in ("prefill", "decode")
     layer = _maybe_remat(functools.partial(_attn_mlp_layer, cfg),
                          remat_policy if mode == "train" else None)
-    ks, vs = [], []
+    ks, vs, aux = [], [], None
     for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         ck = cv = None
         if cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
-        x, (k_i, v_i) = layer(x, bp, positions, ck, cv, pos_offset,
-                              want_cache, compute_dtype, attn_impl)
+        x, (k_i, v_i), aux_i = layer(x, bp, positions, ck, cv, pos_offset,
+                                     want_cache, compute_dtype, attn_impl)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
         if want_cache and cache is None:
             ks.append(k_i)
             vs.append(v_i)
     if not want_cache:
-        return x, None
+        return x, None, aux
     if cache is not None:
-        return x, cache
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return x, cache, aux
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
 
 
 def _run_ssm_stack(params, cfg, x, cache, mode, compute_dtype, ssd_impl,
@@ -289,7 +300,8 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                compute_dtype=torch.bfloat16, remat_policy=None,
                logits_mode: str = "full", kernel_impl: str = "kernel"):
     """Run the LM.  Returns (logits, new_cache, aux_loss); aux_loss is
-    the MoE router loss, zero for the dense and ssm families.
+    the MoE router loss summed over the layers, zero for the dense and
+    ssm families.
 
     logits_mode: 'full' (B,S,V) | 'last' (B,1,V) | 'none' (hidden only).
     mode: 'prefill' (returns the fresh cache), 'decode' (writes ``cache``
@@ -301,6 +313,7 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     (``kernels.ssd.ops``).
     """
     check_family(cfg)
+    aux = None
     if embeds is not None:
         x = embeds.to(compute_dtype)
     else:
@@ -313,10 +326,11 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     else:
         B, S = x.shape[:2]
         positions = _positions_for(B, S, pos_offset, x.device)
-        x, new_cache = _run_attn_stack(params, cfg, x, positions, cache,
-                                       pos_offset, mode, compute_dtype,
-                                       kernel_impl, remat_policy)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, new_cache, aux = _run_attn_stack(
+            params, cfg, x, positions, cache, pos_offset, mode,
+            compute_dtype, kernel_impl, remat_policy)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(x, params["final_norm"], cfg)
     if logits_mode == "none":
         return x, new_cache, aux
@@ -332,10 +346,10 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
 def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
             remat_policy=None, aux_weight: float = 0.01,
             kernel_impl: str = "kernel"):
-    """Next-token cross entropy (+ the MoE load-balance aux, zero for the
-    dense and ssm families): the mean over (B, S) of logsumexp(logits) -
-    logits[target], the full logits in float32.  Returns (loss, {"ce",
-    "aux"})."""
+    """Next-token cross entropy (+ ``aux_weight`` times the MoE
+    load-balance aux, zero for the dense and ssm families): the mean
+    over (B, S) of logsumexp(logits) - logits[target], the full logits
+    in float32.  Returns (loss, {"ce", "aux"})."""
     logits, _, aux = lm_forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         mode="train", compute_dtype=compute_dtype,

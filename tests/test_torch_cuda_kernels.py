@@ -758,6 +758,65 @@ def test_ssd_chunk_cuda_launches_or_raises(cuda):
     assert SK.ssd_chunk.launches == before + 1
 
 
+# -- the encoder-decoder and MoE paths ----------------------------------------
+
+@pytest.mark.parametrize("S,T,G", [(1, 1536, 1), (1, 37, 4), (3, 300, 2)])
+def test_decode_scores_on_the_card_equal_the_float32_product(cuda, S, T, G):
+    """``models.attention._f32_scores`` on bf16 card tensors (``bmm``
+    with a float32 output, no float32 copy of k) against the float32
+    product of the same bf16 values: the products are exact in float32,
+    so only the summation order differs."""
+    from repro_torch.models.attention import _f32_scores
+    g = torch.Generator(device=cuda).manual_seed(S + T)
+    K, hd = 4, 64
+    q = torch.randn(2, S, K, G, hd, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, T, K, hd, device=cuda, generator=g).bfloat16()
+    got = _f32_scores(q, k)
+    want = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float())
+    assert got.dtype == torch.float32 and got.shape == (2, K, G, S, T)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_smoke_models_on_the_card_match_plain_attention(cuda, arch):
+    """The smoke enc-dec and MoE models on the card in float32: the
+    prefill launches the flash kernel once an attention layer (Whisper:
+    encoder, decoder self and cross) and its logits match the plain
+    attention's; one decode step gives the same token."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, torch.float32)
+    plain = build_model(cfg, torch.float32, kernel_impl="plain")
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9),
+                                     device=cuda, generator=g)}
+    n_attn = cfg.n_layers
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                      device=cuda, generator=g)
+        n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+    with torch.inference_mode():
+        before = AK.flash_attention.launches
+        lk, ck = model.prefill(params, batch)
+        assert AK.flash_attention.launches == before + n_attn
+        lp, cp = plain.prefill(params, batch)
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+        cache = model.init_cache(2, 16, device=cuda)
+        for n in cache:
+            cache[n][:, :, :ck[n].shape[2]] = ck[n]
+        cur = torch.argmax(lk[:, -1], -1).to(torch.int32)
+        pos = torch.full((2,), 9, device=cuda)
+        tk, _ = model.decode_step(params, cache, cur, pos)
+        for n in cache:
+            cache[n][:, :, :cp[n].shape[2]] = cp[n]
+        tp, _ = plain.decode_step(params, cache, cur, pos)
+    assert torch.equal(tk, tp)
+
+
 # -- the control decision's CUDA graph ----------------------------------------
 
 def test_control_decide_graph_equals_numpy_and_builds_once():

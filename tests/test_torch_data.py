@@ -5,8 +5,11 @@ package's (``repro.data``), on the CPU.
 the reference's documents from the same seed; a ``DataPipeline`` (one
 reader, its two links on one fleet dispatch, the service on the CPU)
 must yield the reference's batches for the same source seed, and its
-readout must carry the Welford-count gate.
+readout must carry the Welford-count gate.  ``stop`` ends every thread
+the pipeline started, a reader held by a full queue included.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -107,6 +110,27 @@ def test_data_pipeline_batches_equal_the_reference():
         assert r["service_rate"] == pytest.approx(gated[i], rel=1e-12)
         assert r["arrival_rate"] == pytest.approx(gated[2 + i], rel=1e-12)
         assert r["epochs"] == int(st.epoch[i] + st.epoch[2 + i])
+
+
+def test_stop_ends_a_reader_held_by_a_full_queue():
+    """After ``max_batches`` the batcher stops draining the sequence
+    queue, so the reader fills it and waits on its push; ``stop`` must
+    end it (a reader left retrying would take the GIL ~1000 times a
+    second for the life of the process)."""
+    src = t_data.SyntheticLMSource(vocab_size=50, doc_len=40, seed=0)
+    dp = t_data.DataPipeline(src, seq_len=8, batch_size=2,
+                             queue_capacity=2, max_batches=1,
+                             device="cpu").start()
+    assert len(list(dp)) == 1
+    deadline = time.monotonic() + 5.0
+    while len(dp.q_seq) < dp.q_seq.capacity and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert len(dp.q_seq) == dp.q_seq.capacity     # the reader is held
+    dp.stop()
+    for t in dp._threads:
+        t.join(timeout=2.0)
+        assert not t.is_alive(), t.name
+    assert not dp.monitor_thread.is_alive()
 
 
 def test_data_pipeline_runs_on_the_card_by_default(monkeypatch):

@@ -251,8 +251,7 @@ def test_init_params_takes_the_reference_dtype_argument():
     assert torch.equal(b["embed"], f["embed"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-7b",
-                                  "phi3.5-moe-42b-a6.6b", "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-7b", "grok-1-314b",
                                   "qwen2-vl-72b"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -288,18 +287,66 @@ def test_attention_keywords_match_jax(causal, threshold):
                                atol=1e-5)
 
 
+def _cross_attention_pair(form):
+    """The JAX package's ``attention`` and the port's on one input in a
+    cross-attention form, float32: (out, (k, v)) of each, and the port's
+    cache arguments."""
+    from repro.models.attention import attention as j_attention
+    from repro_torch.models.attention import attention
+    cfg, jm, jp, _, tp = _models("smoke", torch.float32)
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (2, 5, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(5, dtype=np.int32), (2, 1))
+    j_p = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["attn"])
+    t_p = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
+    if form == "kv_x":
+        enc = rng.normal(0, 1, (2, 19, cfg.d_model)).astype(np.float32)
+        kw_j, kw_t = ({"kv_x": jnp.asarray(enc), "return_kv": True},
+                      {"kv_x": torch.as_tensor(enc), "return_kv": True})
+    else:
+        kv = rng.normal(0, 1, (2, 2, 19, cfg.n_kv_heads,
+                               cfg.head_dim)).astype(np.float32)
+        kw_j = {"cache_k": jnp.asarray(kv[0]), "cache_v": jnp.asarray(kv[1])}
+        kw_t = {"cache_k": torch.as_tensor(kv[0]),
+                "cache_v": torch.as_tensor(kv[1])}
+    want = j_attention(j_p, jnp.asarray(x), jnp.asarray(pos), cfg,
+                       causal=False, compute_dtype=jnp.float32, **kw_j)
+    got = attention(t_p, torch.as_tensor(x), torch.as_tensor(pos), cfg,
+                    causal=False, compute_dtype=torch.float32, **kw_t)
+    return cfg, want, got, kw_t
+
+
 def test_attention_refuses_cross_attention():
-    from repro_torch.models.attention import attention, init_cache_spec
-    cfg, _, _, _, tp = _models("smoke", torch.float32)
-    p = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        attention(p, x, pos, cfg, kv_x=x)
-    ck = torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        attention(p, x, pos, cfg, cache_k=ck, cache_v=ck)   # static cache
+    """Cross-attention is not refused: k/v from ``kv_x`` (no RoPE on k,
+    no causal mask, S != T) and a static cache (``cache_k`` without
+    ``pos_offset``: the keys and values as they are, returned unchanged)
+    match the JAX package's ``attention`` at float32.  ``init_cache_spec``
+    gives the reference's shapes and dtypes."""
+    from repro_torch.models.attention import init_cache_spec
+    for form in ("kv_x", "static_cache"):
+        cfg, (want, (wk, wv)), (got, (gk, gv)), kw_t = \
+            _cross_attention_pair(form)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        for g, w in ((gk, wk), (gv, wv)):
+            assert g.shape == (2, 19, cfg.n_kv_heads, cfg.head_dim)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-4)
+        if form == "static_cache":
+            assert gk is kw_t["cache_k"] and gv is kw_t["cache_v"]
     spec = init_cache_spec(cfg, 2, 16, torch.float32, layers=3)
     assert spec.k == ((3, 2, 16, cfg.n_kv_heads, cfg.head_dim),
                       torch.float32)
     assert init_cache_spec(cfg, 2, 16).v[1] == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("kind", ["smoke", "full"])
+def test_ported_families_build(arch, kind):
+    """The enc-dec and MoE configs build, full and smoke; their
+    parameter trees carry the reference's leaves."""
+    cfg = (get_smoke_config if kind == "smoke" else get_config)(arch)
+    shapes = build_model(cfg).param_shapes()
+    assert ("dec_blocks" in shapes) == cfg.is_encdec
+    assert ("moe" in shapes.get("blocks", {})) == cfg.is_moe

@@ -1,7 +1,8 @@
 """The port keeps the JAX package's public names and signatures.
 
 For every public name of the port's ``workloads``, ``ft``, ``data``,
-``train``, ``ckpt`` and ``models.api`` modules, and for the repaired
+``train``, ``ckpt``, ``models.api``, ``models.whisper`` and
+``models.moe`` modules, and for the repaired
 ``models.attention`` names, the port's ``inspect.signature`` must match
 the reference's: the same parameter names in the same order, of the same
 kinds, with the same defaults (a JAX dtype default matches the torch
@@ -9,8 +10,9 @@ dtype of that name).  The only differences allowed are a trailing
 keyword-only ``device`` on an entry point that builds a monitor service,
 monitor state, parameters, a cache or a trainer's state; the port's
 ``impl`` last on ``attention`` and ``kernel_impl`` last on the model
-facade; a ``jax.random`` key taken as a ``torch.Generator`` named
-``generator``; and the names listed in ``PORT_ONLY`` and ``NOT_PORTED``.
+facade and on the Whisper entry points; a ``jax.random`` key taken as a
+``torch.Generator`` named ``generator``; and the names listed in
+``PORT_ONLY`` and ``NOT_PORTED``.
 A class is held by its constructor and by each public method it defines;
 a constant by its value.
 """
@@ -27,23 +29,25 @@ MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "workloads.trace", "workloads.harness", "ft.inject",
            "ft.failures", "ft.supervisor", "data.pipeline",
            "train.optimizer", "train.step", "train.trainer", "ckpt.manager",
-           "models.api")
+           "models.api", "models.whisper", "models.moe")
 PACKAGES = ("workloads", "ft", "data", "train", "ckpt")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
 # the port's extra trailing parameter, by name
 EXTRA = {"attention": "impl", "Model": "kernel_impl",
-         "build_model": "kernel_impl"}
+         "build_model": "kernel_impl", "whisper_encode": "kernel_impl",
+         "whisper_forward": "kernel_impl", "whisper_loss": "kernel_impl"}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
           "DataPipeline", "Trainer", "init_params", "init_cache"}
 # a jax.random key is a torch.Generator in the port
 RENAMED = {"key": "generator"}
 # public names only the port has: the JAX parameter tree as tensors
 PORT_ONLY = {"models.api": ["params_from_numpy"]}
-# the reference's sharding and dry-run tools, which the port does not
-# carry (no mesh: the port runs on one card)
+# the reference's sharding and dry-run tools and its expert-parallel MoE,
+# which the port does not carry (no mesh: the port runs on one card)
 NOT_PORTED = {("models.api", "Model.abstract_params"),
               ("models.api", "Model.param_axes"),
-              ("models.api", "Model.input_specs")}
+              ("models.api", "Model.input_specs"),
+              ("models.moe", "moe_block_ep")}
 
 
 def _pair(mod):
