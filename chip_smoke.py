@@ -3,9 +3,10 @@
 control loop that acts on it, the control plane under faults (scenario
 matrix, chaos pipeline, QoS soak, fleet rate tracking, data pipeline),
 the serving paths of internlm2-1.8b and mamba2-2.7b at full width, the
-training path of internlm2-1.8b at full width, and the encoder-decoder
+training path of internlm2-1.8b at full width, the encoder-decoder
 (whisper-large-v3, full width) and MoE (phi3.5-moe, published widths at
-16 of 32 layers) families.
+16 of 32 layers) families, and the hybrid (zamba2-7b) and the capped,
+windowed attention (gemma2-2b), both at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -110,8 +111,10 @@ failed check raises and exits non-zero):
 9. ``ssd_chunk`` against its plain version on the card: the chunked op
    on the JAX package's kernel-test shapes and chunks and the chunk
    kernel at odd shapes (rtol = atol = 1e-4), then at the mamba2
-   prefill's shape (B 8, c 4, Q 256, H 80, P 64, N 128), where
-   max |kernel - plain| <= 1e-4 * max(1, max |plain|) per output;
+   prefill's shape (B 8, c 4, Q 256, H 80, P 64, N 128) and zamba2's
+   (H 112, P 64, N 64), with the test's draws and Mamba-2's init, where
+   each output's error is at most 1e-4 of its (b, c, h) slice's largest
+   |plain| (decay: of |plain| itself);
 10. the full-width ssm model: mamba2-2.7b (64 layers, d 2560, d_inner
    5120, 80 SSD heads x 64, N 128, conv 4, chunk 256, vocab 50 432,
    tied embeddings) with random bf16 weights from ``--seed``; a prefill
@@ -177,6 +180,34 @@ failed check raises and exits non-zero):
    other.  One ``{"serve": ...}`` line per model; Whisper's prefill and
    the MoE rounds count into ``flash_attention``'s launches, Whisper's
    gradient into ``flash_attention_bwd``'s;
+(k) the hybrid family and the capped, windowed attention.  (k.1) the
+   forward's new instances against the plain version (bf16 1e-3, f32
+   2e-4): hd 112 at zamba2's (8, 1024, 32, 32, 112) causal and a ragged
+   8 x 1479, timed in turns with SDPA (bound 0.0876 ms by bytes); hd 256
+   at gemma2's (2, 8192, 8, 4, 256) causal with softcap 50, windowed
+   (4096; bound 0.417 ms by operations) and not (0.556 ms), beside SDPA
+   without cap or window (not the same function); the kernel at 1.02 x
+   scale, with its window off and with its softcap off must miss the
+   gate; ptxas must report no spills in the tensor-core forward.
+   (k.2) zamba2-7b at published widths (81 layers as 9 x (8 mamba + the
+   shared block), d 3584, 32 x 112 heads, d_ff 14 336; 6.05 B
+   parameters, 12.1 GB bf16) with random bf16 weights: an
+   8 x 1024 prefill through the kernels (9 flash, 72 SSD launches) and
+   the plain versions, gated in float32 at a 2-group cut (rel L2 1e-3,
+   and 1e-4 with the SSD plain on both sides, which the flash kernel at
+   1.02 x scale must miss), then phase 8's traffic
+   through ``serve.Engine`` (engine tokens == direct decode,
+   ``monitor_fleet`` on the lanes); init and prefill peak memory.
+   (k.3) gemma2-2b at published widths (26 layers, d 2304, 8/4 heads x
+   256, d_ff 9216, vocab 256 000) through ``Model.prefill``/
+   ``decode_step``: a 2 x 8192 prefill through the kernel and the plain
+   attention (26 flash launches, 13 windowed), gated in float32 at a
+   2-layer cut (rel L2 1e-4; window-off and 1.02 x scale controls must
+   miss), f32 decode vs a prefill one token longer (same token, 1e-4),
+   16 greedy tokens in bf16.  The zamba2 and gemma2 launches count into
+   ``flash_attention``'s and ``ssd_chunk``'s, one ``{"serve": ...}``
+   line each, the instances' times in a ``{"flash_instances": ...}``
+   line;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -197,6 +228,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import itertools
 import json
 import re
 import shutil
@@ -267,6 +300,14 @@ MOE_LAYERS = 16              # of 32: 42.1 GB of bf16 weights, room left
                              # for the Engine's cache at 8 x 2048
 MOE_ROUND_S = 1479           # a ragged round length (prompts 512-1536)
 MOE_F32_LAYERS = 2           # the float32 gate's cut (10.5 GB of weights)
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_FLASH_SHAPE = (8, 1024, 32, 32, 112)   # its shared attention's prefill
+ZAMBA_SSD_SHAPE = (8, 4, 256, 112, 64, 64)   # its prefill's chunk step
+ZAMBA_F32_GROUPS = 2         # the float32 gate's cut (16 mamba layers)
+GEMMA_ARCH = "gemma2-2b"
+GEMMA_FLASH_SHAPE = (2, 8192, 8, 4, 256)     # 2 x its published context
+GEMMA_NEW = 16               # decode steps after the 8192-token prefill
+GEMMA_F32_LAYERS = 2         # the float32 gate's cut: one local, one global
 
 
 class CheckFailed(AssertionError):
@@ -1732,13 +1773,18 @@ def phase_flash(torch, AK, AR, rng, dev, seed):
     return path_err
 
 
-def flash_bound(shape, causal=True):
+def flash_bound(shape, causal=True, window=0):
     """Least time of one GQA forward at ``shape`` (S = T; bf16 in, f32
     out): each input read once and the output written once, against the
-    FLOPs of the unmasked score pairs (QK^T and P.V, 2 each)."""
+    FLOPs of the unmasked score pairs (QK^T and P.V, 2 each; a causal
+    row q keeps min(q + 1, window) keys under a window)."""
     B, S, H, K, hd = shape
     nbytes = 2 * (B * S * H * hd + 2 * B * S * K * hd) + 4 * B * S * H * hd
-    pairs = S * (S + 1) // 2 if causal else S * S
+    if causal and window:
+        w = min(window, S)
+        pairs = w * (w + 1) // 2 + (S - w) * w
+    else:
+        pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4.0 * B * H * hd * pairs
     t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
@@ -1900,15 +1946,19 @@ def _leaves(tree):
             yield v
 
 
-def decode_cache(model, c, B, L, dev):
+def decode_cache(model, c, B, L, dev, max_seq=SERVE_MAX_SEQ):
     """The cache a round decodes from, as the engine builds it: the KV
-    cache padded to max_seq (dense), the prefill's states as they are
-    (ssm: the round's prompt length is neither ssm_conv - 1 nor H)."""
+    cache padded to max_seq (dense, and the hybrid's k/v), the prefill's
+    conv and SSM states as they are (ssm and hybrid: the round's prompt
+    length is neither ssm_conv - 1, H nor B)."""
     if model.cfg.family == "ssm":
         return c
-    cache = model.init_cache(B, SERVE_MAX_SEQ, device=dev)
+    cache = model.init_cache(B, max_seq, device=dev)
     for n in cache:
-        cache[n][:, :, :L] = c[n]
+        if n in ("k", "v"):
+            cache[n][:, :, :L] = c[n]
+        else:
+            cache[n].copy_(c[n])
     return cache
 
 
@@ -2065,12 +2115,15 @@ def phase_profile(torch, model, params, rows, dev, categories=_CATEGORIES):
 
 def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
                 spans=contextlib.nullcontext, prompts=None,
-                categories=_CATEGORIES):
+                categories=_CATEGORIES, per_round=None, also=()):
     """A serving path: requests through the engine's QoS lanes, batched
-    prefill through the kernel ``kname`` of module ``KK`` (one launch
-    per layer per round), greedy decode.  ``spans`` wraps the trace,
-    which splits by ``categories``; the requests' prompts are appended
-    to ``prompts`` when given."""
+    prefill through the kernel ``kname`` of module ``KK`` (``per_round``
+    launches a round, default one per layer), greedy decode.  ``also``
+    holds further (module, kernel, launches a round) the rounds must
+    launch, counted into the stats.  ``spans`` wraps the trace, which
+    splits by ``categories``; the requests' prompts are appended to
+    ``prompts`` when given."""
+    per_round = per_round or model.cfg.n_layers
     eng = serve.Engine(model, params, serve.ServeConfig(
         batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
         device=dev)
@@ -2090,6 +2143,8 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
         prompts.extend(r.tokens for r in reqs)
     KK.reset_launch_counts()
     MK.reset_launch_counts()
+    for mod, _, _ in also:
+        mod.reset_launch_counts()
     eng.start()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2099,13 +2154,17 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
     wall = time.perf_counter() - t0
     n_rounds = len(rounds)
     launched = KK.launch_counts()[kname]
+    also_launched = {name: mod.launch_counts()[name]
+                     for mod, name, _ in also}
     crashes = list(eng._crashes)
     check(not crashes, f"serve worker crashed: {crashes}")
     for r in reqs:
         check(r.out is not None and r.out.shape == (SERVE_NEW,),
               f"request {r.rid} answered {r.out}")
-    check(launched == model.cfg.n_layers * n_rounds,
-          f"{kname} launched {launched} times in {n_rounds} rounds")
+    for name, got, per in ((kname, launched, per_round),) + tuple(
+            (name, also_launched[name], per) for _, name, per in also):
+        check(got == per * n_rounds,
+              f"{name} launched {got} times in {n_rounds} rounds")
     # one request alone: its round is the request replicated to the batch
     solo = serve.Request(rid=SERVE_REQS, tokens=reqs[0].tokens,
                          max_new=SERVE_NEW)
@@ -2140,6 +2199,8 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
         f"cache {c_bytes / 1e9:.3f} GB at max_seq {SERVE_MAX_SEQ}; "
         f"engine tokens equal the direct decode")
     return launched, {"serve_wall_s": wall, "serve_rounds": n_rounds,
+                   **{f"{name}_launches": n
+                      for name, n in also_launched.items()},
                    "new_tokens_per_s": new_tokens / wall,
                    "round_prefill_ms": pre_ms, "round_prompt_len":
                    len(solo.tokens), "decode_ms_per_token": dec_ms,
@@ -2179,8 +2240,9 @@ _SSD_SLICE = (("y", (2, 4)), ("state", (3, 4)), ("decay", ()))
 def phase_ssd(torch, SK, SR, SO, rng, dev):
     """Kernel against its plain version on the card: the chunked op on
     the JAX package's kernel-test shapes and chunks, and the chunk kernel
-    at odd shapes (rtol = atol = 1e-4); then at the path's shape, with
-    the test's draws and with Mamba-2's initialisation, where each
+    at odd shapes (rtol = atol = 1e-4); then at the paths' shapes
+    (mamba2's and zamba2's chunk steps), with the test's draws and with
+    Mamba-2's initialisation, where each
     output's error is at most 1e-4 of the largest |plain| in its
     (b, c, h) slice (y, state) or of |plain| itself (decay; entries
     below 1e-30 are held to 1e-34 absolute)."""
@@ -2205,9 +2267,10 @@ def phase_ssd(torch, SK, SR, SO, rng, dev):
             check(bool(((g - w).abs() <= tol + tol * w.abs()).all()),
                   f"ssd_chunk {lead} H {H} P {P} N {N}: max abs err "
                   f"{float((g - w).abs().max())}")
-    B, c, Q, H, P, N = SSD_SHAPE
     err = 0.0
-    for init in (False, True):
+    for shape, init in itertools.product((SSD_SHAPE, ZAMBA_SSD_SHAPE),
+                                         (False, True)):
+        B, c, Q, H, P, N = shape
         draw = "Mamba-2 init" if init else "test draws"
         ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev, init=init)
         got = SK.ssd_chunk(*ins)
@@ -2221,10 +2284,10 @@ def phase_ssd(torch, SK, SR, SO, rng, dev):
                      else w.abs()).clamp_min(1e-30)
             rel = float((d / scale).max())
             e = float(d.max())
-            check(rel <= tol, f"ssd_chunk {name} at {SSD_SHAPE} ({draw}): "
+            check(rel <= tol, f"ssd_chunk {name} at {shape} ({draw}): "
                   f"error {rel} of its scale > {tol} (max abs err {e})")
             live = float((w.abs() > 1e-30).float().mean())
-            log(f"ssd_chunk {name} at {SSD_SHAPE} ({draw}): max abs err "
+            log(f"ssd_chunk {name} at {shape} ({draw}): max abs err "
                 f"{e:.3e}, {rel:.3e} of its scale (gate {tol}); "
                 f"{live:.4f} of |plain| above 1e-30")
             err = max(err, e)
@@ -2473,7 +2536,7 @@ def phase_flash_bwd(torch, AK, AR, rng, dev, seed):
     own = np.random.default_rng((seed, 9))
     cases = [(BWD_SHAPE, None, bf16, True, None, 1e-2, rng)]
     cases += [((2, 300, 4, 2, hd), None, f32, True, None, 1e-4, own)
-              for hd in AK.HEAD_DIMS]
+              for hd in AK.BWD_HEAD_DIMS]
     cases += [((2, 300, 4, 2, 128), None, f32, False, 0.3, 1e-4, own),
               ((1, 1000, 8, 2, 64), None, f32, True, None, 1e-4, own),
               ((1, 1000, 8, 2, 64), None, f32, False, None, 1e-4, own),
@@ -2638,10 +2701,10 @@ def plain_attention_backward(torch, AK, AR):
     explicit formulas): the kernel's forward with an exact backward."""
     orig = AK.flash_attention_bwd
 
-    def plain(q, k, v, o, do, lse, *, causal=True, scale=None):
+    def plain(q, k, v, o, do, lse, *, causal=True, scale=None, **kw):
         del lse
         return AR.attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                    scale=scale)
+                                    scale=scale, **kw)
     AK.flash_attention_bwd = plain
     try:
         yield
@@ -2656,9 +2719,9 @@ def scaled_attention_backward(torch, AK, factor):
     the backward kernel against the plain backward."""
     orig = AK.flash_attention_bwd
 
-    def off(q, k, v, o, do, lse, *, causal=True, scale=None):
+    def off(q, k, v, o, do, lse, *, causal=True, scale=None, **kw):
         scale = factor * (scale or q.shape[-1] ** -0.5)
-        return orig(q, k, v, o, do, lse, causal=causal, scale=scale)
+        return orig(q, k, v, o, do, lse, causal=causal, scale=scale, **kw)
     off.launches = 0          # the wrapper counts on the module's name
     AK.flash_attention_bwd = off
     try:
@@ -3037,16 +3100,17 @@ def phase_ckpt_resume(torch, cfgs, models, rng, dev, seed):
 
 
 @contextlib.contextmanager
-def scaled_flash_forward(torch, AK, factor):
-    """The forward kernel run at ``factor`` times the model's scale: a
-    wrong attention, the control that the kernel-vs-plain gates of the
-    model phases must fail."""
+def scaled_flash_forward(torch, AK, factor, **change):
+    """The forward kernel run at ``factor`` times the model's scale, with
+    ``change`` (``softcap=None``, ``window=0``) over the arguments it is
+    given: a wrong attention, the control that the kernel-vs-plain gates
+    of the model phases must fail."""
     orig = AK.flash_attention
 
-    def off(q, k, v, *, causal=True, scale=None, return_lse=False):
+    def off(q, k, v, *, causal=True, scale=None, return_lse=False, **kw):
         scale = factor * (scale or q.shape[-1] ** -0.5)
         return orig(q, k, v, causal=causal, scale=scale,
-                    return_lse=return_lse)
+                    return_lse=return_lse, **{**kw, **change})
     off.launches = 0          # the wrapper counts on the module's name
     AK.flash_attention = off
     try:
@@ -3444,6 +3508,401 @@ def phase_moe(torch, AK, AO, MK, serve, TF, cfgs, models, rng, seed, dev):
         "routes_flipped_f32": flip32, **stats}
 
 
+# ---------------------------------------------------------------------------
+# phase (k): the hybrid family and the capped, windowed attention
+
+
+def _qkv_on_card(torch, g, shape, dtype, dev, qmul=1.0):
+    """``_qkv``'s normal draws, made on the card from the generator ``g``:
+    numpy takes seconds of host time for the ~5e8 values of phase
+    (k.1)'s shapes."""
+    B, S, H, K, hd = shape
+    mk = lambda *sh: torch.randn(sh, generator=g, device=dev)  # noqa: E731
+    return ((mk(B, S, H, hd) * qmul).to(dtype), mk(B, S, K, hd).to(dtype),
+            mk(B, S, K, hd).to(dtype))
+
+
+def _flash_gate(torch, AK, AR, q, k, v, kw, tol, off=None):
+    """(max abs err, within tol) of the kernel against the plain version
+    under ``kw``; ``off`` changes the kernel's arguments only (a
+    control)."""
+    got = AK.flash_attention(q, k, v, **{**kw, **(off or {})})
+    want = AR.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    ok = bool(torch.isfinite(got).all() and (d <= tol + tol * want.abs()).all())
+    return float(d.max()), ok
+
+
+def kernel_flash_k(torch, AK, AR, dev, seed):
+    """(k.1) The new forward instances against the plain version (bf16
+    1e-3, f32 2e-4): hd 112 at zamba2's prefill (8, 1024, 32, 32, 112)
+    causal and a ragged round of 8 x 1479; hd 256 at gemma2's (2, 8192,
+    8, 4, 256) causal with softcap 50 (q x 8, so that the cap bends the
+    scores), windowed (4096) and not.  Controls
+    that must miss the gate: the kernel at 1.02 x scale, with its window
+    taken off, with its softcap taken off.  Timed with CUDA events: hd
+    112 in turns with SDPA (causal, the same function); hd 256 beside
+    SDPA causal without cap or window (not the same function: no single
+    PyTorch call caps the scores), the plain version and the f32
+    instance."""
+    import torch.nn.functional as F
+    own = torch.Generator(device=dev).manual_seed(seed + 12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, K, hd = ZAMBA_FLASH_SHAPE
+    gemma = dict(causal=True, softcap=50.0)
+    win = dict(gemma, window=4096)
+    # (name, shape, dtype, arguments, tol, q multiplier): q x 8 at hd 256,
+    # so that the scores (sd 8) reach the softcap's bend
+    cases = [("hd112", ZAMBA_FLASH_SHAPE, bf16, dict(causal=True), 1e-3, 1),
+             ("hd112 ragged", (B, MOE_ROUND_S, H, K, hd), bf16,
+              dict(causal=True), 1e-3, 1),
+             ("hd112 f32", ZAMBA_FLASH_SHAPE, f32, dict(causal=True), 2e-4,
+              1),
+             ("hd256 window", GEMMA_FLASH_SHAPE, bf16, win, 1e-3, 8),
+             ("hd256", GEMMA_FLASH_SHAPE, bf16, gemma, 1e-3, 8),
+             ("hd256 window f32", GEMMA_FLASH_SHAPE, f32, win, 2e-4, 8)]
+    errs, controls, qkv = {}, {}, {}
+    for name, shape, dtype, kw, tol, qmul in cases:
+        q, k, v = _qkv_on_card(torch, own, shape, dtype, dev, qmul)
+        e, ok = _flash_gate(torch, AK, AR, q, k, v, kw, tol)
+        what = f"flash_attention {name} {shape} {str(dtype)[6:]} {kw}"
+        check(ok, f"{what}: max abs err {e} over tol {tol}")
+        log(f"{what}: max abs err {e:.3e} (tol {tol})")
+        errs[name] = e
+        if dtype == bf16 and name in ("hd112", "hd256 window"):
+            qkv[name] = (q, k, v)
+            scale = shape[-1] ** -0.5
+            offs = {"scale x 1.02": dict(scale=1.02 * scale)}
+            if "window" in kw:
+                offs.update({"window off": dict(window=0),
+                             "softcap off": dict(softcap=None)})
+            for cname, off in offs.items():
+                ce, cok = _flash_gate(torch, AK, AR, q, k, v, kw, tol, off)
+                check(not cok, f"control: {what} with {cname} within tol "
+                      f"{tol} (max abs err {ce}), so the gate could not "
+                      "fail")
+                controls[f"{name}, {cname}"] = ce
+        del q, k, v
+    log("flash_attention controls (max abs err, each must miss 1e-3): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in controls.items()))
+    out = {"max_abs_err": max(v for n, v in errs.items() if "f32" not in n),
+           "max_abs_err_f32": max(v for n, v in errs.items() if "f32" in n),
+           "controls_max_abs_err": controls}
+    # SDPA computes the same function only without a cap
+    for name, shape, kw, same in (
+            ("hd112", ZAMBA_FLASH_SHAPE, dict(causal=True), True),
+            ("hd256 window", GEMMA_FLASH_SHAPE, win, False),
+            ("hd256", GEMMA_FLASH_SHAPE, gemma, False)):
+        q, k, v = qkv.get(name) or qkv["hd256 window"]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kern = lambda: AK.flash_attention(q, k, v, **kw)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        reps = 50 if name == "hd112" else 10
+        turns = [event_ms(torch, fn, reps=reps)
+                 for fn in (kern, sdpa, sdpa, kern)]
+        ms, sdpa_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = event_ms(torch, lambda: AR.attention_ref(q, k, v, **kw),
+                            reps=2, warm=1)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        f32_ms = event_ms(torch, lambda: AK.flash_attention(
+            q32, k32, v32, **kw), reps=3, warm=1)
+        del q32, k32, v32
+        bound_ms, bound_by, nbytes, flops = flash_bound(
+            shape, window=kw.get("window", 0))
+        log(f"flash_attention {name} {shape} bf16 {kw}, in turns kernel/"
+            f"SDPA/SDPA/kernel: " + " / ".join(f"{t:.4f}" for t in turns)
+            + f" ms; {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP: "
+            f"{flops / ms / 1e9:.1f} TFLOP/s), SDPA causal {sdpa_ms:.4f} ms"
+            + ("" if same else " (no cap, no window: not the same "
+               "function)") + f", plain {plain_ms:.4f} ms, the f32 instance "
+            f"{f32_ms:.4f} ms")
+        out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": sdpa_ms if same else None,
+                     "sdpa_uncapped_ms": None if same else sdpa_ms,
+                     "turns_ms": turns, "f32_ms": f32_ms,
+                     "tflops": flops / ms / 1e9}
+    del qkv
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def counted_flash(torch, AK):
+    """Count the forward's calls with a window on top of its launches
+    (the wrapper counts on the module's name, as in
+    ``scaled_flash_forward``)."""
+    orig = AK.flash_attention
+
+    def counting(*a, **kw):
+        if kw.get("window"):
+            counting.windowed += 1
+        return orig(*a, **kw)
+    counting.launches, counting.windowed = 0, 0
+    AK.flash_attention = counting
+    try:
+        yield counting
+    finally:
+        AK.flash_attention = orig
+
+
+def _f32_cut(params, tree_key, n):
+    """``params`` in float32 with the stacked leaves under ``tree_key``
+    cut to their first ``n`` layers."""
+    return {k: (_map(v, lambda t: t[:n].float()) if k == tree_key else
+                (_map(v, lambda t: t.float()) if isinstance(v, dict)
+                 else v.float())) for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def plain_ssd_chunk(SK, SR):
+    """The SSD op's chunk step on its plain version while the model's
+    other kernels run: the flash kernel's own gate in a hybrid model."""
+    orig = SK.ssd_chunk
+    SK.ssd_chunk = SR.ssd_chunk_batched_ref
+    try:
+        yield
+    finally:
+        SK.ssd_chunk = orig
+
+
+def phase_zamba2(torch, AK, SK, SR, MK, serve, cfgs, models, rng, seed,
+                 dev):
+    """(k.2) zamba2-7b at published widths (81 layers as 9 groups of 8
+    mamba layers and one application of the shared attention+MLP block,
+    d 3584, 32 x 112 heads, d_ff 14 336, SSD H 112 x P 64, N 64, chunk
+    256): random bf16 weights from ``--seed``, Mamba-2's decay init.
+
+    An 8 x 1024 prefill through the kernels (9 flash, 72 SSD launches)
+    and through the plain versions (bf16 rel L2 reported); the gates in
+    float32 at a 2-group cut of the same weights: the last logits with
+    both kernels within rel L2 1e-3 of plain (the SSD's model gate), and
+    with the flash kernel alone (the SSD plain on both sides) within
+    1e-4, which the flash kernel at 1.02 x scale must miss (it moves the
+    logits less than 1e-3: the SSD's gate cannot see it).  Then phase
+    8's traffic through ``serve.Engine``
+    (9 flash and 72 SSD launches a round, ``monitor_fleet`` on the
+    lanes, engine tokens == direct decode)."""
+    import dataclasses
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = cfgs.get_config(ZAMBA_ARCH)
+    G, per = cfg.n_layers // (cfg.hybrid_group + 1), cfg.hybrid_group
+    model = models.build_model(cfg, bf16)
+    plain = models.build_model(cfg, bf16, kernel_impl="plain")
+    gc.collect()               # an earlier phase's engine holds its weights
+    torch.cuda.empty_cache()   # in a reference cycle until collected
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(g, bf16, device=dev)
+    mamba2_decay_init(torch, params["mamba"], g)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, PREFILL_S)), device=dev)}
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        AK.reset_launch_counts()
+        SK.reset_launch_counts()
+        (lk, _), ms_k = _sync_ms(torch, lambda: model.prefill(params,
+                                                              batch))
+        launches = (AK.launch_counts()["flash_attention"],
+                    SK.launch_counts()["ssd_chunk"])
+        (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params, batch))
+        rel16 = _rel_l2(lk, lp)
+        c32 = dataclasses.replace(cfg, n_layers=ZAMBA_F32_GROUPS * (per + 1))
+        p32 = _f32_cut(params, "mamba", ZAMBA_F32_GROUPS * per)
+        m32 = models.build_model(c32, f32)
+        l32k, _ = m32.prefill(p32, batch)
+        l32p, _ = models.build_model(c32, f32, kernel_impl="plain").prefill(
+            p32, batch)
+        with plain_ssd_chunk(SK, SR):
+            l32a, _ = m32.prefill(p32, batch)
+            with scaled_flash_forward(torch, AK, 1.02):
+                l32s, _ = m32.prefill(p32, batch)
+        rel32, rel32a = _rel_l2(l32k, l32p), _rel_l2(l32a, l32p)
+        rel32s = _rel_l2(l32s, l32p)
+        del p32
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    check(launches == (G, G * per), f"zamba2 prefill launched "
+          f"flash_attention/ssd_chunk {launches} times, expected "
+          f"{(G, G * per)}")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(l32k).all()),
+          "non-finite zamba2 prefill logits")
+    check(rel32 <= 1e-3, f"zamba2 f32 logits ({ZAMBA_F32_GROUPS} groups): "
+          f"kernels vs plain rel L2 {rel32} over 1e-3")
+    check(rel32a <= 1e-4, f"zamba2 f32 logits ({ZAMBA_F32_GROUPS} groups): "
+          f"the flash kernel vs plain attention rel L2 {rel32a} over 1e-4")
+    check(rel32s > 1e-4, f"control: zamba2 f32 logits with the flash kernel "
+          f"at 1.02 x scale {rel32s} within 1e-4, so the gate could not fail")
+    log(f"model {cfg.name}: {cfg.n_layers} layers as {G} x ({per} mamba + "
+        f"the shared block), d {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, SSD {cfg.ssm_nheads} x "
+        f"{cfg.ssm_headdim}, N {cfg.ssm_state}, vocab {cfg.padded_vocab}; "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.3f} GB bf16 "
+        f"(init {t_init:.1f} s, peak {init_peak / 1e9:.2f} GB over "
+        f"{base / 1e9:.2f} GB held when the phase began)")
+    log(f"zamba2 prefill {SERVE_B} x {PREFILL_S}: kernels {ms_k:.1f} ms, "
+        f"plain {ms_p:.1f} ms (host clock, synchronized), {launches[0]} "
+        f"flash and {launches[1]} SSD launches; last logits kernels vs "
+        f"plain: bf16 rel L2 {rel16:.3e}, f32 at {ZAMBA_F32_GROUPS} groups "
+        f"{rel32:.3e} (gate 1e-3), the flash kernel alone {rel32a:.3e} "
+        f"(gate 1e-4; at 1.02 x scale {rel32s:.3e} must miss it); peak "
+        f"{prefill_peak / 1e9:.2f} GB")
+    serve_launches, stats = phase_serve(
+        torch, AK, "flash_attention", MK, serve, model, params, rng, dev,
+        per_round=G, also=((SK, "ssd_chunk", G * per),))
+    del model, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve_launches, stats["ssd_chunk_launches"], {
+        "layers": cfg.n_layers, "parameters": n_params,
+        "weight_bytes": w_bytes, "base_bytes": base,
+        "init_peak_bytes": init_peak,
+        "prefill_peak_bytes": prefill_peak, "prefill_8x1024_ms": ms_k,
+        "prefill_8x1024_plain_ms": ms_p, "logits_rel_l2_bf16": rel16,
+        "logits_rel_l2_f32": rel32, "logits_rel_l2_f32_flash_only": rel32a,
+        "logits_rel_l2_f32_scaled_control": rel32s, **stats}
+
+
+def phase_gemma2(torch, AK, TF, cfgs, models, rng, seed, dev):
+    """(k.3) gemma2-2b at published widths (26 layers alternating local
+    (window 4096) and global from layer 0, d 2304, 8/4 heads x 256, d_ff
+    9216, vocab 256 000, tied and scaled embedding, softcaps 50/30):
+    random bf16 weights from ``--seed``, through ``Model.prefill`` and
+    ``Model.decode_step`` at its 8192-token context, where the window
+    masks.
+
+    A 2 x 8192 prefill through the kernel and the plain attention (26
+    flash launches, 13 windowed; bf16 rel L2 reported); the gate in
+    float32 at a 2-layer cut (one local, one global) at 2 x 8192: last
+    logits within rel L2 1e-4 of plain, and the kernel with its window
+    off and at 1.02 x scale must miss.  Decode at the cut agrees with a
+    prefill one token longer (same token, logits 1e-4: the plain decode
+    window against the kernel's).  Then 16 greedy tokens at batch 2
+    after the 8192-token prefill in bf16, every step's window live."""
+    import dataclasses
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = cfgs.get_config(GEMMA_ARCH)
+    B, S = GEMMA_FLASH_SHAPE[:2]
+    model = models.build_model(cfg, bf16)
+    plain = models.build_model(cfg, bf16, kernel_impl="plain")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               bf16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                           device=dev)
+    batch = {"tokens": toks[:, :S]}
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        with counted_flash(torch, AK) as fc:
+            (lk, cache), ms_k = _sync_ms(torch, lambda: model.prefill(
+                params, batch))
+        launches, windowed = fc.launches, fc.windowed
+        (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params, batch))
+        rel16 = _rel_l2(lk, lp)
+        # float32 at a 2-layer cut: one local and one global layer
+        c32 = dataclasses.replace(cfg, n_layers=GEMMA_F32_LAYERS)
+        p32 = _f32_cut(params, "blocks", GEMMA_F32_LAYERS)
+        m32 = models.build_model(c32, f32)
+        l32k, c32k = m32.prefill(p32, batch)
+        l32p, _ = models.build_model(c32, f32, kernel_impl="plain").prefill(
+            p32, batch)
+        with scaled_flash_forward(torch, AK, 1.0, window=0):
+            l32w, _ = m32.prefill(p32, batch)
+        with scaled_flash_forward(torch, AK, 1.02):
+            l32s, _ = m32.prefill(p32, batch)
+        rel32 = _rel_l2(l32k, l32p)
+        ctrl = {"window off": _rel_l2(l32w, l32p),
+                "scale x 1.02": _rel_l2(l32s, l32p)}
+        # decode the (S+1)-th token at the cut against a prefill of S + 1
+        c = decode_cache(m32, c32k, B, S, dev, max_seq=S + 1)
+        ld, _, _ = TF.lm_forward(
+            p32, c32, tokens=toks[:, S:], cache=c,
+            pos_offset=torch.full((B,), S, device=dev), mode="decode",
+            compute_dtype=f32, logits_mode="last")
+        lf, _ = m32.prefill(p32, {"tokens": toks})
+        dec_rel = _rel_l2(ld, lf)
+        dec_same = bool(torch.equal(ld[:, -1].argmax(-1), lf[:, -1].argmax(-1)))
+        del p32, c32k, c
+        torch.cuda.empty_cache()
+        # 16 greedy tokens in bf16 after the 8192-token prefill
+        cache_d = decode_cache(model, cache, B, S, dev,
+                               max_seq=S + GEMMA_NEW)
+        del cache
+        cur = torch.argmax(lk[:, -1], -1).to(torch.int32)
+        pos = torch.full((B,), S, device=dev)
+        model.decode_step(params, cache_d, cur, pos)       # warm-up, same
+        outs = [cur]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GEMMA_NEW - 1):
+            cur, cache_d = model.decode_step(params, cache_d, cur, pos)
+            pos = pos + 1
+            outs.append(cur)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (GEMMA_NEW - 1)
+        gen = torch.stack(outs, 1).cpu().numpy()
+        c_bytes = sum(t.numel() * t.element_size() for t in cache_d.values())
+    del model, plain, params, cache_d
+    torch.cuda.empty_cache()
+    n_local = sum(1 for i in range(cfg.n_layers) if TF._is_local(cfg, i))
+    check(launches == cfg.n_layers and windowed == n_local,
+          f"gemma2 prefill: {launches} flash launches, {windowed} windowed, "
+          f"expected {cfg.n_layers} and {n_local}")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(l32k).all()),
+          "non-finite gemma2 prefill logits")
+    check(rel32 <= 1e-4, f"gemma2 f32 logits ({GEMMA_F32_LAYERS} layers): "
+          f"kernel vs plain rel L2 {rel32} over 1e-4")
+    for name, r in ctrl.items():
+        check(r > 1e-4, f"control: gemma2 f32 logits with the kernel's "
+              f"{name} {r} within 1e-4, so the gate could not fail")
+    check(dec_same and dec_rel <= 1e-4, f"gemma2 f32 decode vs prefill: "
+          f"same token {dec_same}, logits rel L2 {dec_rel}")
+    check(gen.shape == (B, GEMMA_NEW)
+          and bool(((gen >= 0) & (gen < cfg.padded_vocab)).all()),
+          f"gemma2 greedy tokens {gen.shape}")
+    tok_s = B * 1e3 / dec_ms
+    log(f"model {cfg.name}: {cfg.n_layers} layers ({n_local} local, window "
+        f"{cfg.sliding_window}), d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}; {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.3f} GB bf16 (init {t_init:.1f} s)")
+    log(f"gemma2 prefill {B} x {S}: kernel {ms_k:.1f} ms, plain attention "
+        f"{ms_p:.1f} ms (host clock, synchronized), {launches} flash "
+        f"launches ({windowed} windowed); last logits kernel vs plain: bf16 "
+        f"rel L2 {rel16:.3e}, f32 at {GEMMA_F32_LAYERS} layers {rel32:.3e} "
+        f"(gate 1e-4; the controls " + ", ".join(
+            f"{n} {r:.3e}" for n, r in ctrl.items()) + " must miss it); "
+        f"f32 decode vs prefill logits {dec_rel:.3e}, same token "
+        f"{dec_same}; decode {dec_ms:.2f} ms a token at batch {B} "
+        f"({tok_s:.1f} tokens/s, {GEMMA_NEW} tokens, cache "
+        f"{c_bytes / 1e6:.1f} MB)")
+    return launches, {
+        "layers": cfg.n_layers, "parameters": n_params,
+        "weight_bytes": w_bytes, "prefill_2x8192_ms": ms_k,
+        "prefill_2x8192_plain_attn_ms": ms_p, "flash_launches": launches,
+        "flash_launches_windowed": windowed, "logits_rel_l2_bf16": rel16,
+        "logits_rel_l2_f32": rel32, "logits_rel_l2_f32_controls": ctrl,
+        "decode_vs_prefill_rel_l2": dec_rel, "decode_ms_per_token": dec_ms,
+        "decode_tokens_per_s": tok_s, "new_tokens": GEMMA_NEW,
+        "cache_bytes": c_bytes}
+
+
 @contextlib.contextmanager
 def _wall(walls, name):
     t0 = time.perf_counter()
@@ -3518,6 +3977,11 @@ def main() -> int:
               and (r["spill_stores"] or r["spill_loads"])]
     check(not spills, f"flash_attention_bwd's tensor-core kernels spill at "
           f"hd 128: {spills}")
+    spills = [r for r in ptxas_report(Path(str(libs[1]) + ".log").read_text())
+              if "wgmma" in r["kernel"]
+              and (r["spill_stores"] or r["spill_loads"])]
+    check(not spills, f"flash_attention's tensor-core kernels spill: "
+          f"{spills}")
     sass = sass_step_instructions(libs[0], "monitor_fleet_kernelILi32ELi16E"
                                   "Li2ELb0ELb1E")
     log(f"  monitor_fleet (state mode, time-major, 32/16/2): dynamic smem "
@@ -3532,7 +3996,7 @@ def main() -> int:
         f"hd {hd} bf16 "
         f"{AK.shared_memory_bytes_bwd(hd, torch.bfloat16)} f32 "
         f"{AK.shared_memory_bytes_bwd(hd, torch.float32)}"
-        for hd in AK.HEAD_DIMS))
+        for hd in AK.BWD_HEAD_DIMS))
 
     walls = {"start, build": time.perf_counter() - start}
 
@@ -3615,6 +4079,14 @@ def main() -> int:
         moe_flash_err = kernel_flash_moe(torch, AK, AR, dev, args.seed)
         moe_launches, moe = phase_moe(torch, AK, AO, K, SV, TF, C, MD, rng,
                                       args.seed, dev)
+    with wall("k.1 flash hd 112, 256"):
+        flash_k = kernel_flash_k(torch, AK, AR, dev, args.seed)
+    with wall("k.2 zamba2"):
+        zamba_launches, zamba_ssd, zamba = phase_zamba2(
+            torch, AK, SK, SR, K, SV, C, MD, rng, args.seed, dev)
+    with wall("k.3 gemma2"):
+        gemma_launches, gemma = phase_gemma2(torch, AK, TF, C, MD, rng,
+                                             args.seed, dev)
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -3635,16 +4107,19 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:25",
-         "launches": flash_launches + whisper_launches + moe_launches,
+         "launches": (flash_launches + whisper_launches + moe_launches
+                      + zamba_launches + gemma_launches),
          "max_abs_err": max(flash["max_abs_err"],
-                            whisper["flash"]["max_abs_err"], moe_flash_err),
+                            whisper["flash"]["max_abs_err"], moe_flash_err,
+                            flash_k["max_abs_err"]),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:25",
-         "launches": ssd_launches, "max_abs_err": ssd["max_abs_err"],
+         "launches": ssd_launches + zamba_ssd,
+         "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
          "library_ms": ssd["library_ms"]},
@@ -3662,6 +4137,7 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     log(json.dumps({"flash": {k: flash[k] for k in (
         "ms", "library_ms", "turns_ms", "f32_ms", "tflops", "tile_tflops")}}))
+    log(json.dumps({"flash_instances": flash_k}))
     log(json.dumps({"ssd": {k: ssd[k] for k in (
         "ms", "bound_ms", "plain_ms", "tflops", "own_tflops")}}))
     extra = {"monitor_fleet_row_major_ms": fleet["ms_row_major"],
@@ -3687,6 +4163,8 @@ def main() -> int:
                               **ssm_serve_stats}}))
     log(json.dumps({"serve": {"arch": WHISPER_ARCH, **whisper}}))
     log(json.dumps({"serve": {"arch": MOE_ARCH, **moe}}))
+    log(json.dumps({"serve": {"arch": ZAMBA_ARCH, **zamba}}))
+    log(json.dumps({"serve": {"arch": GEMMA_ARCH, **gemma}}))
     walls["total"] = time.perf_counter() - start
     log(json.dumps({"wall_s": walls}))
     log(json.dumps({"train": {"flash_attention_bwd": {k: bwd[k] for k in (

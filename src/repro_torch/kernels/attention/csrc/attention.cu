@@ -6,7 +6,14 @@
 // with kv head = h / (H/K), online softmax with float32 accumulation,
 // float32 output (B,S,H,hd), causal (aligned at the first position, as
 // attention_ref masks) or not.  Any S and T (tails are masked), hd 16,
-// 32, 64 or 128.
+// 32, 64, 112, 128 or 256.  Every instance takes an attention-logit
+// softcap and a sliding window as launch arguments (0 = none), which the
+// JAX package computes in its XLA attention, not in the Pallas kernel
+// (src/repro/models/attention.py): scores s = scale q.k, then
+// softcap tanh(s / softcap), then the causal mask, then keys t <= q -
+// window masked.  The bf16 kernel has two instances a head dim: a call
+// with neither a softcap nor a window runs the one where both are
+// compiled out.
 //
 // What bounds it on the card: at the serving path's prefill shape
 // (B 8, S = T 1024, H 16, K 8, hd 128, bf16, causal) the function does
@@ -58,14 +65,34 @@
 // the thread owns its 4 rows and hd/8 interleaved head dims.  Padded row
 // strides keep every shared-memory access conflict-free.
 //
-// Both: masked scores (causal, or past T) contribute p = 0 exactly and do
-// not enter the row max; the running max starts at the finite -1e30 and
-// the output divides by max(l, 1e-30), so a wholly masked row yields 0,
-// not NaN.  Causal blocks stop at the diagonal.
+// Both: masked scores (causal, windowed, or past T) contribute p = 0
+// exactly and do not enter the row max; the running max starts at the
+// finite -1e30 and the output divides by max(l, 1e-30), so a wholly
+// masked row yields 0, not NaN (the reference gives such a row, which
+// only a window can leave with no key, the mean of v: the wrapper
+// refuses those calls).  Causal blocks stop at the diagonal; a
+// windowed block starts at the tile that holds q0 - window + 1, so the
+// tiles left of the window are never loaded, and the left-edge tiles are
+// masked as the diagonal and T-tail tiles are.  The softcap uses the
+// accurate tanhf (tanh.approx.f32's 2^-11 relative error, times a cap of
+// 50, moves a score by up to ~0.02).
+//
+// hd 112 (zamba2's shared attention) and hd 256 (gemma2): the bf16 kernel
+// runs hd 112 on the 128-wide geometry: the tensor maps keep the tensor's
+// 112 columns, so the TMA zero-fills columns 112-127 of the second
+// 64-column panel; Q.K^T runs only the 7 k-steps that hold data, P.V runs
+// n = 128 (14% more products there), and the epilogue stores 112
+// columns.  hd 256 needs 128 accumulator registers a consumer thread and
+// ~161 KB of shared memory (Q and two K/V stages), so its instance runs
+// one CTA an SM (255 registers a thread, no setmaxnreg) and P.V as two
+// n = 128 products per k-step.  The f32 kernel takes both with a P.V
+// vector width that divides the head dim (2 at hd 112).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma (shared with the backward)
 
@@ -82,6 +109,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // backward's 2^(s - lse) is 0 there, never inf or NaN
 __device__ __forceinline__ float row_lse2(float m2, float l) {
   return l > 0.f ? m2 + log2f(l) : __int_as_float(0x7f800000);
+}
+
+// the first kv tile of a q block starting at q0 under a sliding window
+// (keys t > q - window; 0 = none): the tile that holds q0 - window + 1,
+// at most the last one, so a block none of whose rows has a key still
+// runs one wholly masked tile and writes zeros
+__device__ __forceinline__ int first_tile(int q0, int window, int n_tiles) {
+  if (window <= 0) return 0;
+  return min(max(q0 - window + 1, 0) / BK, n_tiles - 1);
 }
 
 template <int N>
@@ -111,12 +147,15 @@ struct Layout {
   static constexpr int QST = HD + 4;           // float row stride of Qs
   static constexpr int KST = HD + E;           // T row stride of Ks, Vs
   static constexpr int PST = BK + 8;           // float row stride of Ps
-  static constexpr int VW = HD >= 32 ? 4 : 2;  // head dims per P.V load
+  // head dims per P.V load: 4 where 8 lanes x 4 divide the head dim, else
+  // 2 (hd 16 and 112)
+  static constexpr int VW = HD % 32 == 0 ? 4 : 2;
   static constexpr int NC = HD / (8 * VW);     // P.V loads per kv row
   static constexpr size_t SMEM =
       sizeof(float) * BQ * QST + 2 * sizeof(T) * BK * KST +
       sizeof(float) * BQ * PST;
-  static_assert(HD % 16 == 0 && NC >= 1, "head dim must be 16..128");
+  static_assert(HD % 16 == 0 && NC * 8 * VW == HD, "head dim");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 template <int HD, typename T>
@@ -124,7 +163,7 @@ __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, int Tn, int H, int KH,
-                     int causal, float scale) {
+                     int causal, float scale, float softcap, int window) {
   using L = Layout<HD, T>;
   constexpr int E = L::E, QST = L::QST, KST = L::KST, PST = L::PST;
   constexpr int VW = L::VW, NC = L::NC;
@@ -172,8 +211,9 @@ __global__ void __launch_bounds__(NT)
 
   const int kv_end = causal ? min(q0 + BQ, Tn) : Tn;
   const int n_tiles = (kv_end + BK - 1) / BK;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
+  for (int jt = first_tile(q0, window, n_tiles); jt < n_tiles; ++jt) {
     const int t0 = jt * BK;
     __syncthreads();  // Qs written; last tile's Ks/Vs/Ps reads finished
     for (int idx = tid; idx < BK * HD / E; idx += NT) {
@@ -220,6 +260,12 @@ __global__ void __launch_bounds__(NT)
           s[i][j] = a;
         }
     }
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = softcap * tanhf(s[i][j] * inv_cap);
+    }
 
     // mask, online softmax update, P -> shared memory
 #pragma unroll
@@ -230,7 +276,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int tj = t0 + tx + 8 * j;
-        ok[j] = tj < Tn && (!causal || tj <= qi);
+        ok[j] = tj < Tn && (!causal || tj <= qi) &&
+                (window <= 0 || tj > qi - window);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -306,7 +353,7 @@ __global__ void __launch_bounds__(NT)
 template <int HD, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tn, int H, int KH, int causal, float scale,
-           cudaStream_t stream) {
+           float softcap, int window, cudaStream_t stream) {
   const size_t smem = Layout<HD, T>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -316,29 +363,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_kernel<HD, T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(o), lse, S, Tn, H, KH,
-      causal, scale);
+      causal, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int S, int Tn, int H, int KH, int causal,
-             float scale, cudaStream_t stream) {
+// the instances: f(std::integral_constant<int, hd>) for a supported hd
+template <typename F>
+int with_hd(int hd, F f) {
   switch (hd) {
-    case 16:
-      return launch<16, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                           stream);
-    case 32:
-      return launch<32, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                           stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                           stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    default: return -1;
   }
 }
 
@@ -352,20 +391,24 @@ constexpr int BQ = 64;       // q rows per CTA: one consumer warpgroup
 constexpr int BK = 64;       // kv rows per tile
 constexpr int STAGES = 2;    // K/V ring depth
 constexpr int NT = 160;      // the consumer warpgroup, then a producer warp
-constexpr int CTAS_PER_SM = 2;
 
 template <int HD>
 struct Geo {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle bytes
+  // the head dims the tiles hold: HD, or 128 for hd 112 (TMA zero-fills
+  // columns 112-127)
+  static constexpr int HDP = HD <= 64 ? HD : (HD + 63) / 64 * 64;
+  static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle bytes
   static constexpr int PC = SW / 2;        // head dims per panel (a row of
-  static constexpr int NP = HD / PC;       // SW bytes); panels per row
-  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
-  static constexpr uint32_t KV_BYTES = BK * HD * 2;   // one K or V tile
+  static constexpr int NP = HDP / PC;      // SW bytes); panels per row
+  // two CTAs an SM up to hd 128 (<= 168 registers a thread); one at hd 256
+  static constexpr int CTAS_PER_SM = HDP <= 128 ? 2 : 1;
+  static constexpr uint32_t Q_BYTES = BQ * HDP * 2;
+  static constexpr uint32_t KV_BYTES = BK * HDP * 2;  // one K or V tile
   // 1024 bytes of alignment slack, Q, the K and V rings, the mbarriers
   static constexpr int SMEM =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (4 * STAGES + 1);
-  static_assert(HD % 16 == 0 && HD <= 128 && NP * PC == HD, "head dim");
-  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(HD % 16 == 0 && HDP <= 256 && NP * PC == HDP, "head dim");
+  static_assert(SMEM * CTAS_PER_SM <= 232448, "shared memory");
 };
 
 using namespace hopper;
@@ -381,16 +424,25 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NT, CTAS_PER_SM)
+// scores -> log2 domain: scale log2(e) s, or with a softcap
+// cap log2(e) tanh(scale s / cap) (cap_in = scale / cap, cap_out =
+// cap log2(e)); cap_out = 0 means no softcap
+struct Scaling {
+  float scale_log2, cap_in, cap_out;
+};
+
+// CW: the instance for a call with a softcap or a window; a call with
+// neither runs CW = false, where both are compiled out
+template <int HD, bool CW>
+__global__ void __launch_bounds__(NT, Geo<HD>::CTAS_PER_SM)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            float* __restrict__ o, float* __restrict__ lse,
                            int S, int Tn, int H, int KH, int causal,
-                           float scale_log2) {
+                           Scaling sg, int window) {
   using G = Geo<HD>;
-  constexpr int SW = G::SW, PC = G::PC, NP = G::NP;
+  constexpr int HDP = G::HDP, SW = G::SW, PC = G::PC, NP = G::NP;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   // the swizzles repeat every 1024 bytes of shared-memory address
   const uint32_t sQ = (smem_addr(tc_smem) + 1023u) & ~1023u;
@@ -411,7 +463,10 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   const int kh = h / (H / KH);
   const int q0 = qb * BQ;
   const int kv_end = causal ? min(q0 + BQ, Tn) : Tn;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_end = (kv_end + BK - 1) / BK;
+  // the window's first tile, and the tiles this CTA runs
+  const int jt0 = CW ? first_tile(q0, window, n_end) : 0;
+  const int n_tiles = n_end - jt0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -432,18 +487,18 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
       mbar_expect_tx(qbar, G::Q_BYTES);
       for (int p = 0; p < NP; ++p)
         tma_load(sQ + p * BQ * SW, &tq, qbar, p * PC, h, q0, b);
-      for (int jt = 0; jt < n_tiles; ++jt) {
-        const int s = jt % STAGES;
-        const uint32_t free_parity = ((jt / STAGES) & 1) ^ 1;  // 1st: free
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, row = (jt0 + j) * BK;
+        const uint32_t free_parity = ((j / STAGES) & 1) ^ 1;  // 1st: free
         const uint32_t k_s = sK + s * G::KV_BYTES, v_s = sV + s * G::KV_BYTES;
         mbar_wait(empty_k(s), free_parity);
         mbar_expect_tx(full_k(s), G::KV_BYTES);
         for (int p = 0; p < NP; ++p)
-          tma_load(k_s + p * BK * SW, &tk, full_k(s), p * PC, kh, jt * BK, b);
+          tma_load(k_s + p * BK * SW, &tk, full_k(s), p * PC, kh, row, b);
         mbar_wait(empty_v(s), free_parity);
         mbar_expect_tx(full_v(s), G::KV_BYTES);
         for (int p = 0; p < NP; ++p)
-          tma_load(v_s + p * BK * SW, &tv, full_v(s), p * PC, kh, jt * BK, b);
+          tma_load(v_s + p * BK * SW, &tv, full_v(s), p * PC, kh, row, b);
       }
     }
     return;
@@ -455,17 +510,17 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   const int lane = tid % 32;
   const int row0 = q0 + warp * 16 + lane / 4;  // and row0 + 8
   const int cq = 2 * (lane % 4);  // column pair within each 8 columns
-  float acc[HD / 2];
+  float acc[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG};  // running max, log2 domain
   float l[2] = {0.f, 0.f};  // this thread's part of the running sum
   float alpha[2];
   float sc[BK / 2];
   uint32_t phi[BK / 4], plo[BK / 4];  // P of the previous step, bf16 pairs
 
-  // S = Q.K^T of the tile in K stage s, over hd in k-steps of 16 (32 bytes
-  // of a panel row), issued and committed
+  // S = Q.K^T of the tile in K stage s, over the k-steps of 16 head dims
+  // (32 bytes of a panel row) that hold data, issued and committed
   const auto issue_qk = [&](int s) {
     const uint32_t ka = sK + s * G::KV_BYTES;
 #pragma unroll
@@ -477,31 +532,54 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
     wg_commit();
   };
   // O += P_hi.V + P_lo.V with V in stage s, issued and committed; the pairs
-  // 4 kk .. 4 kk + 3 are the A fragment of k-step kk
+  // 4 kk .. 4 kk + 3 are the A fragment of k-step kk; at hd 256 two
+  // n = 128 products per k-step, each over two panels of V
   const auto issue_pv = [&](int s) {
     const uint32_t va = sV + s * G::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = desc_mn<SW>(va + kk * 16 * SW, BK * SW);
-      wgmma_rs(acc, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
-               phi[4 * kk + 3], dv);
-      wgmma_rs(acc, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
-               plo[4 * kk + 3], dv);
+      if constexpr (HDP <= 128) {
+        const uint64_t dv = desc_mn<SW>(va + kk * 16 * SW, BK * SW);
+        wgmma_rs(acc, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
+                 phi[4 * kk + 3], dv);
+        wgmma_rs(acc, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+                 plo[4 * kk + 3], dv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < HDP / 128; ++c) {
+          float(&a)[64] = *reinterpret_cast<float(*)[64]>(acc + 64 * c);
+          const uint64_t dv =
+              desc_mn<SW>(va + 2 * c * BK * SW + kk * 16 * SW, BK * SW);
+          wgmma_rs(a, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
+                   phi[4 * kk + 3], dv);
+          wgmma_rs(a, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+                   plo[4 * kk + 3], dv);
+        }
+      }
     }
     wg_commit();
   };
-  // tile scores -> p = 2^(scale_log2 s - m) in place, masked entries 0
-  // (element i: row row0 + 8 ((i >> 1) & 1), column t0 + 8 (i >> 2) + cq
-  // + (i & 1)); m and l updated, alpha the rescale of the earlier sums
+  // tile scores -> p = 2^(s' - m) in place, s' the scores in the log2
+  // domain (Scaling), masked entries 0 (element i: row row0 + 8 ((i >> 1)
+  // & 1), column t0 + 8 (i >> 2) + cq + (i & 1)); m and l updated, alpha
+  // the rescale of the earlier sums
   const auto softmax = [&](int t0) {
+    if (CW && sg.cap_out != 0.f) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
-    if (t0 + BK > Tn || (causal && t0 + BK - 1 > q0)) {
+      for (int i = 0; i < BK / 2; ++i)
+        sc[i] = sg.cap_out * tanhf(sc[i] * sg.cap_in);
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= sg.scale_log2;
+    }
+    if (t0 + BK > Tn || (causal && t0 + BK - 1 > q0) ||
+        (CW && window > 0 && t0 <= q0 + BQ - 1 - window)) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int col = t0 + 8 * (i >> 2) + cq + (i & 1);
         const int row = row0 + 8 * ((i >> 1) & 1);
-        if (col >= Tn || (causal && col > row))
+        if (col >= Tn || (causal && col > row) ||
+            (CW && window > 0 && col <= row - window))
           sc[i] = __int_as_float(0xff800000);  // -inf: p = 0
       }
     }
@@ -540,12 +618,12 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   wg_wait<0>();
   reg_fence(sc);
   release(empty_k(0));
-  softmax(0);
+  softmax(jt0 * BK);
   split();
-  for (int jt = 1; jt < n_tiles; ++jt) {
-    const int s = jt % STAGES, sp = (jt - 1) % STAGES;
-    mbar_wait(full_k(s), (jt / STAGES) & 1);
-    mbar_wait(full_v(sp), ((jt - 1) / STAGES) & 1);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % STAGES, sp = (j - 1) % STAGES;
+    mbar_wait(full_k(s), (j / STAGES) & 1);
+    mbar_wait(full_v(sp), ((j - 1) / STAGES) & 1);
     reg_fence(acc);
     wg_fence();
     issue_qk(s);
@@ -553,13 +631,13 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
     wg_wait<1>();  // S_j is in; P_{j-1}.V_{j-1} may still run
     reg_fence(sc);
     release(empty_k(s));
-    softmax(jt * BK);
+    softmax((jt0 + j) * BK);
     wg_wait<0>();
     reg_fence(acc);
     reg_fence(sc);
     release(empty_v(sp));
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < HDP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     split();
   }
   const int sl = (n_tiles - 1) % STAGES;
@@ -571,8 +649,8 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
   reg_fence(acc);
   release(empty_v(sl));
 
-  // out = acc / max(l, 1e-30), rows past S dropped; the row's lse (m is
-  // in the log2 domain already) where asked for
+  // out = acc / max(l, 1e-30), rows past S and columns past HD dropped;
+  // the row's lse (m is in the log2 domain already) where asked for
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -597,52 +675,32 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tn, int H, int KH, int causal, float scale,
-           cudaStream_t stream) {
+           float softcap, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   constexpr int SW = Geo<HD>::SW;
+  // the maps hold the tensor's HD columns; a box past them reads zeros
   if (!encode_map<HD, SW>(&mq, q, B, S, H, BQ) ||
       !encode_map<HD, SW>(&mk, k, B, Tn, KH, BK) ||
       !encode_map<HD, SW>(&mv, v, B, Tn, KH, BK))
     return (int)cudaErrorInvalidValue;
   const int smem = Geo<HD>::SMEM;
+  const auto kernel = softcap > 0.f || window > 0
+                          ? flash_fwd_wgmma_kernel<HD, true>
+                          : flash_fwd_wgmma_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const Scaling sg = softcap > 0.f
+                         ? Scaling{0.f, scale / softcap, softcap * kLog2e}
+                         : Scaling{scale * kLog2e, 0.f, 0.f};
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_wgmma_kernel<HD><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, static_cast<float*>(o), lse, S, Tn, H, KH, causal,
-      scale * kLog2e);
+  kernel<<<grid, NT, smem, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), lse, S, Tn, H, KH, causal, sg,
+      window);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int S, int Tn, int H, int KH, int causal,
-             float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                        stream);
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                        stream);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                        stream);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, S, Tn, H, KH, causal, scale,
-                         stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace tc
-
-template <int HD>
-int smem_bytes(int is_bf16) {
-  return is_bf16 ? tc::Geo<HD>::SMEM : (int)Layout<HD, float>::SMEM;
-}
 
 }  // namespace
 
@@ -650,35 +708,40 @@ extern "C" {
 
 // 1 when the kernel has an instance for this head dim
 int repro_flash_attention_supported(int hd) {
-  return hd == 16 || hd == 32 || hd == 64 || hd == 128;
+  return with_hd(hd, [](auto) { return 1; }) == 1;
 }
 
-// dynamic shared memory of the instance for (hd, input type), bytes
+// dynamic shared memory of the instance for (hd, input type), bytes; 0
+// for a head dim without an instance
 int repro_flash_attention_smem(int hd, int is_bf16) {
-  switch (hd) {
-    case 16: return smem_bytes<16>(is_bf16);
-    case 32: return smem_bytes<32>(is_bf16);
-    case 64: return smem_bytes<64>(is_bf16);
-    case 128: return smem_bytes<128>(is_bf16);
-    default: return 0;
-  }
+  const int bytes = with_hd(hd, [is_bf16](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return is_bf16 ? tc::Geo<HD>::SMEM : (int)Layout<HD, float>::SMEM;
+  });
+  return bytes < 0 ? 0 : bytes;
 }
 
 // q (B,S,H,hd), k/v (B,T,KH,hd) contiguous, f32 (is_bf16 = 0) or bf16,
 // 16-byte aligned; o (B,S,H,hd) float32; lse (B,H,S) float32, each row's
-// log2 of sum 2^(scale log2(e) q.k), written when not null (the training
-// path's backward reads it; serving passes null).  Returns a cudaError_t.
+// log2 of sum 2^(log2(e) s') over its unmasked scores s' (after the
+// softcap), written when not null (the training path's backward reads
+// it; serving passes null).  softcap <= 0: none; window <= 0: none.
+// Returns a cudaError_t.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* lse, int B, int S, int Tn, int H,
                           int KH, int hd, int is_bf16, int causal,
-                          float scale, void* stream) {
+                          float scale, float softcap, int window,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return tc::dispatch(hd, q, k, v, o, l, B, S, Tn, H, KH, causal, scale,
-                        st);
-  return dispatch<float>(hd, q, k, v, o, l, B, S, Tn, H, KH, causal, scale,
-                         st);
+  const int rc = with_hd(hd, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return is_bf16 ? tc::launch<HD>(q, k, v, o, l, B, S, Tn, H, KH, causal,
+                                    scale, softcap, window, st)
+                   : launch<HD, float>(q, k, v, o, l, B, S, Tn, H, KH,
+                                       causal, scale, softcap, window, st);
+  });
+  return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 
 }  // extern "C"

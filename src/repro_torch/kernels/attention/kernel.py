@@ -13,6 +13,13 @@ launch on ``torch.cuda.current_stream()`` and count their launches in
 CPU tensors they run the plain PyTorch versions from ``ref.py``; on
 CUDA tensors they launch the kernel or raise — they never fall back.
 
+The forward has instances at every head dim of ``HEAD_DIMS``, each with
+an attention-logit softcap and a sliding window as launch arguments.
+The backward has fewer (``BWD_HEAD_DIMS``, no softcap, no window): on
+the card ``flash_attention_bwd`` raises ``NotImplementedError`` for the
+rest (ROADMAP.md, Queue 2 item 2); on the CPU the plain versions take
+every case.
+
 The kernels have no autograd history: on the card, ``flash_attention``
 raises when grad mode is on and an input requires grad, since its
 output would silently cut the gradient to q, k and v.  The training path
@@ -36,12 +43,13 @@ from repro_torch.kernels.attention.ref import (attention_bwd_ref,
 __all__ = ["flash_attention", "flash_attention_bwd", "build", "build_bwd",
            "launch_counts", "reset_launch_counts", "shared_memory_bytes",
            "shared_memory_bytes_bwd", "SOURCE", "SOURCE_BWD", "NVCC_FLAGS",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "BWD_HEAD_DIMS", "require_bwd_instance"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "attention_bwd.cu"
 NVCC_FLAGS = COMMON_FLAGS
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 BWD_ROW_PAD = 128    # tc::ROW_PAD in attention_bwd.cu
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -49,7 +57,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = ([_VP] * 5 + [_I] * 8
-                                          + [_F, _VP])
+                                          + [_F, _F, _I, _VP])
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_attention_supported.argtypes = [_I]
     lib.repro_flash_attention_supported.restype = _I
@@ -136,10 +144,28 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
+def require_bwd_instance(hd: int, softcap=None, window: int = 0) -> None:
+    """Raise ``NotImplementedError`` where the backward kernel has no
+    instance for this call: a head dim outside ``BWD_HEAD_DIMS``, a
+    softcap or a window."""
+    missing = ([f"head_dim {hd}"] if hd not in BWD_HEAD_DIMS else []) + (
+        ["a softcap"] if softcap else []) + (["a window"] if window else [])
+    if missing:
+        raise NotImplementedError(
+            f"flash_attention_bwd has no kernel instance for "
+            f"{' or '.join(missing)} (ROADMAP.md, Queue 2 item 2)")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    softcap=None, window: int = 0,
                     return_lse: bool = False):
     """q: (B,S,H,hd), k/v: (B,T,K,hd) with H % K == 0, all f32 or all
-    bf16 -> (B,S,H,hd) float32.  ``scale`` defaults to hd ** -0.5.
+    bf16 -> (B,S,H,hd) float32.  ``scale`` defaults to hd ** -0.5;
+    ``softcap`` (None or 0: none) caps the scaled scores at
+    softcap tanh(s / softcap); ``window`` > 0 masks the keys at or before
+    q - window (``ref.attention_ref``).  On the card a call whose window
+    leaves a row with no key (S >= T + window) raises
+    ``NotImplementedError``.
 
     With ``return_lse`` also each row's log-sum-exp in base 2, (B,H,S)
     float32 (``ref.attention_lse_ref``), which ``flash_attention_bwd``
@@ -148,14 +174,23 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     through ``ops.FlashAttentionFn``."""
     B, S, T, H, K, hd = _check(q, k, v)
     scale = float(scale) if scale is not None else hd ** -0.5
+    softcap, window = float(softcap or 0.0), int(window or 0)
     if q.device.type == "cpu":
-        out = attention_ref(q, k, v, causal=causal, scale=scale)
+        kw = dict(causal=causal, scale=scale, softcap=softcap, window=window)
+        out = attention_ref(q, k, v, **kw)
         if return_lse:
-            return out, attention_lse_ref(q, k, causal=causal, scale=scale)
+            return out, attention_lse_ref(q, k, **kw)
         return out
     _check_card("flash_attention", q,
                 {"q": (q, None), "k": (k, None), "v": (v, None)},
                 (torch.float32, torch.bfloat16))
+    if window > 0 and S >= T + window:
+        raise NotImplementedError(
+            f"flash_attention at S {S}, T {T}, window {window}: rows from "
+            f"{T + window - 1} on keep no key, where the reference's "
+            "uniform softmax gives the mean of v and the kernel would give "
+            "0; the kernel takes no such call (ROADMAP.md, reference "
+            "caveats)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -177,7 +212,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             B, S, T, H, K, hd, int(q.dtype == torch.bfloat16), int(causal),
-            scale, torch.cuda.current_stream(q.device).cuda_stream)
+            scale, softcap, window,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     _count(flash_attention)
@@ -188,12 +224,13 @@ flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        scale=None):
+                        scale=None, softcap=None, window: int = 0):
     """The gradients of ``flash_attention``'s output ``o`` (B,S,H,hd)
     under ``do`` (B,S,H,hd): q (B,S,H,hd), k/v (B,T,K,hd) as the forward
     took them, o, do and the forward's ``lse`` (B,H,S) float32 ->
     (dq, dk, dv) float32 in q's, k's and v's shapes.  On CPU tensors the
-    plain version, which recomputes the softmax and ignores ``lse``."""
+    plain version, which recomputes the softmax and ignores ``lse``; on
+    the card ``require_bwd_instance`` raises for a missing instance."""
     B, S, T, H, K, hd = _check(q, k, v)
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (B, H, S))):
@@ -202,7 +239,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                              f"{tuple(shape)}")
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale)
+        return attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale,
+                                 softcap=softcap, window=window)
+    require_bwd_instance(hd, softcap, window)
     f32 = torch.float32
     _check_card("flash_attention_bwd", q,
                 {"q": (q, None), "k": (k, None), "v": (v, None),

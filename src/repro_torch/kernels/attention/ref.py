@@ -1,15 +1,23 @@
 """Plain PyTorch versions of the flash-attention kernels (GQA forward
 and backward).
 
-``attention_ref`` is the same function as the JAX package's
-``kernels/attention/ref.py::attention_ref``: the full (S, T) score
-matrix in float32, a causal mask aligned at the first position,
-softmax, then the weighted sum of v.  ``attention_lse_ref`` is the
-forward kernels' second output, the per-row log-sum-exp in base 2.
+``attention_ref`` is the JAX package's ``kernels/attention/ref.py::
+attention_ref`` grown by the two score transforms the JAX package's XLA
+attention applies (``src/repro/models/attention.py``): the full (S, T)
+score matrix in float32, scaled, then an attention-logit softcap
+(``softcap tanh(s / softcap)``, ``models/layers.py::softcap``), then a
+causal mask aligned at the first position, then a sliding window (keys
+``t > q - window`` kept), softmax, then the weighted sum of v.
+``attention_lse_ref`` is the forward kernels' second output, the
+per-row log-sum-exp in base 2 of the capped scores.
 ``attention_bwd_ref`` is the backward written out (no autograd): what
 the JAX package gets from ``jax.value_and_grad`` through its XLA
 attention.  They are what the wrappers run on CPU tensors and what
 ``chip_smoke.py`` and the card tests hold the kernels against.
+``softcap`` None or 0 and ``window`` 0 mean none.  Masked scores are
+the reference's finite ``NEG_INF``, so a row that a window leaves with
+no key (S >= T + window) gets a uniform softmax, the mean of v, as the
+JAX package's attention gives it (the kernels refuse such calls).
 """
 
 from __future__ import annotations
@@ -20,58 +28,89 @@ __all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
            "LOG2E"]
 
 LOG2E = 1.4426950408889634
+NEG_INF = -2.0e38    # src/repro/models/attention.py's masked score
 
 
-def _scores(q, k, causal, scale):
-    """(B,S,H,hd), (B,T,K,hd) -> masked scale * q.k^T, (B,K,G,S,T) f32."""
+def _raw_scores(q, k, scale):
+    """(B,S,H,hd), (B,T,K,hd) -> scale * q.k^T, (B,K,G,S,T) float32."""
     B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
+    K = k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd).float()
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
-    if causal:
-        mask = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
-        scores = scores.masked_fill(~mask, float("-inf"))
-    return scores
+    return torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
 
 
-def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+def _keep(scores, causal, window):
+    """(S, T) True where a key is kept: at or before the query (causal)
+    and after ``q - window`` (window > 0); None when every key is."""
+    S, T = scores.shape[-2:]
+    t = torch.arange(T, device=scores.device)[None, :]
+    s = torch.arange(S, device=scores.device)[:, None]
+    keep = t <= s if causal else None
+    if window:
+        keep = (t > s - window) if keep is None else keep & (t > s - window)
+    return keep
+
+
+def _mask(scores, keep):
+    return scores if keep is None else scores.masked_fill(~keep, NEG_INF)
+
+
+def _scores(q, k, causal, scale, softcap=None, window=0):
+    """Capped and masked scores, (B,K,G,S,T) float32."""
+    scores = _raw_scores(q, k, scale)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    return _mask(scores, _keep(scores, causal, window))
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None,
+                  softcap=None, window: int = 0):
     """q: (B,S,H,hd) k/v: (B,T,K,hd), H % K == 0 -> (B,S,H,hd) float32.
 
     f32 or bf16 inputs; the arithmetic is float32 either way."""
     B, S, H, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
-    w = torch.softmax(_scores(q, k, causal, scale), dim=-1)
+    w = torch.softmax(_scores(q, k, causal, scale, softcap, window), dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
     return out.reshape(B, S, H, hd)
 
 
-def attention_lse_ref(q, k, *, causal: bool = True, scale=None):
-    """The forward kernels' ``lse``: log2 of sum_t 2^(scale log2(e)
-    q.k_t) per row, (B,H,S) float32 — the natural log-sum-exp of the
-    scaled scores times log2(e)."""
+def attention_lse_ref(q, k, *, causal: bool = True, scale=None,
+                      softcap=None, window: int = 0):
+    """The forward kernels' ``lse``: log2 of sum_t 2^(log2(e) s_t) per
+    row over the unmasked scores s (scaled, then capped), (B,H,S)
+    float32 — the natural log-sum-exp of the scores times log2(e)."""
     B, S, H, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
-    lse = torch.logsumexp(_scores(q, k, causal, scale), dim=-1) * LOG2E
+    lse = torch.logsumexp(_scores(q, k, causal, scale, softcap, window),
+                          dim=-1) * LOG2E
     return lse.reshape(B, H, S)
 
 
-def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, scale=None):
+def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, scale=None,
+                      softcap=None, window: int = 0):
     """The gradients of ``attention_ref``'s output ``o`` (B,S,H,hd) under
     an output gradient ``do`` (B,S,H,hd), from the explicit formulas in
     float32:
 
-        P = softmax(scale q.k^T)          dV = sum_g P^T dO
-        dP = dO v^T     D = rowsum(dO o)  dS = P (dP - D)
+        P = softmax(s'), s' = scale q.k^T, capped and masked
+        dV = sum_g P^T dO
+        dP = dO v^T     D = rowsum(dO o)  dS = P (dP - D) c
         dQ = scale dS k                   dK = scale sum_g dS^T q
 
-    (the sums over the G query heads that share a kv head) -> (dq
-    (B,S,H,hd), dk (B,T,K,hd), dv (B,T,K,hd)), float32."""
+    (the sums over the G query heads that share a kv head), where c = 1
+    without a softcap and 1 - tanh^2(scale q.k^T / softcap) with one ->
+    (dq (B,S,H,hd), dk (B,T,K,hd), dv (B,T,K,hd)), float32."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     scale = scale if scale is not None else hd ** -0.5
-    p = torch.softmax(_scores(q, k, causal, scale), dim=-1)    # (B,K,G,S,T)
+    scores = _raw_scores(q, k, scale)                           # (B,K,G,S,T)
+    if softcap:
+        tanh = torch.tanh(scores / softcap)
+        scores = softcap * tanh
+    keep = _keep(scores, causal, window)
+    p = torch.softmax(_mask(scores, keep), dim=-1)
     dog = do.reshape(B, S, K, G, hd).float()
     og = o.reshape(B, S, K, G, hd).float()
     qg = q.reshape(B, S, K, G, hd).float()
@@ -80,7 +119,10 @@ def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, scale=None):
     dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
     delta = torch.einsum("bskgh,bskgh->bkgs", dog, og)
     ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - tanh * tanh)
+    if keep is not None:      # a masked score has no gradient, also in
+        ds = ds.masked_fill(~keep, 0.0)    # a keyless row's uniform P
     dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
     dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
     return dq.reshape(B, S, H, hd), dk, dv
-

@@ -83,8 +83,7 @@ class Model:
 
     def __post_init__(self):
         transformer.check_family(self.cfg)
-        if self.cfg.family != "ssm":
-            check_supported(self.cfg)
+        check_supported(self.cfg)
 
     # ---------------- parameters -----------------------------------------
     def _defs(self, mk):
@@ -126,7 +125,9 @@ class Model:
         moe; enc-dec adds the encoder's "ck", "cv": (L, B, enc_seq, K,
         hd), and takes ``batch["frames"]``), or {"conv": (L, B, K-1,
         d_inner + 2N) in the compute dtype, "ssm": (L, B, H, P, N)
-        float32} (ssm)."""
+        float32} (ssm), or both regrouped by the hybrid's G groups of
+        ``per`` mamba layers, {"conv": (G, per, B, K-1, d_inner + 2N),
+        "ssm": (G, per, B, H, P, N), "k"/"v": (G, B, S, K, hd)}."""
         cfg, kw = self.cfg, dict(compute_dtype=self.compute_dtype,
                                  kernel_impl=self.kernel_impl)
         if cfg.is_encdec:
@@ -159,17 +160,28 @@ class Model:
     # ---------------- caches -----------------------------------------------
     def cache_spec(self, batch: int, max_seq: int):
         """Cache leaves as (shape, dtype), and their logical axes.  The
-        ssm cache does not grow with ``max_seq``."""
+        ssm cache does not grow with ``max_seq``; the hybrid's holds the
+        ssm states of its G x per mamba layers regrouped (G, per, ...)
+        and one KV slice per group."""
         cfg, cdt = self.cfg, self.compute_dtype
-        if cfg.family == "ssm":
-            spec = init_ssm_cache_spec(cfg, batch, cfg.n_layers,
-                                       conv_dtype=cdt)
-            axes = {"conv": ("layers", "batch", "conv", "ssm_inner"),
+        ssm_axes = {"conv": ("layers", "batch", "conv", "ssm_inner"),
                     "ssm": ("layers", "batch", "ssm_heads", "ssm_headdim",
                             "ssm_state")}
+        if cfg.family == "ssm":
+            return (init_ssm_cache_spec(cfg, batch, cfg.n_layers,
+                                        conv_dtype=cdt), ssm_axes)
+        kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        if cfg.family == "hybrid":
+            G, per = transformer._hybrid_groups(cfg)
+            base = init_ssm_cache_spec(cfg, batch, G * per, conv_dtype=cdt)
+            kv = init_cache_spec(cfg, batch, max_seq, cdt, layers=G)
+            spec = {n: ((G, per) + shape[1:], dt)
+                    for n, (shape, dt) in base.items()}
+            spec.update(k=kv.k, v=kv.v)
+            axes = {n: ("layers",) + a for n, a in ssm_axes.items()}
+            axes.update(k=kv_axes, v=kv_axes)
             return spec, axes
         kv = init_cache_spec(cfg, batch, max_seq, cdt)
-        kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
         spec, axes = {"k": kv.k, "v": kv.v}, {"k": kv_axes, "v": kv_axes}
         if cfg.is_encdec:       # the encoder's keys and values
             x = init_cache_spec(cfg, batch, cfg.encoder_seq, cdt)

@@ -1,4 +1,5 @@
-"""GQA attention with a KV cache, self- and cross-attention.
+"""GQA attention with a KV cache, self- and cross-attention, sliding-window
+masks and attention-logit softcaps.
 
 Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
 (B, T, K, hd) with G = H // K query heads per KV head.
@@ -17,10 +18,15 @@ Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
   (the reference's ``preferred_element_type``): the cache is regrouped
   in its own dtype, never copied to float32.
 
-M-RoPE (vlm), sliding windows and attention-logit softcaps are not
-ported yet — the flash kernel has neither of the last two (ROADMAP.md,
-Queue 1 item 4).  ``attention`` takes the JAX package's keywords all the
-same: a config that needs one of those raises ``NotImplementedError``.
+The softcap (``cfg.attn_logit_softcap``: scores ``cap tanh(s / cap)``)
+and the sliding window (``cfg.sliding_window`` on a layer whose
+``is_local`` is true: keys ``t > q - window`` kept; ``is_local`` None
+means no window) follow the JAX package: scaled scores, then the cap,
+then the causal mask, then the window.  Prefill passes both to the
+flash op; decode and the static cache apply them to the float32 scores.
+
+M-RoPE (vlm) is not ported yet (ROADMAP.md, Queue 1 item 4):
+``check_supported`` raises for it.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.models.layers import _mm, rope_apply
+from repro_torch.models.layers import _mm, rope_apply, softcap
 
 __all__ = ["attn_param_defs", "attention", "KVCache", "init_cache_spec",
            "check_supported"]
@@ -79,11 +85,18 @@ def init_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for attention features the port does not have yet."""
-    if cfg.attn_logit_softcap or cfg.sliding_window:
+    if cfg.rope_mode == "mrope":
         raise NotImplementedError(
-            f"{cfg.name}: attention-logit softcaps and sliding windows are "
-            "not ported yet (ROADMAP.md, Queue 1 item 4); the flash kernel "
-            "has neither")
+            f"{cfg.name}: M-RoPE is not ported yet (ROADMAP.md, Queue 1 "
+            "item 4)")
+
+
+def _window(cfg: ArchConfig, is_local) -> int:
+    """The layer's sliding window, 0 for none: the config's window where
+    ``is_local`` is given and true (a bool or a 0-d bool tensor)."""
+    if not cfg.sliding_window or is_local is None or not bool(is_local):
+        return 0
+    return cfg.sliding_window
 
 
 def _update_cache(ck, cv, k_new, v_new, pos):
@@ -142,8 +155,8 @@ def attention(p, x, positions, cfg: ArchConfig, *,
 
     positions: (B, S) int.  Returns (out, (new_cache_k, new_cache_v)).
 
-    ``is_local`` selects sliding-window masking, which only a config
-    with a window uses (those raise in ``check_supported``).
+    ``is_local`` selects the config's sliding window for this layer
+    (None or false: none); ``cfg.attn_logit_softcap`` caps the scores.
     ``chunked_threshold`` is where the JAX package switches to its
     scanned online softmax; the port's prefill is the blocked flash op
     at every length, which computes the same function, so it changes
@@ -155,6 +168,7 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     scale = cfg.qk_scale if cfg.qk_scale else hd ** -0.5
+    window = _window(cfg, is_local)
     static = cache_k is not None and pos_offset is None
 
     q = _mm(x, p["wq"], compute_dtype)
@@ -171,7 +185,8 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     if cache_k is None:
         out = attn_ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
-            causal=causal and kv_x is None, scale=scale, impl=impl)
+            causal=causal and kv_x is None, scale=scale,
+            softcap=cfg.attn_logit_softcap, window=window, impl=impl)
         out = _mm(out.to(compute_dtype).reshape(B, S, H * hd), wo,
                   compute_dtype)
         return out, ((k, v) if return_kv else (None, None))
@@ -181,16 +196,19 @@ def attention(p, x, positions, cfg: ArchConfig, *,
                                          pos_offset)
     ck, cv = cache_k.to(compute_dtype), cache_v.to(compute_dtype)
     T = ck.shape[1]
-    scores = _f32_scores(q.reshape(B, S, K, G, hd), ck) * scale
+    scores = softcap(_f32_scores(q.reshape(B, S, K, G, hd), ck) * scale,
+                     cfg.attn_logit_softcap)
     t_idx = torch.arange(T, device=x.device)
+    q_abs = torch.arange(S, device=x.device)[None, :]             # (1, S)
     mask = None
     if pos_offset is not None:
-        q_abs = (pos_offset.to(torch.long)[:, None]
-                 + torch.arange(S, device=x.device)[None, :])   # (B, S)
+        q_abs = pos_offset.to(torch.long)[:, None] + q_abs         # (B, S)
         mask = t_idx[None, None, :] <= q_abs[..., None]          # (B, S, T)
     elif causal and kv_x is None:
-        mask = (t_idx[None, :]
-                <= torch.arange(S, device=x.device)[:, None])[None]
+        mask = t_idx[None, None, :] <= q_abs[..., None]
+    if window:
+        local = t_idx[None, None, :] > q_abs[..., None] - window
+        mask = local if mask is None else mask & local
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(compute_dtype)

@@ -1,10 +1,15 @@
-"""Decoder-only LM assembly: the dense, MoE and SSM families.
+"""Decoder-only LM assembly: the dense, MoE, SSM and hybrid families.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package, so
 the parameter trees carry across unchanged; the JAX package's
 ``lax.scan`` over that axis is a Python loop here.  The KV cache (dense)
 or the conv and SSM states (ssm) ride the same loop, one layer slice at
-a time.
+a time.  The hybrid (zamba2) runs G groups of ``hybrid_group`` mamba
+layers, each group followed by one application of a single shared
+attention+MLP block, with one KV cache slice per group and the conv and
+SSM states regrouped as (G, per, ...).  A sliding-window config marks
+its layers local (every layer, or every other one from layer 0 with
+``local_global_alternate``); the hybrid's shared block never is.
 
 An MoE layer (``models.moe``) takes the MLP's place and adds its
 router's load-balance loss to the stack's aux, which ``lm_loss`` adds at
@@ -16,11 +21,11 @@ in mode "train", whose layers may be rematerialised in the backward
 the hand-written backward kernel (``kernels.attention.ops``); the SSD
 kernel has no backward yet, so an ssm model trains on the CPU only.
 
-Ported: the dense, moe and ssm families here, and the audio
-encoder-decoder in ``models.whisper``.  Not yet: the hybrid stack and
-the vlm family (ROADMAP.md, Queue 1 item 4); a config with an
-attention-logit softcap or a sliding window (grok-1, gemma2) raises in
-``models.attention.check_supported``.
+Ported: the dense, moe, ssm and hybrid families here, and the audio
+encoder-decoder in ``models.whisper``.  Not yet: the vlm family
+(ROADMAP.md, Queue 1 item 4).  On the card the hybrid trains through
+neither kernel's backward yet: the SSD kernel has none, and the flash
+backward has no hd 112 instance (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -46,16 +51,11 @@ __all__ = ["lm_param_defs", "lm_forward", "lm_loss", "norm_def",
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise for model families the port does not run yet."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid stack is not ported yet: its shared "
-            f"attention needs a head_dim {cfg.head_dim} instance of the "
-            "flash kernel (ROADMAP.md, Queue 1 item 4)")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and embedding inputs are not ported yet "
             "(ROADMAP.md, Queue 1 item 4)")
-    if cfg.family not in ("dense", "moe", "ssm", "audio"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise ValueError(cfg.family)
 
 
@@ -134,6 +134,10 @@ def lm_param_defs(cfg: ArchConfig, mk):
     if cfg.family == "ssm":
         p["blocks"] = _mamba_defs_with_ln(mk, "blocks", cfg,
                                           layers=cfg.n_layers)
+    elif cfg.family == "hybrid":
+        G, per = _hybrid_groups(cfg)
+        p["mamba"] = _mamba_defs_with_ln(mk, "mamba", cfg, layers=G * per)
+        p["shared"] = _attn_mlp_block_defs(mk, "shared", cfg, layers=0)
     else:
         p["blocks"] = _attn_mlp_block_defs(mk, "blocks", cfg,
                                            layers=cfg.n_layers)
@@ -144,12 +148,33 @@ def lm_param_defs(cfg: ArchConfig, mk):
 # layer bodies
 # ---------------------------------------------------------------------------
 
-def _attn_mlp_layer(cfg: ArchConfig, x, bp, positions, cache_k, cache_v,
-                    pos_offset, want_cache, compute_dtype, attn_impl):
+def _hybrid_groups(cfg: ArchConfig):
+    """(G, per): G groups of ``per`` mamba layers, each followed by the
+    shared block, n_layers = G (per + 1)."""
+    per = cfg.hybrid_group
+    G = cfg.n_layers // (per + 1)
+    if G * (per + 1) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups "
+                         f"of {per} mamba layers and the shared block")
+    return G, per
+
+
+def _is_local(cfg: ArchConfig, i: int) -> bool:
+    """Layer i of an attention stack takes the sliding window: every
+    other layer from layer 0 (``local_global_alternate``), every layer
+    (a window alone), or none."""
+    if cfg.local_global_alternate:
+        return i % 2 == 0
+    return bool(cfg.sliding_window)
+
+
+def _attn_mlp_layer(cfg: ArchConfig, x, bp, positions, is_local, cache_k,
+                    cache_v, pos_offset, want_cache, compute_dtype,
+                    attn_impl):
     h = apply_norm(x, bp["ln1"], cfg)
     a_out, new_kv = attention(
-        bp["attn"], h, positions, cfg, cache_k=cache_k, cache_v=cache_v,
-        pos_offset=pos_offset, compute_dtype=compute_dtype,
+        bp["attn"], h, positions, cfg, is_local=is_local, cache_k=cache_k,
+        cache_v=cache_v, pos_offset=pos_offset, compute_dtype=compute_dtype,
         return_kv=want_cache, impl=attn_impl)
     if cfg.post_block_norm:
         a_out = apply_norm(a_out, bp["ln1_post"], cfg)
@@ -240,8 +265,9 @@ def _run_attn_stack(params, cfg, x, positions, cache, pos_offset, mode,
         ck = cv = None
         if cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
-        x, (k_i, v_i), aux_i = layer(x, bp, positions, ck, cv, pos_offset,
-                                     want_cache, compute_dtype, attn_impl)
+        x, (k_i, v_i), aux_i = layer(x, bp, positions, _is_local(cfg, i), ck,
+                                     cv, pos_offset, want_cache,
+                                     compute_dtype, attn_impl)
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
         if want_cache and cache is None:
@@ -284,6 +310,71 @@ def _run_ssm_stack(params, cfg, x, cache, mode, compute_dtype, ssd_impl,
     return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
+def _hybrid_group(cfg, x, mps, shared, positions, conv_g, ssm_g, ck, cv,
+                  pos_offset, mode, compute_dtype, kernel_impl):
+    """One group of the hybrid: its mamba layers ``mps`` in order, then
+    the shared block (no window).  Decode writes the group's conv and SSM
+    states (``conv_g``, ``ssm_g``: (per, ...)) and its KV slice in place;
+    otherwise the fresh states come back stacked (per, ...).  Returns (x,
+    (conv, ssm), (k, v), aux)."""
+    decode = mode == "decode"
+    convs, ssms = [], []
+    for i, bp in enumerate(mps):
+        cs = ss = None
+        if conv_g is not None:
+            cs, ss = conv_g[i], ssm_g[i]
+        x, (c_new, s_new) = _mamba_layer(cfg, x, bp, cs, ss, decode,
+                                         compute_dtype, kernel_impl)
+        if decode:
+            conv_g[i] = c_new
+            ssm_g[i] = s_new
+        else:
+            convs.append(c_new)
+            ssms.append(s_new)
+    x, new_kv, aux = _attn_mlp_layer(
+        cfg, x, shared, positions, None, ck, cv, pos_offset,
+        mode in ("prefill", "decode"), compute_dtype, kernel_impl)
+    states = (None, None) if decode else (torch.stack(convs),
+                                          torch.stack(ssms))
+    return x, states, new_kv, aux
+
+
+def _run_hybrid_stack(params, cfg, x, positions, cache, pos_offset, mode,
+                      compute_dtype, kernel_impl, remat_policy=None):
+    """The hybrid's G groups in order (the JAX package scans them), each
+    rematerialised as a whole in train when ``remat_policy`` says so.
+    Prefill returns the cache {"conv": (G, per, B, K-1, d_inner + 2N),
+    "ssm": (G, per, B, H, P, N), "k"/"v": (G, B, S, K, hd)}; decode
+    writes ``cache`` in place.  Returns (x, cache or None, the router
+    losses' sum or None)."""
+    G, per = _hybrid_groups(cfg)
+    group = _maybe_remat(functools.partial(_hybrid_group, cfg),
+                         remat_policy if mode == "train" else None)
+    layers = _unstack(params["mamba"], G * per)
+    convs, ssms, ks, vs, aux = [], [], [], [], None
+    for g in range(G):
+        conv_g = ssm_g = ck = cv = None
+        if cache is not None:
+            conv_g, ssm_g = cache["conv"][g], cache["ssm"][g]
+            ck, cv = cache["k"][g], cache["v"][g]
+        x, (c_new, s_new), (k_g, v_g), aux_g = group(
+            x, layers[g * per:(g + 1) * per], params["shared"], positions,
+            conv_g, ssm_g, ck, cv, pos_offset, mode, compute_dtype,
+            kernel_impl)
+        if aux_g is not None:
+            aux = aux_g if aux is None else aux + aux_g
+        convs.append(c_new)
+        ssms.append(s_new)
+        ks.append(k_g)
+        vs.append(v_g)
+    if mode == "train":
+        return x, None, aux
+    if mode == "decode":
+        return x, cache, aux
+    return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
+               "k": torch.stack(ks), "v": torch.stack(vs)}, aux
+
+
 # ---------------------------------------------------------------------------
 # top level
 # ---------------------------------------------------------------------------
@@ -300,8 +391,8 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                compute_dtype=torch.bfloat16, remat_policy=None,
                logits_mode: str = "full", kernel_impl: str = "kernel"):
     """Run the LM.  Returns (logits, new_cache, aux_loss); aux_loss is
-    the MoE router loss summed over the layers, zero for the dense and
-    ssm families.
+    the MoE router loss summed over the layers, zero for the dense, ssm
+    and hybrid families.
 
     logits_mode: 'full' (B,S,V) | 'last' (B,1,V) | 'none' (hidden only).
     mode: 'prefill' (returns the fresh cache), 'decode' (writes ``cache``
@@ -326,7 +417,9 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     else:
         B, S = x.shape[:2]
         positions = _positions_for(B, S, pos_offset, x.device)
-        x, new_cache, aux = _run_attn_stack(
+        stack = (_run_hybrid_stack if cfg.family == "hybrid"
+                 else _run_attn_stack)
+        x, new_cache, aux = stack(
             params, cfg, x, positions, cache, pos_offset, mode,
             compute_dtype, kernel_impl, remat_policy)
     if aux is None:

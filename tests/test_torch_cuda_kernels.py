@@ -275,7 +275,7 @@ def _bwd_instance_smem(hd):
                _bwd_smem_bytes(hd, _BWD["NWG"], _BWD["DQ_STAGES"]))
 
 
-@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+@pytest.mark.parametrize("hd", AK.BWD_HEAD_DIMS)
 def test_bwd_shared_memory_fits_every_instance(hd):
     """Both bf16 backward kernels fit a CTA's 232 448 bytes at every head
     dim."""
@@ -283,7 +283,7 @@ def test_bwd_shared_memory_fits_every_instance(hd):
 
 
 def test_bwd_shared_memory_mirror_matches_the_library(cuda):
-    for hd in AK.HEAD_DIMS:
+    for hd in AK.BWD_HEAD_DIMS:
         assert AK.shared_memory_bytes_bwd(hd, torch.bfloat16) == \
             _bwd_instance_smem(hd)
 
@@ -443,11 +443,12 @@ def _close_bf16(out, ref):
                                rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_every_head_dim(cuda, hd, causal):
     """The tensor-core kernel at each head dim: the 32-, 64- and 128-byte
-    swizzles, one and two panels a row (1e-3)."""
+    swizzles, one, two and four panels a row, and hd 112 on the 128-wide
+    geometry with zero-filled columns (1e-3)."""
     q, k, v = _qkv((2, 300, 4, 2, hd), hd, torch.bfloat16, cuda)
     _close_bf16(_launch_once(q, k, v, causal=causal),
                 attention_ref(q, k, v, causal=causal))
@@ -527,6 +528,85 @@ def test_flash_attention_cuda_launches_or_raises(cuda):
         q48, k48, v48 = _qkv((1, 64, 2, 1, 48), 1, torch.float32, cuda)
         AK.flash_attention(q48, k48, v48)
     assert AK.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("hd", [112, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softcap,window", [(None, 0), (50.0, 0), (None, 100),
+                                            (30.0, 77)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_softcap_and_window(cuda, hd, dtype, softcap, window,
+                                            causal):
+    """zamba2's hd 112 and gemma2's hd 256, each with and without an
+    attention-logit softcap and a sliding window, against the plain
+    version (1e-3 bf16, 2e-4 f32), q x 4 so that the cap bends the
+    scores; the lse against ``attention_lse_ref``; the window's and the
+    cap's absence would miss the gate."""
+    tol = 1e-3 if dtype == torch.bfloat16 else 2e-4
+    q, k, v = _qkv((2, 300, 4, 2, hd), hd + window, dtype, cuda)
+    q = (q.float() * 4).to(dtype)
+    kw = dict(causal=causal, softcap=softcap, window=window)
+    out, lse = AK.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(),
+                               attention_lse_ref(q, k, **kw).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for off in (dict(softcap=None), dict(window=0)):
+        if {**kw, **off} != kw:
+            miss = (attention_ref(q, k, v, **{**kw, **off}) - out).abs()
+            assert float(miss.max()) > 10 * tol
+
+
+@pytest.mark.parametrize("hd,T", [(112, None), (256, 77), (112, 333)])
+def test_flash_attention_window_ragged(cuda, hd, T):
+    """A window that starts mid-tile at S != T, causal, every row keeping
+    a key (S < T + window: 121 rows over 77 keys, the last row with one
+    key; 200 rows over 200 or 333): the first tile of each block is the
+    one that holds q0 - window + 1, the left-edge tiles masked (1e-3)."""
+    S = 200 if T is None or T >= 200 else T + 45 - 1
+    q, k, v = _qkv((2, S, 4, 1, hd), 11, torch.bfloat16, cuda, T=T)
+    kw = dict(causal=True, softcap=50.0, window=45)
+    _close_bf16(_launch_once(q, k, v, **kw), attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("hd", [112, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_rows_without_a_key_raise(cuda, hd, causal):
+    """S >= T + window leaves rows with no key in the window (333 rows
+    over 77 keys, window 40), where the reference gives the mean of v
+    and the kernel would give 0: the wrapper raises before launching,
+    and one row short of that (S = T + window - 1) launches and holds
+    the plain version (1e-3)."""
+    kw = dict(causal=causal, softcap=50.0, window=40)
+    q, k, v = _qkv((2, 333, 4, 2, hd), 7, torch.bfloat16, cuda, T=77)
+    before = AK.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="no key"):
+        AK.flash_attention(q, k, v, **kw)
+    assert AK.flash_attention.launches == before
+    q = q[:, :77 + 40 - 1].contiguous()
+    _close_bf16(_launch_once(q, k, v, **kw), attention_ref(q, k, v, **kw))
+
+
+def test_flash_attention_backward_instances_raise_before_the_forward(cuda):
+    """The backward kernel has no hd 112 or 256 instance, no softcap and
+    no window: on the card ``FlashAttentionFn`` raises naming ROADMAP.md
+    before the forward launches, and ``flash_attention_bwd`` raises; a
+    call without grad runs the forward."""
+    for hd, kw in ((112, {}), (256, {}), (128, dict(softcap=50.0)),
+                   (128, dict(window=64))):
+        q, k, v = _qkv((1, 64, 2, 1, hd), hd, torch.bfloat16, cuda)
+        before = AK.flash_attention.launches
+        with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
+            AO.flash_attention(q.requires_grad_(), k, v, **kw)
+        assert AK.flash_attention.launches == before
+        q = q.detach()
+        o, lse = AK.flash_attention(q, k, v, return_lse=True, **kw)
+        assert AK.flash_attention.launches == before + 1
+        with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
+            AK.flash_attention_bwd(q, k, v, o, o.clone(), lse, **kw)
 
 
 def _rel_l2(a, b):

@@ -245,11 +245,6 @@ def test_full_width_config_builds_with_jax_shapes():
     assert spec["conv"][1] == torch.bfloat16
 
 
-def test_hybrid_still_raises_naming_the_flash_instance():
-    with pytest.raises(NotImplementedError, match="head_dim 112"):
-        build_model(get_config("zamba2-7b"))
-
-
 # -- the engine ---------------------------------------------------------------
 
 B, S_MAX = 4, 32
