@@ -5,8 +5,9 @@ matrix, chaos pipeline, QoS soak, fleet rate tracking, data pipeline),
 the serving paths of internlm2-1.8b and mamba2-2.7b at full width, the
 training path of internlm2-1.8b at full width, the encoder-decoder
 (whisper-large-v3, full width) and MoE (phi3.5-moe, published widths at
-16 of 32 layers) families, and the hybrid (zamba2-7b) and the capped,
-windowed attention (gemma2-2b), both at full width.
+8 of 32 layers) families, the hybrid (zamba2-7b) and the capped,
+windowed attention (gemma2-2b), both at full width, and the vlm
+(qwen2-vl-72b, published widths at 20 of 80 layers) with M-RoPE.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -168,13 +169,13 @@ failed check raises and exits non-zero):
    phase (i.2)'s gates and controls: 192 forward and 96 backward launches,
    the backward at hd 64, non-causal, S != T.  (j.3) phi3.5-moe (d 4096,
    32/8 heads x 128, 16 experts top-2 of d_ff 6400, vocab 32 064) cut
-   to 16 layers (21.1 B parameters, 42.1 GB bf16): the flash forward
+   to 8 layers (10.7 B parameters, 21.3 GB bf16): the flash forward
    against the plain version (1e-3) at (8, 1024, 32, 8, 128) causal and
    at a ragged round of 8 x 1479; an 8 x 1024 prefill through the
    kernel and the plain attention (bf16 rel L2 and the
    share of flipped routes reported; gated in float32 at a 2-layer cut,
    rel L2 1e-4, the 1.02 x scale kernel must miss), then phase 8's
-   traffic through ``serve.Engine`` (16 flash launches a prefill round,
+   traffic through ``serve.Engine`` (8 flash launches a prefill round,
    ``monitor_fleet`` on the lanes, engine tokens == direct decode) with
    a trace split into flash, GEMMs, sort, gather/scatter, copies and
    other.  One ``{"serve": ...}`` line per model; Whisper's prefill and
@@ -208,6 +209,27 @@ failed check raises and exits non-zero):
    ``flash_attention``'s and ``ssd_chunk``'s, one ``{"serve": ...}``
    line each, the instances' times in a ``{"flash_instances": ...}``
    line;
+(l) the vlm family: qwen2-vl-72b at published widths (d 8192, 64/8
+   heads x 128, d_ff 29 568, vocab 152 064, M-RoPE sections (16, 24, 24)
+   of 64, theta 1e6) cut to 20 of 80 layers (20.04 B parameters, 40.1 GB
+   bf16), random weights and stub patch embeddings (8, 1024, 8192) from
+   ``--seed``.  The flash forward against the plain version (1e-3) at its
+   (8, 1024, 64, 8, 128) causal and a ragged 8 x 1479; (l.1) layer 0's
+   attention over a 32 x 32 patch grid and 256 text tokens, its (t, h,
+   w) streams distinct, kernel vs plain rel L2 <= 1e-3 in bf16 and
+   <= 2e-4 in float32, the h and w streams swapped must miss; (l.2) an
+   8 x 1024 prefill from the embeddings through the kernel (20 launches)
+   and the plain attention, gated in float32 at a 2-layer cut (rel L2
+   1e-4, the 1.02 x scale control must miss), decode after it against a
+   prefill one row longer (same token, 1e-4); (l.3) phase 8's traffic on
+   text prompts through ``serve.Engine``; init and prefill peak memory;
+   one ``{"serve": ...}`` line, its launches counted into
+   ``flash_attention``'s.  The prefill's and phase (i)'s training step's
+   ``roofline.analysis.roofline_report`` over ``roofline.analytic``'s
+   FLOPs and bytes (compute and memory terms at the H100's peaks, the
+   dominant one, and the measured time as a share of the bound) in a
+   ``{"roofline": ...}`` line; the trainer's MFU takes its numerator from
+   ``roofline.analysis.model_flops`` and its peak from its ``HW``;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -270,6 +292,8 @@ SERVE_MAX_SEQ = 2048
 SERVE_REQS = 16              # half per QoS class
 SERVE_NEW = 16               # new tokens per request
 PROMPT_LENS = (512, 1536)    # served prompt lengths, uniform
+PROFILE_STEPS = 4            # decode steps in a serving path's trace (8
+                             # until phase (l) came: the run's time)
 FLASH_SHAPE = (8, 1024, 16, 8, 128)   # the prefill's attention (B,S,H,K,hd)
 SSM_ARCH = "mamba2-2.7b"     # the repo's pure-ssm configuration
 SSD_SHAPE = (8, 4, 256, 80, 64, 128)  # its prefill's chunk step (B,c,Q,H,P,N)
@@ -296,8 +320,8 @@ WHISPER_MAX_SEQ = 448        # Whisper's decoder context (n_text_ctx)
 WHISPER_GRAD_B, WHISPER_GRAD_S = 2, 448   # the gradient check's targets
 WHISPER_FLASH_SHAPE = (8, 1536, 20, 20, 64)  # its encoder's attention
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
-MOE_LAYERS = 16              # of 32: 42.1 GB of bf16 weights, room left
-                             # for the Engine's cache at 8 x 2048
+MOE_LAYERS = 8               # of 32: 21.3 GB of bf16 weights (16 until
+                             # phase (l) came: the run's time)
 MOE_ROUND_S = 1479           # a ragged round length (prompts 512-1536)
 MOE_F32_LAYERS = 2           # the float32 gate's cut (10.5 GB of weights)
 ZAMBA_ARCH = "zamba2-7b"
@@ -308,6 +332,12 @@ GEMMA_ARCH = "gemma2-2b"
 GEMMA_FLASH_SHAPE = (2, 8192, 8, 4, 256)     # 2 x its published context
 GEMMA_NEW = 16               # decode steps after the 8192-token prefill
 GEMMA_F32_LAYERS = 2         # the float32 gate's cut: one local, one global
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 20              # of 80: 40.1 GB of bf16 weights, room left for
+                             # the init's f32 draw of a stacked leaf (19.4 GB)
+VLM_F32_LAYERS = 2           # the float32 gate's cut (17 GB of weights)
+VLM_GRID = (32, 32)          # (l.1)'s patch grid, then VLM_TEXT text tokens
+VLM_TEXT = 256
 
 
 class CheckFailed(AssertionError):
@@ -2072,9 +2102,9 @@ def _trace_split(torch, prof, wall_ms, steps, categories=_CATEGORIES,
 
 
 def phase_profile(torch, model, params, rows, dev, categories=_CATEGORIES):
-    """One prefill round and 8 decode steps of the serving path under
-    torch.profiler: where the device time goes (by ``categories``), and
-    how idle the card is."""
+    """One prefill round and ``PROFILE_STEPS`` decode steps of the
+    serving path under torch.profiler: where the device time goes (by
+    ``categories``), and how idle the card is."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     B, L = rows.shape
@@ -2091,7 +2121,7 @@ def phase_profile(torch, model, params, rows, dev, categories=_CATEGORIES):
         cur = torch.argmax(logits[:, -1], -1).to(torch.int32)
         pos = torch.full((B,), L, device=dev)
         cur, cache = model.decode_step(params, cache, cur, pos)   # warm-up
-        steps = 8
+        steps = PROFILE_STEPS
 
         def decode():
             nonlocal cur, cache, pos
@@ -2123,6 +2153,7 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
     launch, counted into the stats.  ``spans`` wraps the trace, which
     splits by ``categories``; the requests' prompts are appended to
     ``prompts`` when given."""
+    t_phase = time.perf_counter()
     per_round = per_round or model.cfg.n_layers
     eng = serve.Engine(model, params, serve.ServeConfig(
         batch_size=SERVE_B, max_seq=SERVE_MAX_SEQ, queue_capacity=64),
@@ -2205,7 +2236,8 @@ def phase_serve(torch, KK, kname, MK, serve, model, params, rng, dev,
                    "round_prefill_ms": pre_ms, "round_prompt_len":
                    len(solo.tokens), "decode_ms_per_token": dec_ms,
                    "cache_bytes": c_bytes, "monitor_launches": monitor,
-                   "trace": trace}
+                   "trace": trace,
+                   "serve_phase_s": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -2903,6 +2935,9 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
     steps on one repeated batch, ``log_every=2``.  The links' monitor
     must launch ``monitor_fleet`` during the fit.  Then one more step
     under torch.profiler."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import analysis as RN
+    from repro_torch.roofline import analytic as RA
     from repro_torch.train import OptConfig, TrainConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = cfgs.get_config(ARCH)
@@ -2979,8 +3014,12 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     attn_flops = (3 * 4.0 * gb * cfg.n_heads * cfg.head_dim * pairs
                   * cfg.n_layers)
-    model_flops = 6.0 * (n_params - n_embed) * tokens + attn_flops
-    mfu = model_flops / (med / 1e3) / PEAK_BF16_FLOPS
+    model_flops = RN.model_flops(n_params - n_embed, tokens,
+                                 "train") + attn_flops
+    mfu = model_flops / (med / 1e3) / RN.HW["peak_flops_bf16"]
+    roof = roofline_line(RA, RN, cfg, ShapeConfig("train_step", TRAIN_SEQ,
+                                                  gb, "train"), med / 1e3,
+                         remat_policy="dots")
 
     # one more step under the profiler, the optimizer's kernels in a range
     from torch.profiler import ProfilerActivity, profile
@@ -3002,11 +3041,16 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         f"{tokens / med * 1e3:.0f} tokens/s, MFU {mfu:.4f} (6 N tokens with "
         f"N {(n_params - n_embed) / 1e9:.4f} B (the embedding table's "
         f"gather excluded) + attention {attn_flops / 1e12:.2f} TFLOP, over "
-        f"989 TFLOP/s); peak memory {peak_gb:.2f} GB "
+        f"{RN.HW['peak_flops_bf16'] / 1e12:g} TFLOP/s); peak memory "
+        f"{peak_gb:.2f} GB "
         f"(torch.cuda.max_memory_allocated; reckoned state {state_gb:.2f} "
         f"GB); launches {launches}, monitor_fleet {monitor_launches}; "
         f"pipeline rates {rates}; link heads (consumer side, items/s) "
         f"{heads}")
+    log(f"trainer step roofline (analytic, remat dots, H100 peaks): "
+        f"compute {roof['compute_s'] * 1e3:.1f} ms, memory "
+        f"{roof['memory_s'] * 1e3:.1f} ms, {roof['dominant']} bound, "
+        f"measured {med:.1f} ms = {roof['bound_share']:.3f} of the bound")
     if trace is None:
         log("trainer profile: no device events in the trace (not measured)")
     else:
@@ -3022,7 +3066,8 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         "peak_memory_gb": peak_gb, "reckoned_state_gb": state_gb,
         "n_params": n_params, "launches": launches,
         "monitor_fleet_launches": monitor_launches, "pipeline_rates": rates,
-        "pipeline_heads": heads, "trace": trace, "init_s": t_init}
+        "pipeline_heads": heads, "trace": trace, "init_s": t_init,
+        "roofline": roof}
 
 
 def phase_ckpt_resume(torch, cfgs, models, rng, dev, seed):
@@ -3409,9 +3454,9 @@ _MOE_CATEGORIES = (("flash_attention", ("flash_fwd",)),
 
 def phase_moe(torch, AK, AO, MK, serve, TF, cfgs, models, rng, seed, dev):
     """(j.3) phi3.5-moe at published widths (d 4096, 32/8 heads x 128, 16
-    experts top-2 of d_ff 6400, vocab 32 064), cut to 16 of its 32
-    layers: 21.1 B parameters, 42.1 GB of random bf16 weights from
-    ``--seed``, which leaves room for the Engine's cache at 8 x 2048.
+    experts top-2 of d_ff 6400, vocab 32 064), cut to 8 of its 32
+    layers: 10.7 B parameters, 21.3 GB of random bf16 weights from
+    ``--seed``.
 
     A prefill of 8 x 1024 through the kernel and through the plain
     attention in bf16: the rel L2 of the last logits and the share of
@@ -3420,7 +3465,7 @@ def phase_moe(torch, AK, AO, MK, serve, TF, cfgs, models, rng, seed, dev):
     moves its output a lot).  The gate is in float32 compute at a
     2-layer cut of the same weights: last logits within rel L2 1e-4 of
     plain, and the kernel at 1.02 x scale must miss.  Then phase 8's
-    traffic through ``serve.Engine`` (16 flash launches a prefill round,
+    traffic through ``serve.Engine`` (8 flash launches a prefill round,
     ``monitor_fleet`` on the lanes, the engine's tokens equal to a direct
     decode) and a trace split into flash, GEMMs, the dispatch's sort and
     gather/scatter, copies and other."""
@@ -3902,6 +3947,222 @@ def phase_gemma2(torch, AK, TF, cfgs, models, rng, seed, dev):
         "decode_tokens_per_s": tok_s, "new_tokens": GEMMA_NEW,
         "cache_bytes": c_bytes}
 
+# ---------------------------------------------------------------------------
+# phase (l): the vlm family, M-RoPE
+
+
+def vision_positions(torch, B, grid, text, dev):
+    """Qwen2-VL's (3, B, S) M-RoPE streams for one image then text: the
+    patches of a ``grid`` at t = 0, h their row, w their column; the
+    ``text`` tokens after them at t = h = w, counting up from the
+    largest patch position + 1."""
+    gh, gw = grid
+    t = torch.zeros(gh * gw, dtype=torch.int32)
+    h = torch.arange(gh, dtype=torch.int32).repeat_interleave(gw)
+    w = torch.arange(gw, dtype=torch.int32).repeat(gh)
+    txt = torch.arange(text, dtype=torch.int32) + max(gh, gw)
+    pos = torch.stack([torch.cat([x, txt]) for x in (t, h, w)])
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous().to(dev)
+
+
+def kernel_flash_vlm(torch, AK, AR, dev, seed):
+    """The flash forward at qwen2-vl's head layout (64 q heads over 8 kv
+    heads x 128: GQA 8), bf16, causal, against the plain version (1e-3,
+    as phase 6): the 8 x 1024 prefill and a ragged Engine round of
+    8 x 1479."""
+    own = np.random.default_rng((seed, 12))
+    return flash_cases(torch, AK, AR, [
+        ((SERVE_B, PREFILL_S, 64, 8, 128), None, True, own),
+        ((SERVE_B, MOE_ROUND_S, 64, 8, 128), None, True, own)], dev, "vlm")
+
+
+def vlm_attention_gates(torch, AT, cfg, params, g, dev):
+    """(l.1) M-RoPE with distinct streams at the attention op: layer 0's
+    ``attention`` (qwen2-vl's weights) on inputs over a 32 x 32 patch
+    grid and 256 text tokens at batch 8, through the kernel and the
+    plain version, rel L2 of the output <= 1e-3 in bf16 and <= 2e-4 in
+    float32; the kernel run with the h and w streams swapped must miss
+    the gate (the streams reach the rotation)."""
+    lp = {k: v[0] for k, v in params["blocks"]["attn"].items()}
+    pos = vision_positions(torch, SERVE_B, VLM_GRID, VLM_TEXT, dev)
+    x = torch.randn((SERVE_B, pos.shape[-1], cfg.d_model), generator=g,
+                    device=dev)
+    out = {}
+    with torch.inference_mode():
+        for dt, tol in ((torch.bfloat16, 1e-3), (torch.float32, 2e-4)):
+            p = {k: v.to(dt) for k, v in lp.items()}
+            xd = x.to(dt)
+
+            def run(impl, streams):
+                return AT.attention(p, xd, streams, cfg, compute_dtype=dt,
+                                    impl=impl)[0]
+            want = run("plain", pos)
+            rel = _rel_l2(run("kernel", pos), want)
+            rel_sw = _rel_l2(run("kernel", pos[[0, 2, 1]]), want)
+            name = str(dt).removeprefix("torch.")
+            check(rel <= tol, f"qwen2-vl attention with vision streams "
+                  f"{name}: kernel vs plain rel L2 {rel} over {tol}")
+            check(rel_sw > tol, f"control: qwen2-vl attention with the h "
+                  f"and w streams swapped {name} {rel_sw} within {tol}, so "
+                  f"the gate could not fail")
+            out[name] = {"rel_l2": rel, "hw_swapped_rel_l2": rel_sw,
+                         "gate": tol}
+            del p, xd, want
+    log(f"qwen2-vl attention, layer 0, {SERVE_B} x {pos.shape[-1]} "
+        f"({VLM_GRID[0]} x {VLM_GRID[1]} patches, then {VLM_TEXT} text), "
+        f"M-RoPE streams distinct: kernel vs plain " + "; ".join(
+            f"{n} rel L2 {r['rel_l2']:.3e} (gate {r['gate']:g}; h and w "
+            f"swapped {r['hw_swapped_rel_l2']:.3e} must miss it)"
+            for n, r in out.items()))
+    return out
+
+
+def roofline_line(RA, RN, cfg, shape, measured_s, remat_policy="full"):
+    """``roofline_report`` of one step on one card from the analytic
+    FLOPs and bytes, with the measured time as a share of its bound."""
+    fl = RA.analytic_flops(cfg, shape, remat_policy)
+    by = RA.analytic_bytes(cfg, shape)
+    rep = RN.roofline_report(flops_per_dev=fl["compiled"],
+                             bytes_per_dev=by["traffic"],
+                             coll=RN.CollectiveStats({}, {}), n_chips=1,
+                             model_flops_total=fl["model_flops"])
+    out = {k: rep[k] for k in ("compute_s", "memory_s", "dominant",
+                               "step_lower_bound_s")}
+    out.update(flops=fl["compiled"], bytes=by["traffic"],
+               measured_s=measured_s,
+               bound_share=rep["step_lower_bound_s"] / measured_s)
+    return out
+
+
+def phase_vlm(torch, AK, AT, TF, MK, serve, cfgs, models, rng, seed, dev):
+    """(l) qwen2-vl-72b at published widths (d 8192, 64/8 heads x 128,
+    d_ff 29 568, vocab 152 064, M-RoPE sections (16, 24, 24) of 64,
+    theta 1e6) cut to 20 of its 80 layers: 20.04 B parameters, 40.1 GB
+    of random bf16 weights from ``--seed`` (5.0 GB of them the embedding
+    and unembedding); stub patch embeddings (8, 1024, 8192) bf16 from
+    the seed.
+
+    (l.1) ``vlm_attention_gates``.  (l.2) An 8 x 1024 prefill from the
+    embeddings through the kernel (20 flash launches) and the plain
+    attention (bf16 rel L2 reported); the gate in float32 at a 2-layer
+    cut of the same weights: last logits within rel L2 1e-4 of plain,
+    and the kernel at 1.02 x scale must miss; decoding one token after
+    that prefill agrees with a prefill one row longer (that token's
+    embedding): the same token, logits 1e-4.  (l.3) The prefill's time,
+    then phase 8's traffic on text prompts through ``serve.Engine`` (20
+    flash launches a round, ``monitor_fleet`` on the lanes, engine
+    tokens == direct decode); init and prefill peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import analysis as RN
+    from repro_torch.roofline import analytic as RA
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = dataclasses.replace(cfgs.get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    model = models.build_model(cfg, bf16)
+    plain = models.build_model(cfg, bf16, kernel_impl="plain")
+    gc.collect()               # an earlier phase's engine holds its weights
+    torch.cuda.empty_cache()   # in a reference cycle until collected
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(g, bf16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    B, S = SERVE_B, PREFILL_S
+    embeds = torch.randn((B, S, cfg.d_model), generator=g,
+                         device=dev).to(bf16)
+    batch = {"embeds": embeds}
+    attn_gates = vlm_attention_gates(torch, AT, cfg, params, g, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        model.prefill(params, batch)                      # warm-up
+        AK.reset_launch_counts()
+        (lk, _), ms_k = _sync_ms(torch, lambda: model.prefill(params,
+                                                              batch))
+        launches = AK.launch_counts()["flash_attention"]
+        prefill_peak = torch.cuda.max_memory_allocated(dev)
+        (lp, _), ms_p = _sync_ms(torch, lambda: plain.prefill(params, batch))
+        rel16 = _rel_l2(lk, lp)
+        # float32 at a 2-layer cut of the same weights
+        c32 = dataclasses.replace(cfg, n_layers=VLM_F32_LAYERS)
+        p32 = _f32_cut(params, "blocks", VLM_F32_LAYERS)
+        m32 = models.build_model(c32, f32)
+        l32k, c32k = m32.prefill(p32, batch)
+        l32p, _ = models.build_model(c32, f32, kernel_impl="plain").prefill(
+            p32, batch)
+        with scaled_flash_forward(torch, AK, 1.02):
+            l32s, _ = m32.prefill(p32, batch)
+        rel32, rel32s = _rel_l2(l32k, l32p), _rel_l2(l32s, l32p)
+        # decode a token after the prefill against a prefill one row
+        # longer, whose last row is that token's embedding
+        tok = torch.argmax(l32k[:, -1], -1)
+        c = decode_cache(m32, c32k, B, S, dev, max_seq=S + 1)
+        ld, _, _ = TF.lm_forward(
+            p32, c32, tokens=tok[:, None], cache=c,
+            pos_offset=torch.full((B,), S, device=dev), mode="decode",
+            compute_dtype=f32, logits_mode="last")
+        long = torch.cat([embeds.float(), p32["embed"][tok][:, None]], 1)
+        lf, _ = m32.prefill(p32, {"embeds": long})
+        dec_rel = _rel_l2(ld, lf)
+        dec_same = bool(torch.equal(ld[:, -1].argmax(-1),
+                                    lf[:, -1].argmax(-1)))
+        del p32, c32k, c, long
+    torch.cuda.empty_cache()
+    check(launches == cfg.n_layers, f"flash_attention launched {launches} "
+          f"times in a {cfg.n_layers}-layer qwen2-vl prefill")
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(l32k).all()),
+          "non-finite qwen2-vl prefill logits")
+    check(rel32 <= 1e-4, f"qwen2-vl f32 logits ({VLM_F32_LAYERS} layers): "
+          f"kernel vs plain rel L2 {rel32} over 1e-4")
+    check(rel32s > 1e-4, f"control: qwen2-vl f32 logits with the kernel at "
+          f"1.02 x scale {rel32s} within 1e-4, so the gate could not fail")
+    check(dec_same and dec_rel <= 1e-4, f"qwen2-vl f32 decode vs prefill: "
+          f"same token {dec_same}, logits rel L2 {dec_rel}")
+    roof = roofline_line(RA, RN, cfg, ShapeConfig("vlm_prefill", S, B,
+                                                  "prefill"), ms_k / 1e3)
+    log(f"model {cfg.name} cut to {cfg.n_layers} of 80 layers: d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, M-RoPE "
+        f"theta {cfg.rope_theta:g}; {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.3f} GB bf16 (init {t_init:.1f} s, peak "
+        f"{init_peak / 1e9:.2f} GB over {base / 1e9:.2f} GB held when the "
+        f"phase began)")
+    log(f"qwen2-vl prefill {B} x {S} from embeddings: kernel {ms_k:.1f} ms, "
+        f"plain attention {ms_p:.1f} ms (host clock, synchronized), "
+        f"{launches} flash launches, peak {prefill_peak / 1e9:.2f} GB; last "
+        f"logits kernel vs plain: bf16 rel L2 {rel16:.3e}, f32 at "
+        f"{VLM_F32_LAYERS} layers {rel32:.3e} (gate 1e-4; the kernel at "
+        f"1.02 x scale {rel32s:.3e} must miss it); f32 decode vs a prefill "
+        f"one row longer: logits {dec_rel:.3e}, same token {dec_same}")
+    log(f"qwen2-vl prefill roofline (analytic, H100 peaks): compute "
+        f"{roof['compute_s'] * 1e3:.1f} ms, memory "
+        f"{roof['memory_s'] * 1e3:.1f} ms, {roof['dominant']} bound, "
+        f"measured {ms_k:.1f} ms = {roof['bound_share']:.3f} of the bound")
+    serve_launches, stats = phase_serve(torch, AK, "flash_attention", MK,
+                                        serve, model, params, rng, dev)
+    del model, plain, params, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches + serve_launches, roof, {
+        "layers": cfg.n_layers, "parameters": n_params,
+        "weight_bytes": w_bytes, "base_bytes": base,
+        "init_peak_bytes": init_peak, "init_s": t_init,
+        "prefill_peak_bytes": prefill_peak,
+        "prefill_8x1024_embeds_ms": ms_k,
+        "prefill_8x1024_embeds_plain_attn_ms": ms_p,
+        "prefill_flash_launches": launches, "attention_gates": attn_gates,
+        "logits_rel_l2_bf16": rel16, "logits_rel_l2_f32": rel32,
+        "logits_rel_l2_f32_scaled_control": rel32s,
+        "decode_vs_prefill_rel_l2": dec_rel, **stats}
+
+
 
 @contextlib.contextmanager
 def _wall(walls, name):
@@ -3948,6 +4209,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd import ops as SO
     from repro_torch.kernels.ssd import ref as SR
+    from repro_torch.models import attention as AT
     from repro_torch.models import ssm as SSM
     from repro_torch.models import transformer as TF
     from repro_torch.models import whisper as WH
@@ -4087,6 +4349,10 @@ def main() -> int:
     with wall("k.3 gemma2"):
         gemma_launches, gemma = phase_gemma2(torch, AK, TF, C, MD, rng,
                                              args.seed, dev)
+    with wall("l vlm"):
+        vlm_flash_err = kernel_flash_vlm(torch, AK, AR, dev, args.seed)
+        vlm_launches, vlm_roof, vlm = phase_vlm(
+            torch, AK, AT, TF, K, SV, C, MD, rng, args.seed, dev)
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -4108,10 +4374,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:25",
          "launches": (flash_launches + whisper_launches + moe_launches
-                      + zamba_launches + gemma_launches),
+                      + zamba_launches + gemma_launches + vlm_launches),
          "max_abs_err": max(flash["max_abs_err"],
                             whisper["flash"]["max_abs_err"], moe_flash_err,
-                            flash_k["max_abs_err"]),
+                            flash_k["max_abs_err"], vlm_flash_err),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
@@ -4165,6 +4431,12 @@ def main() -> int:
     log(json.dumps({"serve": {"arch": MOE_ARCH, **moe}}))
     log(json.dumps({"serve": {"arch": ZAMBA_ARCH, **zamba}}))
     log(json.dumps({"serve": {"arch": GEMMA_ARCH, **gemma}}))
+    log(json.dumps({"serve": {"arch": VLM_ARCH, **vlm}}))
+    log(json.dumps({"roofline": {
+        f"{VLM_ARCH} prefill {SERVE_B}x{PREFILL_S} ({VLM_LAYERS} layers)":
+            vlm_roof,
+        f"{ARCH} train step {TRAIN_MICRO * TRAIN_ROWS}x{TRAIN_SEQ}":
+            train["fit"]["roofline"]}}))
     walls["total"] = time.perf_counter() - start
     log(json.dumps({"wall_s": walls}))
     log(json.dumps({"train": {"flash_attention_bwd": {k: bwd[k] for k in (

@@ -1,6 +1,6 @@
 """Model facade: one object per architecture exposing init, loss,
-prefill, decode_step and the cache — what the trainer and the serving
-engine need.
+prefill, decode_step, the cache and the input specs — what the
+trainer, the serving engine and the sharding tools need.
 
 Parameters are a nested dict of tensors in the JAX package's layout
 (layers stacked on a leading axis, e.g. ``wq`` (L, d, H, hd)), so the
@@ -20,11 +20,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.monitor import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer, whisper
-from repro_torch.models.attention import check_supported, init_cache_spec
+from repro_torch.models.attention import init_cache_spec
 from repro_torch.models.ssm import F32_LEAVES, init_ssm_cache_spec
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
@@ -83,7 +83,6 @@ class Model:
 
     def __post_init__(self):
         transformer.check_family(self.cfg)
-        check_supported(self.cfg)
 
     # ---------------- parameters -----------------------------------------
     def _defs(self, mk):
@@ -93,6 +92,15 @@ class Model:
 
     def param_shapes(self) -> dict:
         return self._defs(ll.shape_creator())
+
+    def abstract_params(self, param_dtype=torch.float32) -> dict:
+        """Every leaf as a ``meta`` tensor of ``param_dtype`` (the JAX
+        package's ``ShapeDtypeStruct`` tree): nothing is allocated."""
+        return self._defs(ll.abstract_creator(param_dtype))
+
+    def param_axes(self) -> dict:
+        """Every leaf's logical-axis tuple, for ``dist.sharding``."""
+        return self._defs(ll.axes_creator())
 
     def init_params(self, generator: torch.Generator,
                     param_dtype=torch.float32, *, device="cuda") -> dict:
@@ -195,6 +203,42 @@ class Model:
         spec, _ = self.cache_spec(batch, max_seq)
         return {n: torch.zeros(shape, dtype=dt, device=dev)
                 for n, (shape, dt) in spec.items()}
+
+    # ---------------- input specs -------------------------------------------
+    def input_specs(self, shape: ShapeConfig):
+        """(batch of ``meta`` tensors, logical axes) for an assigned
+        shape: train {inputs, "targets"}, prefill {inputs}, decode
+        {"tokens", "pos"} (one new token against the cache).  The
+        inputs follow ``cfg.input_kind``: "tokens" (B, S) int32,
+        "embeds" (B, S, d_model) bf16, or "frames" (B, enc_seq, d_model)
+        bf16 and "tokens"."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        tok = ("batch", "seq")
+
+        def spec(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return ({"tokens": spec((B,), torch.int32),
+                     "pos": spec((B,), torch.int32)},
+                    {"tokens": ("batch",), "pos": ("batch",)})
+        if cfg.input_kind == "embeds":
+            batch = {"embeds": spec((B, S, cfg.d_model), torch.bfloat16)}
+            axes = {"embeds": ("batch", "seq", "d_model")}
+        elif cfg.input_kind == "frames+tokens":
+            batch = {"frames": spec((B, cfg.encoder_seq, cfg.d_model),
+                                    torch.bfloat16),
+                     "tokens": spec((B, S), torch.int32)}
+            axes = {"frames": ("batch", "enc_seq", "d_model"),
+                    "tokens": tok}
+        else:
+            batch = {"tokens": spec((B, S), torch.int32)}
+            axes = {"tokens": tok}
+        if shape.kind == "train":
+            batch["targets"] = spec((B, S), torch.int32)
+            axes["targets"] = tok
+        return batch, axes
 
 
 def build_model(cfg: ArchConfig, compute_dtype=torch.bfloat16, *,

@@ -25,8 +25,12 @@ means no window) follow the JAX package: scaled scores, then the cap,
 then the causal mask, then the window.  Prefill passes both to the
 flash op; decode and the static cache apply them to the float32 scores.
 
-M-RoPE (vlm) is not ported yet (ROADMAP.md, Queue 1 item 4):
-``check_supported`` raises for it.
+Rotary positions: RoPE over (B, S) positions (given (3, B, S) streams
+it takes the first, as the JAX package does), or M-RoPE (vlm) over the
+(3, B, S) (t, h, w) streams, each rotating its own section of the
+frequency slots.  Both rotate q, and k when it comes from ``x``, before
+the flash op, which sees ordinary q and k; a decode writes the cache at
+the (B,) ``pos_offset`` whichever the rotation.
 """
 
 from __future__ import annotations
@@ -37,10 +41,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.models.layers import _mm, rope_apply, softcap
+from repro_torch.models.layers import _mm, mrope_apply, rope_apply, softcap
 
-__all__ = ["attn_param_defs", "attention", "KVCache", "init_cache_spec",
-           "check_supported"]
+__all__ = ["attn_param_defs", "attention", "KVCache", "init_cache_spec"]
 
 NEG_INF = -2.0e38
 
@@ -81,14 +84,6 @@ def init_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
     K = kv_heads if kv_heads is not None else cfg.n_kv_heads
     shape = (L, batch, max_seq, K, cfg.head_dim)
     return KVCache(k=(shape, dtype), v=(shape, dtype))
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for attention features the port does not have yet."""
-    if cfg.rope_mode == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE is not ported yet (ROADMAP.md, Queue 1 "
-            "item 4)")
 
 
 def _window(cfg: ArchConfig, is_local) -> int:
@@ -153,7 +148,9 @@ def attention(p, x, positions, cfg: ArchConfig, *,
       plain softmax over them, causal only if ``causal`` and no
       ``kv_x``; the cache is returned unchanged.
 
-    positions: (B, S) int.  Returns (out, (new_cache_k, new_cache_v)).
+    positions: (B, S) int, or (3, B, S) under M-RoPE (the (t, h, w)
+    streams; RoPE takes the first).  Returns (out, (new_cache_k,
+    new_cache_v)).
 
     ``is_local`` selects the config's sliding window for this layer
     (None or false: none); ``cfg.attn_logit_softcap`` caps the scores.
@@ -163,7 +160,6 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     nothing here.
     """
     del chunked_threshold
-    check_supported(cfg)
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
@@ -171,15 +167,21 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     window = _window(cfg, is_local)
     static = cache_k is not None and pos_offset is None
 
-    q = _mm(x, p["wq"], compute_dtype)
-    if cfg.rope_mode == "rope":
-        q = rope_apply(q, positions, cfg.rope_theta)
+    def rotate(t):
+        if cfg.rope_mode == "rope":
+            pos = positions if positions.ndim == 2 else positions[0]
+            return rope_apply(t, pos, cfg.rope_theta)
+        if cfg.rope_mode == "mrope":
+            return mrope_apply(t, positions, cfg.rope_theta)
+        return t
+
+    q = rotate(_mm(x, p["wq"], compute_dtype))
     if not static:            # a static cache holds k and v already
         src = x if kv_x is None else kv_x
         k = _mm(src, p["wk"], compute_dtype)
         v = _mm(src, p["wv"], compute_dtype)
-        if cfg.rope_mode == "rope" and kv_x is None:
-            k = rope_apply(k, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rotate(k)
     wo = p["wo"].reshape(H * hd, D)
 
     if cache_k is None:

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "Creator", "init_creator", "shape_creator",
+    "Creator", "init_creator", "shape_creator", "abstract_creator",
+    "axes_creator",
     "rmsnorm", "layernorm", "softcap", "gelu_mlp", "glu_mlp",
     "rope_apply", "mrope_apply", "take_embedding",
 ]
@@ -50,6 +51,23 @@ def shape_creator() -> Creator:
     def create(path, shape, axes, fan_in=None, kind="normal"):
         del path, axes, fan_in, kind
         return tuple(shape)
+    return create
+
+
+def abstract_creator(param_dtype=torch.float32) -> Creator:
+    """Yields each leaf as a ``meta`` tensor of ``param_dtype``."""
+    def create(path, shape, axes, fan_in=None, kind="normal"):
+        del path, axes, fan_in, kind
+        return torch.empty(shape, dtype=param_dtype, device="meta")
+    return create
+
+
+def axes_creator() -> Creator:
+    """Yields each leaf's logical-axis tuple."""
+    def create(path, shape, axes, fan_in=None, kind="normal"):
+        del fan_in, kind
+        assert len(axes) == len(shape), f"{path}: {axes} vs {shape}"
+        return tuple(axes)
     return create
 
 

@@ -21,11 +21,17 @@ in mode "train", whose layers may be rematerialised in the backward
 the hand-written backward kernel (``kernels.attention.ops``); the SSD
 kernel has no backward yet, so an ssm model trains on the CPU only.
 
-Ported: the dense, moe, ssm and hybrid families here, and the audio
-encoder-decoder in ``models.whisper``.  Not yet: the vlm family
-(ROADMAP.md, Queue 1 item 4).  On the card the hybrid trains through
-neither kernel's backward yet: the SSD kernel has none, and the flash
-backward has no hd 112 instance (ROADMAP.md, Queue 2).
+The vlm family (qwen2-vl) is the dense stack fed precomputed patch
+embeddings (``embeds``) or tokens, its q and k rotated by M-RoPE: the
+positions are (3, B, S) streams (t, h, w), which ``_positions_for``
+gives as the text positions broadcast (t = h = w), as the JAX package
+does; a caller with a vision layout passes its own streams to
+``attention``.
+
+Ported: every family of the JAX package here, and the audio
+encoder-decoder in ``models.whisper``.  On the card the hybrid trains
+through neither kernel's backward yet: the SSD kernel has none, and the
+flash backward has no hd 112 instance (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -50,12 +56,8 @@ __all__ = ["lm_param_defs", "lm_forward", "lm_loss", "norm_def",
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for model families the port does not run yet."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and embedding inputs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
+    """Raise for a family the JAX package does not have."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(cfg.family)
 
 
@@ -379,11 +381,17 @@ def _run_hybrid_stack(params, cfg, x, positions, cache, pos_offset, mode,
 # top level
 # ---------------------------------------------------------------------------
 
-def _positions_for(B: int, S: int, pos_offset, device):
+def _positions_for(cfg: ArchConfig, B: int, S: int, pos_offset, device):
+    """(B, S) int32 positions from ``pos_offset`` (B,) or from 0; under
+    M-RoPE the (3, B, S) streams of text, t = h = w."""
     ar = torch.arange(S, dtype=torch.int32, device=device)[None]
     if pos_offset is None:
-        return ar.expand(B, S)
-    return pos_offset.to(torch.int32)[:, None] + ar
+        pos = ar.expand(B, S)
+    else:
+        pos = pos_offset.to(torch.int32)[:, None] + ar
+    if cfg.rope_mode == "mrope":
+        return pos[None].expand(3, B, S)
+    return pos
 
 
 def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
@@ -416,7 +424,7 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                                       remat_policy)
     else:
         B, S = x.shape[:2]
-        positions = _positions_for(B, S, pos_offset, x.device)
+        positions = _positions_for(cfg, B, S, pos_offset, x.device)
         stack = (_run_hybrid_stack if cfg.family == "hybrid"
                  else _run_attn_stack)
         x, new_cache, aux = stack(

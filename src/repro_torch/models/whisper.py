@@ -83,7 +83,7 @@ def whisper_encode(params, cfg: ArchConfig, frames,
     x = (frames.to(compute_dtype)
          + params["enc_pos"].to(compute_dtype)[None])
     B, S, _ = x.shape
-    positions = _positions_for(B, S, None, x.device)
+    positions = _positions_for(cfg, B, S, None, x.device)
     layer = _maybe_remat(functools.partial(_enc_layer, cfg), remat_policy)
     for bp in _unstack(params["enc_blocks"], cfg.encoder_layers):
         x = layer(x, bp, positions, compute_dtype, kernel_impl)
@@ -127,7 +127,7 @@ def whisper_forward(params, cfg: ArchConfig, *, tokens, enc_out=None,
     a position past ``cfg.learned_positions`` raises (an index error),
     where the JAX package's ``jnp.take`` fills NaN."""
     B, S = tokens.shape
-    positions = _positions_for(B, S, pos_offset, tokens.device)
+    positions = _positions_for(cfg, B, S, pos_offset, tokens.device)
     x = ll.take_embedding(params["embed"], tokens, False, compute_dtype)
     x = x + params["dec_pos"][positions.long()].to(compute_dtype)
     want_cache = mode in ("prefill", "decode")

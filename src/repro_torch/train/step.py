@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.train.optimizer import (OptConfig, _const, _leaves,
-                                         _tree_map, clip_by_global_norm,
-                                         lr_schedule, opt_update)
+                                         _tree_map, abstract_opt_state,
+                                         clip_by_global_norm, lr_schedule,
+                                         opt_state_axes, opt_update)
 
 __all__ = ["TrainConfig", "make_train_step", "make_train_state_specs"]
 
@@ -76,8 +77,30 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
 
 def make_train_state_specs(model: Model, tcfg: TrainConfig, ctx):
-    """(abstract_state, sharding_tree) for a sharded init: needs the
-    sharding engine, ``dist/``, which the port does not have yet."""
-    raise NotImplementedError(
-        "make_train_state_specs needs the sharding engine (dist/), which is "
-        "not ported yet (ROADMAP.md, Queue 1 item 6)")
+    """(abstract_state, placements_tree) for a sharded init: the state
+    {params, opt, step} as ``meta`` tensors (float32 parameters, the
+    optimizer's moments, an int32 step), and each leaf's DTensor
+    placements over ``ctx.mesh`` (a ``DeviceMesh`` with named dims) by
+    ``ctx.param_rules``."""
+    from repro_torch.dist.sharding import (PartitionSpec, param_specs_tree,
+                                           placements_for)
+
+    ap = model.abstract_params(torch.float32)
+    axes = model.param_axes()
+    opt_abs = _tree_map(
+        lambda sd: torch.empty(sd[0], dtype=sd[1], device="meta"),
+        abstract_opt_state(tcfg.opt.name, ap))
+    opt_axes = opt_state_axes(tcfg.opt.name, axes)
+
+    abstract = {"params": ap, "opt": opt_abs,
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+    p_specs = param_specs_tree(axes, ap, ctx.mesh, ctx.param_rules)
+    o_specs = param_specs_tree(opt_axes, opt_abs, ctx.mesh,
+                               ctx.param_rules)
+    to_pl = lambda spec: placements_for(spec, ctx.mesh)      # noqa: E731
+    placements = {
+        "params": _tree_map(to_pl, p_specs),
+        "opt": _tree_map(to_pl, o_specs),
+        "step": placements_for(PartitionSpec(), ctx.mesh),
+    }
+    return abstract, placements

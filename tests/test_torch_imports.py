@@ -3,7 +3,8 @@ in ``chip_smoke.py``, ``scripts/monitor_kernel_turns.py`` or
 ``scripts/chaos_replica_cap.py`` (all run on the card's machine)
 imports ``jax`` or the JAX package ``repro`` (any ``repro.*`` import
 would run ``repro/core/__init__.py`` and with it jax).  The card's
-machine has no jax."""
+machine has no jax.  Nor does the package import ``torch.testing``,
+PyTorch's test helpers (its tests may)."""
 
 import ast
 import pathlib
@@ -53,6 +54,22 @@ def test_no_jax_or_repro_imports(path):
     bad = [(line, root) for line, root in _imported_roots(tree)
            if root in BANNED]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_package_does_not_import_torch_testing():
+    bad = [str(f.relative_to(REPO)) for f in FILES
+           if "src" in f.parts and any(
+               m == "torch.testing" or m.startswith("torch.testing.")
+               for m in _imported_modules(ast.parse(f.read_text())))]
+    assert not bad, bad
 
 
 def test_scanner_catches_banned_imports():

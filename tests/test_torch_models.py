@@ -251,12 +251,6 @@ def test_init_params_takes_the_reference_dtype_argument():
     assert torch.equal(b["embed"], f["embed"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(get_smoke_config(arch))
-
-
 # -- the reference's attention keywords ---------------------------------------
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1,20 +1,22 @@
 """The port keeps the JAX package's public names and signatures.
 
 For every public name of the port's ``workloads``, ``ft``, ``data``,
-``train``, ``ckpt``, ``models.api``, ``models.whisper`` and
-``models.moe`` modules, and for the repaired
+``train``, ``ckpt``, ``models.api``, ``models.whisper``, ``models.moe``,
+``dist``, ``roofline`` and ``launch.mesh`` modules, and for the repaired
 ``models.attention`` names, the port's ``inspect.signature`` must match
 the reference's: the same parameter names in the same order, of the same
 kinds, with the same defaults (a JAX dtype default matches the torch
 dtype of that name).  The only differences allowed are a trailing
 keyword-only ``device`` on an entry point that builds a monitor service,
-monitor state, parameters, a cache or a trainer's state; the port's
-``impl`` last on ``attention`` and ``kernel_impl`` last on the model
-facade and on the Whisper entry points; a ``jax.random`` key taken as a
-``torch.Generator`` named ``generator``; and the names listed in
+monitor state, parameters, a cache, a trainer's state or a mesh; the
+port's ``impl`` last on ``attention`` and ``kernel_impl`` last on the
+model facade and on the Whisper entry points; a ``jax.random`` key taken
+as a ``torch.Generator`` named ``generator``; and the names listed in
 ``PORT_ONLY`` and ``NOT_PORTED``.
 A class is held by its constructor and by each public method it defines;
-a constant by its value.
+a constant by its value, except the constants in ``OWN_VALUE`` (the
+card's own figures), held by their keys.  A module of the reference
+with no twin of the same name has one in ``TWINS``.
 """
 
 import dataclasses
@@ -29,25 +31,32 @@ MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "workloads.trace", "workloads.harness", "ft.inject",
            "ft.failures", "ft.supervisor", "data.pipeline",
            "train.optimizer", "train.step", "train.trainer", "ckpt.manager",
-           "models.api", "models.whisper", "models.moe")
-PACKAGES = ("workloads", "ft", "data", "train", "ckpt")
+           "models.api", "models.whisper", "models.moe", "dist.sharding",
+           "dist.api", "dist.compression", "roofline.analytic",
+           "roofline.analysis", "launch.mesh")
+PACKAGES = ("workloads", "ft", "data", "train", "ckpt", "dist")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
 # the port's extra trailing parameter, by name
 EXTRA = {"attention": "impl", "Model": "kernel_impl",
          "build_model": "kernel_impl", "whisper_encode": "kernel_impl",
          "whisper_forward": "kernel_impl", "whisper_loss": "kernel_impl"}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
-          "DataPipeline", "Trainer", "init_params", "init_cache"}
+          "DataPipeline", "Trainer", "init_params", "init_cache",
+          "make_production_mesh", "make_local_mesh"}
 # a jax.random key is a torch.Generator in the port
 RENAMED = {"key": "generator"}
-# public names only the port has: the JAX parameter tree as tensors
-PORT_ONLY = {"models.api": ["params_from_numpy"]}
-# the reference's sharding and dry-run tools and its expert-parallel MoE,
-# which the port does not carry (no mesh: the port runs on one card)
-NOT_PORTED = {("models.api", "Model.abstract_params"),
-              ("models.api", "Model.param_axes"),
-              ("models.api", "Model.input_specs"),
-              ("models.moe", "moe_block_ep")}
+# public names only the port has: the JAX parameter tree as tensors, the
+# port's own PartitionSpec and its DTensor placements
+PORT_ONLY = {"models.api": ["params_from_numpy"],
+             "dist.sharding": ["PartitionSpec", "placements_for"]}
+# the reference's expert-parallel MoE, not ported yet, and its HLO text
+# parse, which has no input in PyTorch (its twin counts at run time)
+NOT_PORTED = {("models.moe", "moe_block_ep"),
+              ("roofline.analysis", "parse_collective_bytes")}
+# constants whose values are the port's own: the H100's peaks
+OWN_VALUE = {("roofline.analysis", "HW")}
+# port module -> the reference module it stands in for
+TWINS = {"roofline.counters": "roofline.hlo"}
 
 
 def _pair(mod):
@@ -60,6 +69,8 @@ def _cases():
     for mod in MODULES:
         t_mod, j_mod = _pair(mod)
         for name in j_mod.__all__:
+            if (mod, name) in NOT_PORTED:
+                continue
             cases.append((mod, name))
             obj = getattr(j_mod, name)
             if inspect.isclass(obj) and obj.__module__ == j_mod.__name__:
@@ -116,7 +127,18 @@ def test_package_names_match():
         assert t_pkg.__all__ == j_pkg.__all__, pkg
     for mod in MODULES:
         t_mod, j_mod = _pair(mod)
-        assert t_mod.__all__ == j_mod.__all__ + PORT_ONLY.get(mod, []), mod
+        ported = [n for n in j_mod.__all__ if (mod, n) not in NOT_PORTED]
+        assert t_mod.__all__ == ported + PORT_ONLY.get(mod, []), mod
+
+
+def test_twins_stand_in_for_the_reference_modules():
+    """Each twin and the module it replaces exist, and the port has no
+    module of the replaced one's name."""
+    for mod, ref in TWINS.items():
+        assert importlib.import_module(f"repro_torch.{mod}").__all__
+        assert importlib.import_module(f"repro.{ref}").__all__
+        with pytest.raises(ImportError):
+            importlib.import_module(f"repro_torch.{ref}")
 
 
 def test_unported_methods_are_absent():
@@ -135,7 +157,9 @@ def test_signature_matches_the_reference(mod, name):
     t_mod, j_mod = _pair(mod)
     got, want = _get(t_mod, name), _get(j_mod, name)
     if not callable(want) or isinstance(want, (tuple, dict)):
-        if name == "SCENARIOS":          # values hold lambdas: by shape
+        if (mod, name) in OWN_VALUE:
+            assert list(got) == list(want)
+        elif name == "SCENARIOS":        # values hold lambdas: by shape
             assert list(got) == list(want)
             for k in want:
                 for f in ("name", "periods", "quick_periods",

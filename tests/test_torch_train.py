@@ -38,7 +38,7 @@ from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models.transformer import _maybe_remat
 from repro_torch.train import (OptConfig, TrainConfig, clip_by_global_norm,
                                init_opt_state, lr_schedule, make_train_step,
-                               make_train_state_specs, pick_optimizer)
+                               pick_optimizer)
 from repro_torch.train.optimizer import _leaves
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -314,11 +314,6 @@ def test_loss_decreases(ref):
         losses.append(float(metrics["loss"]))
     assert losses[-1] < losses[0] * 0.8
     assert int(state["step"]) == 30
-
-
-def test_make_train_state_specs_names_the_roadmap_item(ref):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_train_state_specs(ref[3], TrainConfig(), None)
 
 
 def test_trainer_defaults_to_the_card(ref):
