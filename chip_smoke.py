@@ -230,6 +230,26 @@ failed check raises and exits non-zero):
    dominant one, and the measured time as a share of the bound) in a
    ``{"roofline": ...}`` line; the trainer's MFU takes its numerator from
    ``roofline.analysis.model_flops`` and its peak from its ``HW``;
+(m) the sharded step: (m.1) ``launch.dryrun.lower_cell`` on the host
+   for internlm2-1.8b x train_4k x single pod (256 ranks), phi3.5-moe x
+   prefill_32k x single (the MoE mesh, through ``moe_block_ep``) and
+   qwen2-vl-72b x decode_32k x multi-pod (512 ranks), each on a fake
+   world and meta DTensors: all three must be ok; per cell the peak GB a
+   rank, the dominant term, the roofline fraction and the collective
+   bytes by op; (m.2) on an NCCL world of one rank, a (data 1, model 1)
+   mesh: phase 7's internlm2 prefill (8 x 1024, random bf16 weights)
+   with DTensor parameters placed by ``placements_for``, ``constrain``
+   live (74 calls on DTensors) and the flash kernel on the local shards
+   through the operator's registered sharding: last logits within rel
+   L2 1e-6 of the unsharded prefill in the same process, the same 24
+   flash launches, none under ``kernel_impl="plain"``, timed in turns
+   with the unsharded prefill; (m.3) ``moe_block_ep`` against
+   ``moe_block`` on a (1, 1, 1) MoE mesh at phi3.5-moe's published
+   widths, one layer, float32, capacity_factor 4.0: y within 1e-4 and
+   the probs within 1e-5 max-abs at (8, 1024) and at decode (8, 1), its
+   NCCL all-reduce counted, device times beside ``moe_block``'s.  One
+   ``{"sharded": ...}`` line; (m.2)'s launches count into
+   ``flash_attention``'s;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -338,6 +358,11 @@ VLM_LAYERS = 20              # of 80: 40.1 GB of bf16 weights, room left for
 VLM_F32_LAYERS = 2           # the float32 gate's cut (17 GB of weights)
 VLM_GRID = (32, 32)          # (l.1)'s patch grid, then VLM_TEXT text tokens
 VLM_TEXT = 256
+# (m.1) the dry run's cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+                ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
+                ("qwen2-vl-72b", "decode_32k", True))
+MOE_EP_SHAPES = ((8, 1024), (8, 1))   # (m.3) (B, S): prefill, decode
 
 
 class CheckFailed(AssertionError):
@@ -4164,6 +4189,213 @@ def phase_vlm(torch, AK, AT, TF, MK, serve, cfgs, models, rng, seed, dev):
 
 
 
+def phase_dryrun(DR):
+    """(m.1) ``launch.dryrun.lower_cell`` on the host for the three
+    ``DRYRUN_CELLS``: each traces one rank's step over a fake 256- or
+    512-rank world on meta DTensors (no card).  One line a cell: status,
+    peak GB a rank, the dominant roofline term, the roofline fraction,
+    the collective bytes by op.  Every cell must be ok."""
+    out = {}
+    for arch, shape, multi in DRYRUN_CELLS:
+        tag = f"{arch} {shape} {'multi' if multi else 'single'}"
+        t0 = time.perf_counter()
+        res = DR.lower_cell(arch, shape, multi)
+        wall = time.perf_counter() - t0
+        check(res["status"] == "ok", f"dry run {tag}: {res}")
+        rf, mem = res["roofline"], res["memory"]
+        out[tag] = {
+            "status": res["status"], "n_chips": res["n_chips"],
+            "peak_gb_per_rank": mem["peak_bytes_per_dev"] / 1e9,
+            "argument_gb_per_rank": mem["argument_bytes_per_dev"] / 1e9,
+            "fits_hbm": mem["fits_hbm"], "dominant": rf["dominant"],
+            "roofline_fraction": rf["roofline_fraction"],
+            "collective_bytes_by_op": rf["collective_bytes_by_op"],
+            "collective_count_by_op": rf["collective_count_by_op"],
+            "flops_per_rank": res["cost"]["flops"], "wall_s": wall}
+        log(f"dry run {tag}: " + json.dumps(out[tag]))
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world(torch, dev):
+    """A process group of one rank on the card (NCCL), torn down after."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def counted_constrain(torch, modules):
+    """Count the model's ``constrain`` calls that get a DTensor (the
+    sites the sharding context reaches), by wrapping each model
+    module's imported name."""
+    from torch.distributed.tensor import DTensor
+    origs = [m.constrain for m in modules]
+
+    def counting(x, axes, _orig=origs[0]):
+        counting.calls += isinstance(x, DTensor)
+        return _orig(x, axes)
+    counting.calls = 0
+    for m in modules:
+        m.constrain = counting
+    try:
+        yield counting
+    finally:
+        for m, o in zip(modules, origs):
+            m.constrain = o
+
+
+def phase_sharded_prefill(torch, AK, DA, DS, LM, sites, cfgs, models, rng,
+                          seed, dev):
+    """(m.2) internlm2-1.8b at full width, random bf16 weights, an
+    8 x 1024 prefill under a sharding context on an NCCL world of one:
+    a (data 1, model 1) mesh, the parameters and tokens DTensors placed
+    by ``placements_for``, ``constrain`` live, the flash kernel on the
+    local shards through the operator's registered sharding.  Gated
+    against the unsharded prefill in the same process (last logits rel
+    L2 <= 1e-6, the same 24 flash launches); the plain attention under
+    the same context launches none.  Timed in turns (unsharded, sharded,
+    sharded, unsharded; host clock, synchronized)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    cfg = cfgs.get_config(ARCH)
+    model = models.build_model(cfg, torch.bfloat16)
+    plain = models.build_model(cfg, torch.bfloat16, kernel_impl="plain")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               torch.bfloat16, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_B, PREFILL_S)), device=dev)
+    mesh = LM.make_local_mesh(1, 1, device=dev.type)
+    rules = DS.act_rules("prefill")
+    specs = DS.param_specs_tree(model.param_axes(),
+                                model.abstract_params(torch.bfloat16), mesh,
+                                DS.param_rules())
+    dparams = _map2(params, specs, lambda t, s: distribute_tensor(
+        t, mesh, DS.placements_for(s, mesh), src_data_rank=None))
+    dtoks = distribute_tensor(toks, mesh, DS.placements_for(DS.spec_for(
+        tuple(toks.shape), ("batch", "seq"), rules, mesh), mesh),
+        src_data_rank=None)
+    ctx = DA.ShardingContext(mesh, rules, DS.param_rules())
+
+    def unsharded():
+        return model.prefill(params, {"tokens": toks})
+
+    def sharded(m=model):
+        with DA.use_sharding(ctx):
+            return m.prefill(dparams, {"tokens": dtoks})
+
+    with torch.no_grad():
+        unsharded(), sharded()                            # warm-up
+        AK.reset_launch_counts()
+        (lu, _), _ = _sync_ms(torch, unsharded)
+        n_u = AK.launch_counts()["flash_attention"]
+        AK.reset_launch_counts()
+        with counted_constrain(torch, sites) as cc:
+            (ls, cache), _ = _sync_ms(torch, sharded)
+        n_s = AK.launch_counts()["flash_attention"]
+        AK.reset_launch_counts()
+        sharded(plain)
+        n_p = AK.launch_counts()["flash_attention"]
+        turns = {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            _, ms = _sync_ms(torch, unsharded if name == "unsharded"
+                             else sharded)
+            turns[name].append(ms)
+    check(isinstance(ls, DTensor) and isinstance(cache["k"], DTensor),
+          "the sharded prefill did not return DTensors")
+    rel = _rel_l2(ls.full_tensor(), lu)
+    check(rel <= 1e-6, f"sharded prefill logits vs unsharded: rel L2 {rel}")
+    check(n_s == n_u == cfg.n_layers, f"flash launches: sharded {n_s}, "
+          f"unsharded {n_u}, {cfg.n_layers} layers")
+    check(n_p == 0, f"the plain attention launched flash {n_p} times")
+    check(cc.calls == 2 + 3 * cfg.n_layers, f"{cc.calls} constrain calls "
+          f"saw a DTensor")
+    ms_u, ms_s = (sum(v) / len(v) for v in (turns["unsharded"],
+                                            turns["sharded"]))
+    stats = {"prefill_8x1024_unsharded_ms": ms_u,
+             "prefill_8x1024_sharded_ms": ms_s,
+             "sharded_over_unsharded": ms_s / ms_u,
+             "turns_ms": turns, "logits_rel_l2": rel,
+             "flash_launches": n_s, "plain_flash_launches": n_p,
+             "constrain_calls": cc.calls}
+    log(f"(m.2) sharded prefill {SERVE_B} x {PREFILL_S}: {ms_s:.1f} ms vs "
+        f"{ms_u:.1f} ms unsharded; logits rel L2 {rel:.3e}; {n_s} flash "
+        f"launches ({n_p} under plain); {cc.calls} constrain calls on "
+        f"DTensors")
+    del model, plain, params, dparams, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_s, stats
+
+
+def _map2(tree, other, fn):
+    return {k: (_map2(v, other[k], fn) if isinstance(v, dict)
+                else fn(v, other[k])) for k, v in tree.items()}
+
+
+def phase_moe_ep(torch, MOE, LL, RC, cfgs, seed, dev):
+    """(m.3) ``moe_block_ep`` against ``moe_block`` on an NCCL world of
+    one, a (1, 1, 1) (data, expert, tp) mesh: phi3.5-moe's published
+    widths at one layer (d 4096, 16 experts top 2, d_ff 6400, SwiGLU),
+    random float32 weights, capacity_factor 4.0 so that nothing drops
+    (the reference's EP test); at (8, 1024) and at decode (8, 1).  y
+    within 1e-4 max-abs and the router probs within 1e-5 (the
+    reference's gates); the NCCL all-reduce runs for real (counted).
+    Device times by CUDA events."""
+    import dataclasses
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = dataclasses.replace(cfgs.get_config(MOE_ARCH), capacity_factor=4.0)
+    mesh = init_device_mesh(dev.type, (1, 1, 1),
+                            mesh_dim_names=("data", "expert", "tp"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = MOE.moe_param_defs(LL.init_creator(g, dev, torch.float32), "moe",
+                           cfg)
+    out = {}
+    for B, S in MOE_EP_SHAPES:
+        decode = S == 1
+        x = torch.randn(B, S, cfg.d_model, generator=g, device=dev)
+
+        def dense():
+            return MOE.moe_block(x, p, cfg, compute_dtype=torch.float32)
+
+        def ep():
+            return MOE.moe_block_ep(x, p, cfg, mesh,
+                                    compute_dtype=torch.float32,
+                                    decode=decode)
+        with torch.no_grad():
+            y0, p0 = dense()
+            (y1, p1), coll, _ = RC.count_collectives(ep)
+            ms_ep = event_ms(torch, ep, reps=5)
+            ms_dense = event_ms(torch, dense, reps=5)
+        ey = float((y1 - y0).abs().max())
+        ep_ = float((p1 - p0).abs().max())
+        check(float(y0.abs().max()) > 0, "moe_block gave zeros")
+        check(ey <= 1e-4 and ep_ <= 1e-5, f"moe_block_ep vs moe_block at "
+              f"({B}, {S}): y {ey}, probs {ep_}")
+        check(coll.count_by_op.get("all-reduce", 0) >= 1,
+              f"no all-reduce in moe_block_ep: {coll.count_by_op}")
+        out[f"{B}x{S}"] = {"y_max_abs": ey, "probs_max_abs": ep_,
+                           "ep_ms": ms_ep, "dense_ms": ms_dense,
+                           "collectives": coll.count_by_op}
+        log(f"(m.3) moe_block_ep ({B}, {S}, {cfg.d_model}) decode={decode}: "
+            f"{ms_ep:.3f} ms vs moe_block {ms_dense:.3f} ms; max-abs y "
+            f"{ey:.2e}, probs {ep_:.2e}; collectives {coll.count_by_op}")
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def _wall(walls, name):
     t0 = time.perf_counter()
@@ -4214,6 +4446,13 @@ def main() -> int:
     from repro_torch.models import transformer as TF
     from repro_torch.models import whisper as WH
     from repro_torch.train import step as TS
+    from repro_torch.dist import api as DA
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import layers as LL
+    from repro_torch.models import moe as MOE
+    from repro_torch.roofline import counters as RC
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4353,6 +4592,15 @@ def main() -> int:
         vlm_flash_err = kernel_flash_vlm(torch, AK, AR, dev, args.seed)
         vlm_launches, vlm_roof, vlm = phase_vlm(
             torch, AK, AT, TF, K, SV, C, MD, rng, args.seed, dev)
+    with wall("m.1 dry runs"):
+        sharded = {"dryrun": phase_dryrun(DR)}
+    with wall("m.2-m.3 sharded prefill, moe_block_ep"):
+        with nccl_world(torch, dev):
+            sharded_launches, sharded["prefill"] = phase_sharded_prefill(
+                torch, AK, DA, DS, LM, (TF, AT, MOE, WH), C, MD, rng,
+                args.seed, dev)
+            sharded["moe_ep"] = phase_moe_ep(torch, MOE, LL, RC, C,
+                                             args.seed, dev)
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -4374,7 +4622,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:25",
          "launches": (flash_launches + whisper_launches + moe_launches
-                      + zamba_launches + gemma_launches + vlm_launches),
+                      + zamba_launches + gemma_launches + vlm_launches
+                      + sharded_launches),
          "max_abs_err": max(flash["max_abs_err"],
                             whisper["flash"]["max_abs_err"], moe_flash_err,
                             flash_k["max_abs_err"], vlm_flash_err),
@@ -4432,6 +4681,7 @@ def main() -> int:
     log(json.dumps({"serve": {"arch": ZAMBA_ARCH, **zamba}}))
     log(json.dumps({"serve": {"arch": GEMMA_ARCH, **gemma}}))
     log(json.dumps({"serve": {"arch": VLM_ARCH, **vlm}}))
+    log(json.dumps({"sharded": sharded}))
     log(json.dumps({"roofline": {
         f"{VLM_ARCH} prefill {SERVE_B}x{PREFILL_S} ({VLM_LAYERS} layers)":
             vlm_roof,

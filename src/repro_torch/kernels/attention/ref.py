@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
-           "LOG2E"]
+__all__ = ["attention_ref", "attention_ref_blocked", "attention_lse_ref",
+           "attention_bwd_ref", "LOG2E"]
 
 LOG2E = 1.4426950408889634
 NEG_INF = -2.0e38    # src/repro/models/attention.py's masked score
@@ -73,6 +73,46 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None,
     w = torch.softmax(_scores(q, k, causal, scale, softcap, window), dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
     return out.reshape(B, S, H, hd)
+
+
+def attention_ref_blocked(q, k, v, *, causal: bool = True, scale=None,
+                          softcap=None, window: int = 0, block: int = 1024):
+    """``attention_ref`` as an online softmax over blocks of ``block``
+    keys (halved until it divides T), so that the (S, T) scores never
+    materialise: the JAX package's ``_chunked_attention``, which its
+    attention runs at S T >= 16384^2, in its order (a running max, the
+    block's exponentials, the rescaled sums), float32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    block = min(block, T)
+    while T % block:
+        block //= 2
+    qg = q.reshape(B, S, K, H // K, hd).float()
+    acc = qg.new_zeros((B, K, H // K, S, hd))
+    m = qg.new_full((B, K, H // K, S), NEG_INF)
+    den = qg.new_zeros((B, K, H // K, S))
+    s_idx = torch.arange(S, device=q.device)[:, None]
+    for j in range(0, T, block):
+        kj, vj = k[:, j:j + block].float(), v[:, j:j + block].float()
+        s = torch.einsum("bskgh,btkh->bkgst", qg, kj) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        t = j + torch.arange(block, device=q.device)[None, :]
+        keep = t <= s_idx if causal else None
+        if window:
+            keep = (t > s_idx - window) if keep is None else (
+                keep & (t > s_idx - window))
+        s = _mask(s, keep)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        den = den * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkh->bkgsh", p,
+                                                    vj)
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
 def attention_lse_ref(q, k, *, causal: bool = True, scale=None,

@@ -8,11 +8,16 @@ the plain version; it exists for the tests and for ``chip_smoke.py``'s
 comparison on the card.  The inter-chunk state recurrence is a short
 loop over the chunks and the inter-chunk output an einsum, as the JAX
 package keeps both outside its kernel.
+
+The kernel takes no DTensor: its sharding is not registered (ROADMAP.md,
+Queue 2 item 7), so on the card an ssm model under a sharding context
+raises here; the plain version runs under one (the dry run's).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref, ssd_chunk_ref
@@ -29,6 +34,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
     ``models.ssm.ssd_chunked`` pads to one.  ``h0`` (B,H,P,N) is the
     state carried in from an earlier segment."""
     if impl == "kernel":
+        if isinstance(x, DTensor) and x.device.type == "cuda":
+            raise NotImplementedError(
+                "the SSD kernel takes no DTensor: its sharding is not "
+                "registered (ROADMAP.md, Queue 2 item 7); run the ssm model "
+                "unsharded on the card, or with kernel_impl=\"plain\"")
         chunk_fn = _kernel.ssd_chunk
     elif impl == "plain":
         chunk_fn = ssd_chunk_batched_ref

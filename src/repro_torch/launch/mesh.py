@@ -11,13 +11,14 @@ exactly n ranks), and raises when the world has fewer than n.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_production_mesh", "make_local_mesh"]
+__all__ = ["make_production_mesh", "make_local_mesh", "fake_world"]
 
 
 def _mesh(shape: tuple, axes: tuple, device: str):
@@ -62,3 +63,29 @@ def make_local_mesh(data: int = 2, model: int = 4, *, pod: int = 0,
     else:
         shape, axes = (data, model), ("data", "model")
     return _mesh(shape, axes, device)
+
+
+def _fake_group(common_opts, backend_opts):
+    from torch._C._distributed_c10d import FakeProcessGroup
+    rank, size = common_opts.group_rank, common_opts.group_size
+    if hasattr(FakeProcessGroup, "_create_internal"):
+        return FakeProcessGroup._create_internal(rank, size, backend_opts)
+    return FakeProcessGroup(rank, size)
+
+
+@contextlib.contextmanager
+def fake_world(size: int, rank: int = 0):
+    """A world of ``size`` ranks on PyTorch's ``fake`` backend, this
+    process being rank ``rank``: collectives return at once and move
+    nothing, so one process can trace one rank's part of a 256- or
+    512-rank step (the dry run).  The backend is registered here from
+    ``torch._C``'s ``FakeProcessGroup`` (its registration otherwise
+    lives in ``torch.testing``); the world is destroyed on exit."""
+    dist.Backend.register_backend("fake", _fake_group, extended_api=True,
+                                  devices=["cpu", "cuda"])
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

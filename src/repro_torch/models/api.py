@@ -19,6 +19,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.monitor import resolve_device
@@ -152,7 +153,9 @@ class Model:
     def decode_step(self, params, cache, tokens, pos):
         """One decode step.  tokens: (B,) int; pos: (B,) int — write
         offset into the cache.  Returns (next_tokens, cache); the cache
-        is updated in place (the JAX package donates it)."""
+        is updated in place (the JAX package donates it).  Sharded
+        logits are gathered over the vocab before the argmax (DTensor's
+        argmax over a sharded dim fails at batch 1)."""
         kw = dict(tokens=tokens[:, None], cache=cache, pos_offset=pos,
                   mode="decode", compute_dtype=self.compute_dtype,
                   logits_mode="last", kernel_impl=self.kernel_impl)
@@ -162,7 +165,12 @@ class Model:
         else:
             logits, new_cache, _ = transformer.lm_forward(params, self.cfg,
                                                           **kw)
-        next_tokens = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        last = logits[:, -1]
+        if isinstance(last, DTensor):   # DTensor's argmax over a shard
+            last = last.redistribute(last.device_mesh, [
+                Replicate() if p == Shard(1) else p
+                for p in last.placements])
+        next_tokens = torch.argmax(last, dim=-1).to(torch.int32)
         return next_tokens, new_cache
 
     # ---------------- caches -----------------------------------------------

@@ -18,6 +18,11 @@ Head layout is explicit, as in the JAX package — q: (B, S, H, hd); k/v:
   (the reference's ``preferred_element_type``): the cache is regrouped
   in its own dtype, never copied to float32.
 
+Where the scores are formed (decode, the static cache), the grouped q
+and the scores are annotated with ``dist.api.constrain`` at the JAX
+package's places; the prefill hands q, k and v to the flash op, whose
+sharding is its own (``kernels.attention.ops``).
+
 The softcap (``cfg.attn_logit_softcap``: scores ``cap tanh(s / cap)``)
 and the sliding window (``cfg.sliding_window`` on a layer whose
 ``is_local`` is true: keys ``t > q - window`` kept; ``is_local`` None
@@ -38,8 +43,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import as_dtensor, constrain
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models.layers import _mm, mrope_apply, rope_apply, softcap
 
@@ -106,11 +115,79 @@ def _update_cache(ck, cv, k_new, v_new, pos):
     B, S_max = ck.shape[0], ck.shape[1]
     S_new = k_new.shape[1]
     start = pos.to(torch.long).clamp(0, S_max - S_new)
+    if isinstance(ck, DTensor):
+        return _update_sharded_cache(ck, cv, k_new, v_new, start)
     rows = torch.arange(B, device=ck.device)[:, None]
     cols = start[:, None] + torch.arange(S_new, device=ck.device)[None, :]
     ck[rows, cols] = k_new.to(ck.dtype)
     cv[rows, cols] = v_new.to(cv.dtype)
     return ck, cv
+
+
+def _update_sharded_cache(ck, cv, k_new, v_new, start):
+    """``_update_cache`` on DTensor caches, on each rank's shard: DTensor
+    has no in-place index write into a dim it shards (the cache's
+    sequence, in decode).  Each rank writes the new positions that fall
+    in its slice of the sequence, for its rows and heads, and keeps its
+    old values elsewhere."""
+    mesh, pls = ck.device_mesh, ck.placements
+    shape, off = compute_local_shape_and_global_offset(ck.shape, mesh, pls)
+    new_pl = [Replicate() if p == Shard(1) else p for p in pls]
+    row_pl = [p if p == Shard(0) else Replicate() for p in pls]
+    start = as_dtensor(start, mesh).redistribute(mesh, row_pl).to_local()
+    cols = (start[:, None] - off[1]
+            + torch.arange(k_new.shape[1], device=start.device)[None, :])
+    mine = (cols >= 0) & (cols < shape[1])
+    cols = cols.clamp(0, shape[1] - 1)
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
+    for c, t in ((ck, k_new), (cv, v_new)):
+        cl = c.to_local()
+        tl = as_dtensor(t, mesh).redistribute(mesh, new_pl).to_local()
+        cl[rows, cols] = torch.where(mine[..., None, None], tl.to(cl.dtype),
+                                     cl[rows, cols])
+    return ck, cv
+
+
+def _out_proj(out, wo, compute_dtype):
+    """out (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D), the heads and the
+    head dim contracted.  On DTensors it runs on each rank's shards
+    (Megatron's row-parallel product): wo is gathered where ``out``
+    shards the batch and cut where it shards the heads or the head dim,
+    and the result is partial over the latter.  (Flattened, a sharded
+    head dim is strided-sharded, which DTensor's product turns into a
+    plain shard that the backward cannot unflatten.)"""
+    B, S, H, hd = out.shape
+    if not isinstance(out, DTensor):
+        return _mm(out.reshape(B, S, H * hd), wo.reshape(H * hd, -1),
+                   compute_dtype)
+    mesh, pls = out.device_mesh, out.placements
+    contracted = {Shard(2): Shard(0), Shard(3): Shard(1)}
+    w_pl = [contracted.get(p, Replicate()) for p in pls]
+    w_grad = [contracted[p] if p in contracted
+              else Partial() if isinstance(p, Shard) else Replicate()
+              for p in pls]
+    wl = wo.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    ol = out.to_local()
+    y = _mm(ol.reshape(*ol.shape[:2], -1),
+            wl.reshape(-1, wl.shape[-1]), compute_dtype)
+    y_pl = [Partial() if p in contracted else p for p in pls]
+    return DTensor.from_local(y, mesh, y_pl, run_check=False,
+                              shape=(B, S, wo.shape[-1]),
+                              stride=(S * wo.shape[-1], wo.shape[-1], 1))
+
+
+def _group_heads(q, K: int):
+    """q (B, S, H, hd) -> (B, S, K, G, hd).  A DTensor whose heads a mesh
+    dim shards more finely than K divides is gathered on that dim first
+    (DTensor cannot split such a dim in two)."""
+    B, S, H, hd = q.shape
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        pl = [Replicate() if p == Shard(2) and K % mesh.size(i) else p
+              for i, p in enumerate(q.placements)]
+        if tuple(pl) != tuple(q.placements):
+            q = q.redistribute(mesh, pl)
+    return q.reshape(B, S, K, H // K, hd)
 
 
 def _f32_scores(qg, k):
@@ -182,15 +259,13 @@ def attention(p, x, positions, cfg: ArchConfig, *,
         v = _mm(src, p["wv"], compute_dtype)
         if kv_x is None:
             k = rotate(k)
-    wo = p["wo"].reshape(H * hd, D)
 
     if cache_k is None:
         out = attn_ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             causal=causal and kv_x is None, scale=scale,
             softcap=cfg.attn_logit_softcap, window=window, impl=impl)
-        out = _mm(out.to(compute_dtype).reshape(B, S, H * hd), wo,
-                  compute_dtype)
+        out = _out_proj(out.to(compute_dtype), p["wo"], compute_dtype)
         return out, ((k, v) if return_kv else (None, None))
 
     if not static:
@@ -198,8 +273,11 @@ def attention(p, x, positions, cfg: ArchConfig, *,
                                          pos_offset)
     ck, cv = cache_k.to(compute_dtype), cache_v.to(compute_dtype)
     T = ck.shape[1]
-    scores = softcap(_f32_scores(q.reshape(B, S, K, G, hd), ck) * scale,
-                     cfg.attn_logit_softcap)
+    qg = constrain(_group_heads(q, K),
+                   ("batch", "q_seq", "kv_heads", "q_per_kv", "head_dim"))
+    scores = constrain(_f32_scores(qg, ck) * scale,
+                       ("batch", "kv_heads", "q_per_kv", "q_seq", "kv_seq"))
+    scores = softcap(scores, cfg.attn_logit_softcap)
     t_idx = torch.arange(T, device=x.device)
     q_abs = torch.arange(S, device=x.device)[None, :]             # (1, S)
     mask = None
@@ -215,5 +293,5 @@ def attention(p, x, positions, cfg: ArchConfig, *,
         scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(compute_dtype)
     out = torch.einsum("bkgst,btkh->bskgh", w, cv)
-    return (_mm(out.reshape(B, S, H * hd), wo, compute_dtype),
+    return (_out_proj(out.reshape(B, S, H, hd), p["wo"], compute_dtype),
             (cache_k, cache_v))

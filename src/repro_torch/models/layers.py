@@ -14,12 +14,18 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+from repro_torch.dist.api import as_dtensor, reshard
 
 __all__ = [
     "Creator", "init_creator", "shape_creator", "abstract_creator",
     "axes_creator",
     "rmsnorm", "layernorm", "softcap", "gelu_mlp", "glu_mlp",
-    "rope_apply", "mrope_apply", "take_embedding",
+    "rope_apply", "mrope_apply", "take_embedding", "target_logits",
+    "logsumexp_last",
 ]
 
 # creator(path, shape, axes, fan_in=None, kind="normal") -> leaf
@@ -99,9 +105,20 @@ def softcap(x, cap: float):
 
 
 def _mm(x, w, compute_dtype):
-    """x (..., a) @ w (a, ...) in the compute dtype -> (..., *w.shape[1:])."""
+    """x (..., a) @ w (a, ...) in the compute dtype -> (..., *w.shape[1:]).
+
+    A DTensor projection to (heads, head_dim) whose head_dim is sharded
+    (the rules put a mesh axis there when the heads don't divide it)
+    runs as one product per head: flattened, that dim is strided-
+    sharded, which DTensor's matrix product turns into a plain shard
+    that the result cannot be unflattened from."""
     w = w.to(compute_dtype)
-    out = x.to(compute_dtype) @ w.reshape(w.shape[0], -1)
+    x = x.to(compute_dtype)
+    if isinstance(w, DTensor) and w.ndim == 3 and Shard(2) in w.placements:
+        x2 = x.reshape(1, -1, w.shape[0]).expand(w.shape[1], -1, -1)
+        out = torch.bmm(x2, w.permute(1, 0, 2))              # (H, N, hd)
+        return out.permute(1, 0, 2).reshape(*x.shape[:-1], *w.shape[1:])
+    out = x @ w.reshape(w.shape[0], -1)
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -166,8 +183,92 @@ def mrope_apply(x, positions3, theta: float, sections=(2, 3, 3)):
 
 
 def take_embedding(embed, tokens, scale: bool, compute_dtype):
-    x = embed[tokens].to(compute_dtype)
+    """The rows of ``embed`` at ``tokens``, times sqrt(d) with ``scale``.
+    A DTensor table takes ``_embedding_on_shards``."""
+    x = (_embedding_on_shards(embed, tokens) if isinstance(embed, DTensor)
+         else embed[tokens]).to(compute_dtype)
     if scale:
         # a 0-dim host tensor: a scalar operand, no copy to the device
         x = x * torch.tensor(embed.shape[-1] ** 0.5, dtype=compute_dtype)
     return x
+
+
+def _embedding_on_shards(embed, tokens):
+    """A DTensor table's rows at ``tokens``, on each rank's shards: the
+    table gathered but on its vocab shards, each rank looks up the
+    tokens of its batch rows that fall in its vocab slice (0 for the
+    rest) and the partial sums are all-reduced.  DTensor's own indexing
+    has no backward sharding rule in PyTorch 2.11, and the partial sum
+    of its ``F.embedding`` fails to reduce on a two-dim mesh."""
+    mesh = embed.device_mesh
+    vocab = [p == Shard(0) for p in embed.placements]
+    tokens = as_dtensor(tokens, mesh)
+    tok_pl = [Replicate() if v else p
+              for v, p in zip(vocab, tokens.placements)]
+    t_pl = [Shard(0) if v else Replicate() for v in vocab]
+    table = embed.redistribute(mesh, t_pl).to_local(grad_placements=[
+        Shard(0) if v else (Partial() if isinstance(p, Shard)
+                            else Replicate())
+        for v, p in zip(vocab, tok_pl)])
+    shape, off = compute_local_shape_and_global_offset(embed.shape, mesh,
+                                                       t_pl)
+    t = tokens.redistribute(mesh, tok_pl).to_local().long() - off[0]
+    hit = (t >= 0) & (t < shape[0])
+    x = table[t * hit] * hit[..., None].to(table.dtype)
+    out_shape = tuple(tokens.shape) + (embed.shape[-1],)
+    x = DTensor.from_local(x, mesh, [Partial() if v else p for v, p in
+                                     zip(vocab, tok_pl)], run_check=False,
+                           shape=out_shape, stride=torch.empty(
+                               out_shape, device="meta").stride())
+    return reshard(x, mesh, tok_pl)
+
+
+def target_logits(logits, targets):
+    """``logits`` (..., V) at the int ``targets`` (...): a gather on the
+    last dim.  For a DTensor whose last dim is sharded (the vocab, under
+    a sharding context) each rank gathers from its own vocab slice, 0
+    for a target outside it, and the result is partial over the mesh
+    dims that shard the vocab: DTensor's own gather there marks the
+    result with a mask of the unsqueezed rank, which a later reduction
+    cannot apply."""
+    last = Shard(logits.ndim - 1)
+    if not isinstance(logits, DTensor) or last not in logits.placements:
+        return torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    mesh, pls = logits.device_mesh, logits.placements
+    shape, offset = compute_local_shape_and_global_offset(logits.shape,
+                                                          mesh, pls)
+    t = as_dtensor(targets, mesh).redistribute(
+        mesh, [Replicate() if p == last else p for p in pls]).to_local()
+    t = t.long() - offset[-1]
+    hit = (t >= 0) & (t < shape[-1])
+    got = torch.gather(logits.to_local(), -1, (t * hit)[..., None])[..., 0]
+    return DTensor.from_local(got * hit, mesh,
+                              [Partial() if p == last else p for p in pls],
+                              run_check=False, shape=logits.shape[:-1],
+                              stride=torch.empty(logits.shape[:-1],
+                                                 device="meta").stride())
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp`` over the last dim.  For a DTensor sharded
+    there (the vocab, under a sharding context) it runs on each rank's
+    slice: the row max (all-reduced), the local sum of exp(x - max), a
+    partial sum that DTensor all-reduces before the log.  Left to
+    DTensor, the logsumexp and its backward gather whole batches of
+    logits onto every rank."""
+    last = Shard(x.ndim - 1)
+    if not isinstance(x, DTensor) or last not in x.placements:
+        return torch.logsumexp(x, dim=-1)
+    mesh, pls = x.device_mesh, x.placements
+    xl = x.to_local()
+    m = DTensor.from_local(
+        xl.detach().amax(-1), mesh,
+        [Partial("max") if p == last else p for p in pls],
+        run_check=False).redistribute(
+            mesh, [Replicate() if p == last else p for p in pls])
+    e = torch.exp(xl - m.to_local()[..., None]).sum(-1)
+    part = DTensor.from_local(e, mesh,
+                              [Partial() if p == last else p for p in pls],
+                              run_check=False, shape=x.shape[:-1],
+                              stride=m.stride())
+    return m + torch.log(part)

@@ -13,7 +13,9 @@ The JAX package's ``lax.scan`` over the stacked layers is a Python loop
 over each layer's slice, as in ``models.transformer``.  The decoder
 cache is the reference's ``{"k", "v"}`` (self-attention, written in
 place at ``pos_offset``) and ``{"ck", "cv"}`` (the encoder's keys and
-values, static in decode), each (L, B, T, K, hd).
+values, static in decode), each (L, B, T, K, hd).  The encoder's input,
+the decoder's embedded input and the logits are annotated with
+``dist.api.constrain`` at the JAX package's places.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import constrain
 from repro_torch.models import layers as ll
 from repro_torch.models.attention import attention, attn_param_defs
 from repro_torch.models.transformer import (_maybe_remat, _positions_for,
@@ -82,6 +85,7 @@ def whisper_encode(params, cfg: ArchConfig, frames,
     layer rematerialised in the backward as ``remat_policy`` says."""
     x = (frames.to(compute_dtype)
          + params["enc_pos"].to(compute_dtype)[None])
+    x = constrain(x, ("batch", "enc_seq", "d_model"))
     B, S, _ = x.shape
     positions = _positions_for(cfg, B, S, None, x.device)
     layer = _maybe_remat(functools.partial(_enc_layer, cfg), remat_policy)
@@ -130,6 +134,7 @@ def whisper_forward(params, cfg: ArchConfig, *, tokens, enc_out=None,
     positions = _positions_for(cfg, B, S, pos_offset, tokens.device)
     x = ll.take_embedding(params["embed"], tokens, False, compute_dtype)
     x = x + params["dec_pos"][positions.long()].to(compute_dtype)
+    x = constrain(x, ("batch", "seq", "d_model"))
     want_cache = mode in ("prefill", "decode")
     layer = _maybe_remat(functools.partial(_dec_layer, cfg),
                          remat_policy if mode == "train" else None)
@@ -154,7 +159,8 @@ def whisper_forward(params, cfg: ArchConfig, *, tokens, enc_out=None,
     if logits_mode == "last":
         x = x[:, -1:]
     logits = ll._mm(x, params["embed"].T, compute_dtype)
-    return logits.float(), new_cache
+    logits = constrain(logits.float(), ("batch", "seq", "vocab"))
+    return logits, new_cache
 
 
 def whisper_loss(params, cfg: ArchConfig, batch, *,
@@ -170,9 +176,9 @@ def whisper_loss(params, cfg: ArchConfig, batch, *,
         params, cfg, tokens=batch["tokens"], enc_out=enc, mode="train",
         compute_dtype=compute_dtype, remat_policy=remat_policy,
         kernel_impl=kernel_impl)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1,
-                       batch["targets"].long()[..., None])[..., 0]
-    ce = torch.mean(lse - tgt)
+    lse = ll.logsumexp_last(logits)
+    tgt = ll.target_logits(logits, batch["targets"])
+    # a site of the port's own: the batch stays sharded in the backward
+    ce = torch.mean(constrain(lse - tgt, ("batch", "seq")))
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}

@@ -25,12 +25,14 @@ __all__ = ["HW", "CollectiveStats", "roofline_report", "model_flops"]
 
 # NVIDIA H100 SXM5 80GB (NVIDIA H100 Tensor Core GPU data sheet; dense,
 # no sparsity, at the 700 W board power): bf16 tensor-core peak, HBM3
-# bandwidth, and NVLink 4's per-GPU bandwidth in one direction (18 links
-# x 25 GB/s; 900 GB/s both ways), which a ring's sends share.
+# bandwidth, NVLink 4's per-GPU bandwidth in one direction (18 links
+# x 25 GB/s; 900 GB/s both ways), which a ring's sends share, and the
+# HBM3 capacity the dry run holds a rank's peak against.
 HW = {
     "peak_flops_bf16": 989e12,   # FLOP/s per card
     "hbm_bw": 3.35e12,           # B/s per card
     "link_bw": 450e9,            # B/s per card, NVLink 4, one direction
+    "hbm_bytes": 80e9,           # B per card
 }
 
 # bytes an element, by the HLO element-type names the JAX package uses

@@ -40,7 +40,8 @@ def test_port_has_sources():
     for mod in ("control/policy.py", "control/loop.py", "control/group.py",
                 "streams/pipeline.py", "kernels/monitor/rounds.py",
                 "ft/supervisor.py", "workloads/harness.py",
-                "data/pipeline.py"):
+                "data/pipeline.py", "launch/dryrun.py", "launch/sweep.py",
+                "models/moe.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert (REPO / "chip_smoke.py").exists()
     assert (REPO / "src" / "repro_torch" / "kernels" / "monitor" / "csrc"

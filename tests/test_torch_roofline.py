@@ -54,10 +54,11 @@ def test_analytic_equals_the_reference(arch, shape):
 
 
 def test_hw_holds_the_h100_peaks():
-    """bf16 dense tensor-core peak, HBM3 bandwidth and NVLink 4's per-GPU
-    bandwidth in one direction (NVIDIA H100 SXM data sheet)."""
+    """bf16 dense tensor-core peak, HBM3 bandwidth, NVLink 4's per-GPU
+    bandwidth in one direction and the HBM3 capacity (NVIDIA H100 SXM
+    data sheet)."""
     assert t_an.HW == {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12,
-                       "link_bw": 450e9}
+                       "link_bw": 450e9, "hbm_bytes": 80e9}
     assert t_an._MULT == j_an._MULT
     assert t_an._DTYPE_BYTES == j_an._DTYPE_BYTES
 

@@ -2,9 +2,10 @@
 
 For every public name of the port's ``workloads``, ``ft``, ``data``,
 ``train``, ``ckpt``, ``models.api``, ``models.whisper``, ``models.moe``,
-``dist``, ``roofline`` and ``launch.mesh`` modules, and for the repaired
-``models.attention`` names, the port's ``inspect.signature`` must match
-the reference's: the same parameter names in the same order, of the same
+``dist``, ``roofline`` and ``launch`` modules, for the repaired
+``models.attention`` names and for the public functions outside the
+reference's ``__all__`` in ``BEYOND_ALL``, the port's
+``inspect.signature`` must match the reference's: the same parameter names in the same order, of the same
 kinds, with the same defaults (a JAX dtype default matches the torch
 dtype of that name).  The only differences allowed are a trailing
 keyword-only ``device`` on an entry point that builds a monitor service,
@@ -15,7 +16,8 @@ as a ``torch.Generator`` named ``generator``; and the names listed in
 ``PORT_ONLY`` and ``NOT_PORTED``.
 A class is held by its constructor and by each public method it defines;
 a constant by its value, except the constants in ``OWN_VALUE`` (the
-card's own figures), held by their keys.  A module of the reference
+card's own figures), held by their keys (the reference's, then the
+port's additions).  A module of the reference
 with no twin of the same name has one in ``TWINS``.
 """
 
@@ -33,28 +35,33 @@ MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "train.optimizer", "train.step", "train.trainer", "ckpt.manager",
            "models.api", "models.whisper", "models.moe", "dist.sharding",
            "dist.api", "dist.compression", "roofline.analytic",
-           "roofline.analysis", "launch.mesh")
+           "roofline.analysis", "launch.mesh", "launch.dryrun",
+           "launch.sweep")
 PACKAGES = ("workloads", "ft", "data", "train", "ckpt", "dist")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
+# public functions the reference leaves out of its ``__all__``
+BEYOND_ALL = (("models.moe", "moe_block_ep"),
+              ("launch.mesh", "make_moe_mesh"))
 # the port's extra trailing parameter, by name
 EXTRA = {"attention": "impl", "Model": "kernel_impl",
          "build_model": "kernel_impl", "whisper_encode": "kernel_impl",
          "whisper_forward": "kernel_impl", "whisper_loss": "kernel_impl"}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
           "DataPipeline", "Trainer", "init_params", "init_cache",
-          "make_production_mesh", "make_local_mesh"}
+          "make_production_mesh", "make_local_mesh", "make_moe_mesh"}
 # a jax.random key is a torch.Generator in the port
 RENAMED = {"key": "generator"}
 # public names only the port has: the JAX parameter tree as tensors, the
-# port's own PartitionSpec and its DTensor placements
+# port's own PartitionSpec and its DTensor placements, the fake world
 PORT_ONLY = {"models.api": ["params_from_numpy"],
-             "dist.sharding": ["PartitionSpec", "placements_for"]}
-# the reference's expert-parallel MoE, not ported yet, and its HLO text
-# parse, which has no input in PyTorch (its twin counts at run time)
-NOT_PORTED = {("models.moe", "moe_block_ep"),
-              ("roofline.analysis", "parse_collective_bytes")}
-# constants whose values are the port's own: the H100's peaks
-OWN_VALUE = {("roofline.analysis", "HW")}
+             "dist.sharding": ["PartitionSpec", "placements_for"],
+             "launch.mesh": ["fake_world"]}
+# the reference's HLO text parse, which has no input in PyTorch (its
+# twin counts at run time)
+NOT_PORTED = {("roofline.analysis", "parse_collective_bytes")}
+# constants whose values are the port's own: the H100's peaks, held by
+# the reference's keys and the port's added ones
+OWN_VALUE = {("roofline.analysis", "HW"): ["hbm_bytes"]}
 # port module -> the reference module it stands in for
 TWINS = {"roofline.counters": "roofline.hlo"}
 
@@ -64,11 +71,23 @@ def _pair(mod):
             importlib.import_module(f"repro.{mod}"))
 
 
+def _public(j_mod) -> list:
+    """The reference module's ``__all__``, or, for a script module that
+    has none (``launch.dryrun``, ``launch.sweep``), the public functions
+    and classes it defines, in order."""
+    if hasattr(j_mod, "__all__"):
+        return list(j_mod.__all__)
+    return [n for n, v in vars(j_mod).items()
+            if not n.startswith("_") and (inspect.isfunction(v)
+                                          or inspect.isclass(v))
+            and v.__module__ == j_mod.__name__]
+
+
 def _cases():
     cases = []
     for mod in MODULES:
         t_mod, j_mod = _pair(mod)
-        for name in j_mod.__all__:
+        for name in _public(j_mod):
             if (mod, name) in NOT_PORTED:
                 continue
             cases.append((mod, name))
@@ -83,7 +102,7 @@ def _cases():
                             not in NOT_PORTED):
                         cases.append((mod, f"{name}.{attr}"))
     cases += [("models.attention", n) for n in ATTENTION]
-    return cases
+    return cases + list(BEYOND_ALL)
 
 
 def _get(mod, dotted):
@@ -127,7 +146,7 @@ def test_package_names_match():
         assert t_pkg.__all__ == j_pkg.__all__, pkg
     for mod in MODULES:
         t_mod, j_mod = _pair(mod)
-        ported = [n for n in j_mod.__all__ if (mod, n) not in NOT_PORTED]
+        ported = [n for n in _public(j_mod) if (mod, n) not in NOT_PORTED]
         assert t_mod.__all__ == ported + PORT_ONLY.get(mod, []), mod
 
 
@@ -158,7 +177,7 @@ def test_signature_matches_the_reference(mod, name):
     got, want = _get(t_mod, name), _get(j_mod, name)
     if not callable(want) or isinstance(want, (tuple, dict)):
         if (mod, name) in OWN_VALUE:
-            assert list(got) == list(want)
+            assert list(got) == list(want) + OWN_VALUE[(mod, name)]
         elif name == "SCENARIOS":        # values hold lambdas: by shape
             assert list(got) == list(want)
             for k in want:
