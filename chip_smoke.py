@@ -6,8 +6,10 @@ the serving paths of internlm2-1.8b and mamba2-2.7b at full width, the
 training path of internlm2-1.8b at full width, the encoder-decoder
 (whisper-large-v3, full width) and MoE (phi3.5-moe, published widths at
 8 of 32 layers) families, the hybrid (zamba2-7b) and the capped,
-windowed attention (gemma2-2b), both at full width, and the vlm
-(qwen2-vl-72b, published widths at 20 of 80 layers) with M-RoPE.
+windowed attention (gemma2-2b), both at full width, the vlm
+(qwen2-vl-72b, published widths at 20 of 80 layers) with M-RoPE, the
+sharded step, and the contract analyzer with its lock witness over the
+control plane.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -250,6 +252,21 @@ failed check raises and exits non-zero):
    NCCL all-reduce counted, device times beside ``moe_block``'s.  One
    ``{"sharded": ...}`` line; (m.2)'s launches count into
    ``flash_attention``'s;
+(n) the contract analyzer and the lock witness: (n.1) ``python -m
+   repro_torch.analysis -q src/repro_torch`` in this process
+   (``analysis.__main__.main``) must return 0 against the shipped
+   baseline, its summary line printed; (n.2) a ``LockWitness`` activated
+   before anything of the phase is built, over one storm cell of the
+   matrix through ``workloads.harness.run_cell`` (a ``ControlGroup``,
+   ``ControlLoop``, ``FleetMonitorService``, ``CounterArena``,
+   ``monitor_fleet`` on each dispatch, the decision's CUDA graph on each
+   tick) and one supervised chaos pipeline of ``chaos_runs`` at
+   ``WITNESS_CHAOS_ITEMS`` items: it must record no hazard, must have
+   wrapped locks of every rank 0-4 (printed per level), and must record
+   the control -- an arena-rank lock of the run taken, then a
+   service-rank one.  Not armed over the timed phases (d)-(f).  One
+   ``{"analysis": ...}`` line; (n.2)'s launches count into
+   ``monitor_fleet``'s;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -259,7 +276,7 @@ failed check raises and exits non-zero):
    estimate of the fold, bf16, warm-cache and per-call times in the
    ``service`` line; phases (a)-(c) in the ``control`` line, (d)-(h) in
    the ``faults`` line, and ``monitor_fleet``'s launches summed over
-   phase 4 and (d)-(h); before them a ``{"wall_s": ...}`` line with each
+   phase 4, (d)-(h) and (n.2); before them a ``{"wall_s": ...}`` line with each
    group of phases' wall time (host clock) and the total.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -319,6 +336,8 @@ SSM_ARCH = "mamba2-2.7b"     # the repo's pure-ssm configuration
 SSD_SHAPE = (8, 4, 256, 80, 64, 128)  # its prefill's chunk step (B,c,Q,H,P,N)
 CHAOS_ITEMS = 4000           # the chaos pipeline's items (bench full mode)
 CHAOS_MAX_REPLICAS = 16      # run_cell's own replica cap (see chaos_runs)
+WITNESS_CHAOS_ITEMS = 2500   # phase (n.2)'s chaos run: ~2.3 s a run, past
+#                              the plan's last fault (crashes by 2.0 s)
 SOAK_PHASES = (1.2, 1.6, 1.2)  # the soak's pre/storm/post s (bench quick)
 TRACKER_HOSTS = 2048         # a 16 384-GPU cluster at 8 GPUs a host
 TRACKER_PERIODS = 1200       # the phase change at 200, then 1000 periods
@@ -1296,7 +1315,7 @@ def phase_matrix(torch, K, CT, W, dev, seed):
 
 
 def chaos_runs(torch, K, CT, S, M, FT, dev, seed,
-               max_replicas=None):
+               max_replicas=None, items=CHAOS_ITEMS):
     """The supervised chaos pipeline (the shape of the JAX package's
     ``control_bench.chaos_recovery``, full mode): a paced source feeds a
     two-replica work stage under closed-loop control; a seeded plan
@@ -1308,7 +1327,8 @@ def chaos_runs(torch, K, CT, S, M, FT, dev, seed,
     stage on every confirmation (as the JAX package's does), and at the
     default 64 the threads' per-replica host work (idle polls,
     heartbeats, the supervisor's Algorithm-1 rate leg) starves the paced
-    source.  Returns what was measured; ``phase_chaos`` gates it."""
+    source.  ``items`` is the source's length.  Returns what was
+    measured; ``phase_chaos`` gates it."""
     from repro_torch.core.controller import (BufferAutotuner,
                                              ParallelismController)
     cap = CHAOS_MAX_REPLICAS if max_replicas is None else max_replicas
@@ -1317,7 +1337,7 @@ def chaos_runs(torch, K, CT, S, M, FT, dev, seed,
 
     def build(plan):
         def src():
-            for i in range(CHAOS_ITEMS):
+            for i in range(items):
                 time.sleep(pace_s)
                 yield i
 
@@ -4359,8 +4379,8 @@ def phase_moe_ep(torch, MOE, LL, RC, cfgs, seed, dev):
     mesh = init_device_mesh(dev.type, (1, 1, 1),
                             mesh_dim_names=("data", "expert", "tp"))
     g = torch.Generator(device=dev).manual_seed(seed)
-    p = MOE.moe_param_defs(LL.init_creator(g, dev, torch.float32), "moe",
-                           cfg)
+    p = MOE.moe_param_defs(LL.init_creator(g, torch.float32, device=dev),
+                           "moe", cfg)
     out = {}
     for B, S in MOE_EP_SHAPES:
         decode = S == 1
@@ -4394,6 +4414,92 @@ def phase_moe_ep(torch, MOE, LL, RC, cfgs, seed, dev):
     del p
     torch.cuda.empty_cache()
     return out
+
+
+def phase_analysis(AM):
+    """(n.1) The contract analyzer over the port's sources, in this
+    process: ``python -m repro_torch.analysis -q src/repro_torch``
+    against the shipped baseline must return 0 (it prints its summary
+    line)."""
+    t0 = time.perf_counter()
+    rc = AM.main(["-q", str(SRC / "repro_torch")])
+    check(rc == 0, f"repro_torch.analysis returned {rc} over src/repro_torch")
+    return {"analyzer_rc": rc, "analyzer_s": time.perf_counter() - t0}
+
+
+def phase_witness(torch, K, CT, S, M, FT, W, WT, LO, dev, seed):
+    """(n.2) The runtime lock witness over the control plane on the card.
+    A ``LockWitness`` is activated before anything of the phase is built
+    (it wraps the locks created while it is active, classified by their
+    creation site, and the package's module-level ones such as the
+    decision-step cache's), then one storm cell of the matrix runs through
+    ``workloads.harness.run_cell`` (step/full/storm: a ``ControlGroup``,
+    its ``ControlLoop``, ``FleetMonitorService`` and ``CounterArena``,
+    ``monitor_fleet`` on each dispatch, the decision's CUDA graph on each
+    tick), then one supervised chaos pipeline (``chaos_runs`` at
+    ``WITNESS_CHAOS_ITEMS``).  The witness must record no hazard and
+    must have wrapped locks of every rank 0-4.  The control: an
+    arena-rank lock of the run taken, then a service-rank one, must be
+    recorded as an inversion."""
+    witness = WT.LockWitness().activate()
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        cell = W.run_cell("step", "full", "storm", seed=seed, quick=True,
+                          impl="jit", device=dev)
+        _sync(torch, dev)
+        cell_s = time.perf_counter() - t0
+        cell_launches = K.launch_counts()["monitor_fleet"]
+        t0 = time.perf_counter()
+        chaos = chaos_runs(torch, K, CT, S, M, FT, dev, seed,
+                           items=WITNESS_CHAOS_ITEMS)
+        chaos_s = time.perf_counter() - t0
+    finally:
+        witness.deactivate()
+    hazards = witness.report()
+    wrapped = witness.wrapped()
+    per_level = {lv.name: wrapped.get(lv.rank, 0) for lv in LO.LOCK_ORDER}
+    log(f"witness: storm cell {cell_s:.2f} s (availability "
+        f"{cell.availability:.4f}, {cell.actions} actions, faults "
+        f"{cell.faults_fired}, {cell_launches} monitor_fleet launches), "
+        f"chaos pipeline {chaos_s:.2f} s ({chaos['out']} items out, "
+        f"{chaos['fired']} fired, {chaos['respawns']} respawns, "
+        f"{chaos['launches']} monitor_fleet launches); locks wrapped per "
+        f"level {per_level}; hazards {hazards}")
+    check(not hazards, f"the lock witness recorded hazards: {hazards}")
+    missing = [lv.name for lv in LO.LOCK_ORDER
+               if lv.rank <= 4 and not wrapped.get(lv.rank)]
+    check(not missing, f"the witness wrapped no lock of level(s) {missing}")
+    check(cell_launches > 0 and chaos["launches"] > 0,
+          "monitor_fleet never launched under the witness")
+    check(chaos["unhandled"] == 0,
+          f"{chaos['unhandled']} unhandled deaths in the chaos run")
+
+    # the control: two wrapped locks of the run, taken against the order
+    by_rank = {}
+    for lock in witness.locks():
+        by_rank.setdefault(lock.level.rank, lock)
+    arena, service = by_rank[LO.RANK["arena"]], by_rank[LO.RANK["service"]]
+    check(arena.acquire(timeout=5.0), f"{arena.desc} is held")
+    try:
+        check(service.acquire(timeout=5.0), f"{service.desc} is held")
+        service.release()
+    finally:
+        arena.release()
+    control = witness.report()
+    log(f"witness control (arena {arena.desc}, then service "
+        f"{service.desc}): {control}")
+    check(len(control) == 1 and control[0].startswith("inversion")
+          and "arena" in control[0] and "service" in control[0],
+          f"the forced inversion was not recorded as one: {control}")
+    return cell_launches + chaos["launches"], {
+        "witness_locks_per_level": per_level, "witness_hazards": hazards,
+        "witness_control": control, "witness_cell_s": cell_s,
+        "witness_chaos_s": chaos_s,
+        "witness_cell_availability": cell.availability,
+        "witness_chaos_fired": chaos["fired"],
+        "witness_chaos_respawns": chaos["respawns"],
+        "witness_launches": cell_launches + chaos["launches"]}
 
 
 @contextlib.contextmanager
@@ -4453,6 +4559,9 @@ def main() -> int:
     from repro_torch.models import layers as LL
     from repro_torch.models import moe as MOE
     from repro_torch.roofline import counters as RC
+    from repro_torch.analysis import __main__ as AM
+    from repro_torch.analysis import lock_order as LO
+    from repro_torch.analysis import witness as WT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4601,13 +4710,21 @@ def main() -> int:
                 args.seed, dev)
             sharded["moe_ep"] = phase_moe_ep(torch, MOE, LL, RC, C,
                                              args.seed, dev)
+    with wall("n.1 analyzer"):
+        analysis = phase_analysis(AM)
+    with wall("n.2 witness"):
+        witness_launches, witness = phase_witness(
+            torch, K, CT, S, M, FT, W, WT, LO, dev, args.seed)
+    analysis.update(witness, n1_wall_s=walls["n.1 analyzer"],
+                    n2_wall_s=walls["n.2 witness"])
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
         {"name": "monitor_fleet", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/monitor/kernel.py:120",
          "launches": (fleet_launches + sum(fault_launches.values())
-                      + train["fit"]["monitor_fleet_launches"]),
+                      + train["fit"]["monitor_fleet_launches"]
+                      + witness_launches),
          "max_abs_err": fleet["max_abs_err"],
          "ms": fleet["ms"], "plain_ms": fleet["plain_ms"],
          "bound_ms": fleet["bound_ms"], "bound_by": fleet["bound_by"],
@@ -4682,6 +4799,7 @@ def main() -> int:
     log(json.dumps({"serve": {"arch": GEMMA_ARCH, **gemma}}))
     log(json.dumps({"serve": {"arch": VLM_ARCH, **vlm}}))
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"analysis": analysis}))
     log(json.dumps({"roofline": {
         f"{VLM_ARCH} prefill {SERVE_B}x{PREFILL_S} ({VLM_LAYERS} layers)":
             vlm_roof,

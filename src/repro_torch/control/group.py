@@ -32,8 +32,8 @@ tenants that expose ``_bind_external_monitor`` receive a
 ``Engine.service_rate()``, ...) keep working against the shared
 service, sliced to their own queue range.
 
-Lock ordering: the group lock is the *outermost* rank of the JAX
-package's lock hierarchy (its ``analysis.lock_order.LOCK_ORDER``).
+Lock ordering: the group lock is the *outermost* rank of the lock
+hierarchy (``repro_torch.analysis.lock_order.LOCK_ORDER``).
 Attach/detach descend it in declared order — group, then loop, then
 the service/arena mutation, then remap — so a tick can never observe
 a half-restructured group.

@@ -66,9 +66,9 @@ error code and surfaced via ``health()``:
 * **tick**: any other tick failure is contained (``E_TICK``) — the
   timer thread never dies of one bad tick.
 
-Lock ordering: the JAX package's lock hierarchy (its
-``analysis.lock_order.LOCK_ORDER``) holds here too; this loop acquires
-at the *loop* rank.  A tick takes ``_lock``, reads the
+Lock ordering: the hierarchy of
+``repro_torch.analysis.lock_order.LOCK_ORDER`` holds here; this loop
+acquires at the *loop* rank.  A tick takes ``_lock``, reads the
 service one rank down (released before deciding), then actuates
 through *sync*-tier leaves — no actuator path re-enters the service,
 so ``FleetMonitorService.stop()``/``flush()`` from any other thread

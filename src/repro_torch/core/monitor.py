@@ -50,14 +50,14 @@ __all__ = [
     "FleetMonitorState",
     "fleet_monitor_init",
     "run_monitor_fleet",
-    "fleet_dispatch_trace_count",
-    "gated_rate_arrays",
     "fleet_rate_readout",
+    "fleet_dispatch_trace_count",
+    "HostMonitor",
+    "SamplingPeriodController",
+    "gated_rate_arrays",
     "fleet_state_from_numpy",
     "fleet_state_to_numpy",
     "resolve_device",
-    "HostMonitor",
-    "SamplingPeriodController",
 ]
 
 Z_95 = 1.64485  # Eq. 3: standard-normal 95th-percentile multiplier.

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.train.optimizer import _tree_map
+from repro_torch.dist.sharding import _tree_map
 
 __all__ = ["quantize_int8", "dequantize_int8", "ef_compress_grads"]
 

@@ -32,8 +32,6 @@ from typing import Mapping, Sequence
 
 from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.train.optimizer import _tree_map
-
 __all__ = [
     "spec_for",
     "param_specs_tree",
@@ -45,6 +43,15 @@ __all__ = [
     "PartitionSpec",
     "placements_for",
 ]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure (the
+    parameter, spec and gradient trees; ``dist`` imports nothing above
+    itself, so it keeps this map and ``train`` uses it)."""
+    return {k: (_tree_map(fn, v, *(r[k] for r in rest))
+                if isinstance(v, dict) else fn(v, *(r[k] for r in rest)))
+            for k, v in tree.items()}
 
 
 class PartitionSpec(tuple):

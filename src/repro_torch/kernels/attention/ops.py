@@ -146,14 +146,24 @@ class FlashAttentionFn(torch.autograd.Function):
                 None, None)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None,
-                    softcap=None, window: int = 0, impl: str = "kernel"):
+def flash_attention(q, k, v, *, causal: bool = True,
+                    use_pallas: bool = True, interpret: bool = True,
+                    scale=None, softcap=None, window: int = 0,
+                    impl: str = "kernel"):
     """q: (B,S,H,hd), k/v: (B,T,K,hd) -> (B,S,H,hd) float32; ``softcap``
     (None or 0: none) and ``window`` (0: none) as ``ref.attention_ref``
     takes them.  On DTensors the output comes back in q's placements
     (a pending partial sum reduced), whatever layout the call ran in:
     heads-sharded q gives heads-sharded output for the output projection
-    to contract locally."""
+    to contract locally.
+
+    ``use_pallas`` and ``interpret`` are the JAX package's keywords:
+    ``use_pallas=False`` runs the plain version (as ``impl="plain"``),
+    ``use_pallas=True`` leaves the route to ``impl``; ``interpret`` is
+    accepted and dropped (there is nothing to interpret on the card)."""
+    del interpret
+    if not use_pallas:
+        impl = "plain"
     softcap, window = float(softcap or 0.0), int(window or 0)
     if impl not in IMPLS:
         raise ValueError(f"bad impl {impl!r}; expected one of {IMPLS}")

@@ -1,11 +1,12 @@
 """Public op: the chunked SSD built on the intra-chunk kernel.
 
 The counterpart of the JAX package's ``kernels/ssd/ops.py::
-ssd_chunked_pallas``.  ``impl="kernel"`` (the default) computes the
-intra-chunk step with ``kernel.ssd_chunk``: on CUDA tensors the Hopper
-kernel, on CPU tensors its plain version.  ``impl="plain"`` always runs
-the plain version; it exists for the tests and for ``chip_smoke.py``'s
-comparison on the card.  The inter-chunk state recurrence is a short
+ssd_chunked_pallas``, which keeps its name and signature here and runs
+``ssd_chunked`` on its default route.  ``impl="kernel"`` (the default)
+computes the intra-chunk step with ``kernel.ssd_chunk``: on CUDA tensors
+the Hopper kernel, on CPU tensors its plain version.  ``impl="plain"``
+always runs the plain version; it exists for the tests and for
+``chip_smoke.py``'s comparison on the card.  The inter-chunk state recurrence is a short
 loop over the chunks and the inter-chunk output an einsum, as the JAX
 package keeps both outside its kernel.
 
@@ -22,7 +23,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref, ssd_chunk_ref
 
-__all__ = ["ssd_chunked", "ssd_chunk_ref", "IMPLS"]
+__all__ = ["ssd_chunked_pallas", "ssd_chunk_ref", "ssd_chunked", "IMPLS"]
 
 IMPLS = ("kernel", "plain")
 
@@ -70,3 +71,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
     y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", Cc.to(f32),
                            torch.exp(acum), h_prevs)
     return (y_intra + y_inter).reshape(B, S, H, P), h
+
+
+def ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
+                       interpret: bool = True):
+    """The JAX package's public op: ``ssd_chunked`` on the kernel route
+    (the Hopper kernel on CUDA tensors, its plain version on CPU
+    tensors); ``interpret`` is accepted and dropped."""
+    del interpret
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk, h0=h0)

@@ -110,7 +110,7 @@ class Model:
         weights by default, as the reference's; serving passes the
         compute dtype), norm weights float32."""
         dev = resolve_device(device)
-        mats = self._defs(ll.init_creator(generator, dev, param_dtype))
+        mats = self._defs(ll.init_creator(generator, param_dtype, device=dev))
         return _map_tree(mats, lambda path, t: t.to(
             _leaf_dtype(path, param_dtype)))
 

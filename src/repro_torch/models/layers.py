@@ -21,10 +21,9 @@ from torch.distributed.tensor._utils import \
 from repro_torch.dist.api import as_dtensor, reshard
 
 __all__ = [
-    "Creator", "init_creator", "shape_creator", "abstract_creator",
-    "axes_creator",
-    "rmsnorm", "layernorm", "softcap", "gelu_mlp", "glu_mlp",
-    "rope_apply", "mrope_apply", "take_embedding", "target_logits",
+    "Creator", "init_creator", "abstract_creator", "axes_creator",
+    "rmsnorm", "layernorm", "softcap", "gelu_mlp", "glu_mlp", "rope_apply",
+    "mrope_apply", "take_embedding", "shape_creator", "target_logits",
     "logsumexp_last",
 ]
 
@@ -32,10 +31,11 @@ __all__ = [
 Creator = Callable
 
 
-def init_creator(generator: torch.Generator, device,
-                 param_dtype=torch.float32) -> Creator:
+def init_creator(generator: torch.Generator, param_dtype=torch.float32,
+                 *, device="cuda") -> Creator:
     """Truncated-normal(0, 1/sqrt(fan_in)) cut at 3 sd; norms at zero
-    (rmsnorm scales by 1 + w) or one.  Draws come from ``generator`` in
+    (rmsnorm scales by 1 + w) or one, on ``device`` (the card unless the
+    caller asks for the CPU).  Draws come from ``generator`` in
     definition order; they are not the JAX package's draws (carry its
     weights across with ``api.params_from_numpy`` to compare)."""
     def create(path, shape, axes, fan_in=None, kind="normal"):

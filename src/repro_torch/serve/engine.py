@@ -46,14 +46,15 @@ released immediately instead of stranding until their full timeout.
 
 Lock ordering: every engine lock (gate condition, lane ``_resize_lock``,
 ``_scale_lock``, ``_acct_lock``, ``_crash_lock``) is mutually disjoint
-by protocol rather than totally ordered (the *sync* tier of the JAX
-package's ``LOCK_ORDER``). The protocol: ``submit`` takes gate condition
-then lane lock sequentially (never nested with another lane); workers
-take ``_scale_lock`` only in ``workers()``/scale paths, never while
-holding a lane lock; ``_acct_lock`` is taken after serving, never under
-``_scale_lock`` or any lane lock; the control loop's actuator reads lane
-lengths lock-free and flips gates under the gate condition only — no
-path holds two lane locks at once.
+by protocol rather than totally ordered (the *sync* tier of
+``repro_torch.analysis.lock_order.LOCK_ORDER``). The protocol:
+``submit`` takes gate condition then lane lock sequentially (never
+nested with another lane); workers take ``_scale_lock`` only in
+``workers()``/scale paths, never while holding a lane lock;
+``_acct_lock`` is taken after serving, never under ``_scale_lock`` or
+any lane lock; the control loop's actuator reads lane lengths lock-free
+and flips gates under the gate condition only — no path holds two lane
+locks at once.
 """
 
 from __future__ import annotations
@@ -66,14 +67,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.control.log import ControlLog, ControlRecord
-from repro_torch.control.loop import ControlLoop
-from repro_torch.control.policy import (AdmissionPolicy, BufferPolicy,
-                                        PolicySet)
 from repro_torch.core.controller import BufferAutotuner
 from repro_torch.core.monitor import MonitorConfig, resolve_device
 from repro_torch.models.api import Model
-from repro_torch.obs import make_exporter
 from repro_torch.serve.qos import BLOCKING, QoSClass, qos_class
 from repro_torch.streams import (CounterArena, FleetMonitorService,
                                  FleetMonitorThread, InstrumentedQueue)
@@ -293,6 +289,9 @@ class _EngineActuator:
         gate.set_shed(shed)
         log = self._log
         if log is not None:
+            # layer-ok: audit-record type only, bound-log path; serve
+            # never depends on control at import time (see LayerGuard)
+            from repro_torch.control.log import ControlRecord
             # per-class companion record: the class's cumulative
             # rejections ride ``value`` so a shed is distinguishable
             # from a queue timeout in the audit stream
@@ -377,6 +376,13 @@ class Engine:
         else:
             self.fleet = None          # bound by ControlGroup.attach
             self.monitor_thread = None
+        # control-plane wiring is the sanctioned layering inversion
+        # (control.group imports streams.fleet, which serve sits on):
+        # constructor-only, so the serve layer imports control lazily
+        # layer-ok: wiring inversion, constructor-only; keeps the module
+        # DAG acyclic
+        from repro_torch.control import (AdmissionPolicy, BufferPolicy,
+                                         ControlLoop, PolicySet)
         # capacity advice and (under control=True) capacity actuation
         # share this policy object — they cannot disagree
         self.buffer_policy = BufferPolicy(
@@ -432,6 +438,9 @@ class Engine:
         # /metrics, labelled by QoS class.  An externally monitored
         # engine (monitor=False) is scraped through its ControlGroup's
         # exporter instead.
+        # layer-ok: obs is a dependency-free leaf; imported lazily so a
+        # broken exporter can never take the serving path down with it
+        from repro_torch.obs import make_exporter
         if obs and self.fleet is None:
             raise ValueError(
                 "obs= on a monitor=False engine has no mirrors to "

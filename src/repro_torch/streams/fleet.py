@@ -73,7 +73,8 @@ percent of the collector tick even at S=2e5.  Readouts are
 sense input) and the exporter's single-lock ``obs_snapshot()``.
 
 Lock ordering: ``self._lock`` sits at the *service* rank of the lock
-hierarchy, one above the arena.  The collector tick takes ``self._lock``
+hierarchy (``repro_torch.analysis.lock_order.LOCK_ORDER``), one above
+the arena.  The collector tick takes ``self._lock``
 then ``arena.lock`` (declared order) and releases both before firing
 callbacks; readouts take ``self._lock`` alone; the *sync*-tier leaves
 (queue resize, stage stop) are never held while acquiring either.  A

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch.dist.sharding import _tree_map
+
 __all__ = ["OptConfig", "lr_schedule", "init_opt_state", "opt_update",
            "opt_state_axes", "abstract_opt_state", "clip_by_global_norm",
            "pick_optimizer"]
@@ -43,13 +45,6 @@ def pick_optimizer(n_params: int) -> str:
     """Float32 Adam moments don't fit device memory beyond ~100B params on
     one pod (the JAX package's rule)."""
     return "adamw8bit" if n_params > 100e9 else "adamw"
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    return {k: (_tree_map(fn, v, *(r[k] for r in rest))
-                if isinstance(v, dict) else fn(v, *(r[k] for r in rest)))
-            for k, v in tree.items()}
 
 
 def _leaves(tree) -> list:

@@ -107,6 +107,30 @@ def test_flash_attention_scale_and_impls():
         flash_attention(*t, impl="pallas")
 
 
+
+def test_reference_keyword_calls_run_on_the_port():
+    """The reference's call ``flash_attention(q, k, v, *, causal,
+    use_pallas, interpret)`` runs on the port: ``use_pallas=False`` is
+    the plain version, ``use_pallas=True`` the default route (on CPU
+    tensors the plain version too, with no launch), and ``interpret`` is
+    dropped; both agree with the JAX package's op called the same way."""
+    from repro.kernels.attention.ops import flash_attention as j_flash
+    q, k, v = _qkv((1, 40, 4, 2, 16), 12)
+    t = [torch.as_tensor(a) for a in (q, k, v)]
+    before = K.flash_attention.launches
+    for causal in (True, False):
+        plain = flash_attention(*t, causal=causal, use_pallas=False,
+                                interpret=True)
+        routed = flash_attention(*t, causal=causal, use_pallas=True,
+                                 interpret=False)
+        torch.testing.assert_close(plain, attention_ref(*t, causal=causal))
+        torch.testing.assert_close(routed, plain)
+        want = np.asarray(j_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                                  causal=causal, use_pallas=False))
+        np.testing.assert_allclose(plain.numpy(), want, rtol=2e-5,
+                                   atol=2e-5)
+    assert K.flash_attention.launches == before
+
 def test_wrapper_takes_the_plain_version_only_on_cpu():
     """A CPU tensor runs the plain version and launches nothing; a
     tensor on another device is refused; bad shapes raise."""

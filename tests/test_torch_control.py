@@ -29,6 +29,7 @@ import repro_torch.control as t_ctl
 import repro_torch.streams as t_streams
 from repro.workloads.harness import make_policies, run_cell
 from repro.workloads.trace import DECISION_FIELDS
+from repro_torch.analysis.witness import armed
 from repro_torch.control import loop as t_loop
 from repro_torch.core import controller as t_controller
 from repro_torch.core.monitor import MonitorConfig
@@ -37,6 +38,15 @@ from repro_torch.streams import (CounterArena, FleetMonitorService,
                                  InstrumentedQueue, Pipeline, Stage)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_witness():
+    """The module runs under the port's runtime lock witness, armed
+    before its shared fixtures are built: a lock-hierarchy hazard it
+    records (``LOCK_ORDER``) fails the module's last test."""
+    with armed(lambda msg: pytest.fail(msg, pytrace=False)):
+        yield
 
 CFG = MonitorConfig(window=16, min_q_samples=16)
 

@@ -25,6 +25,7 @@ import torch
 import repro.ft as j_ft
 import repro_torch.ft as t_ft
 from repro.core.monitor import MonitorConfig as JCfg
+from repro_torch.analysis.witness import armed
 from repro_torch.control import (ControlConfig, control_decide,
                                  control_init)
 from repro_torch.core import device as t_device
@@ -34,6 +35,15 @@ from repro_torch.serve import (BLOCKING, NONBLOCKING, Engine, Request,
 from repro_torch.streams import CounterArena, Pipeline, Stage
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_witness():
+    """The module runs under the port's runtime lock witness, armed
+    before its shared fixtures are built: a lock-hierarchy hazard it
+    records (``LOCK_ORDER``) fails the module's last test."""
+    with armed(lambda msg: pytest.fail(msg, pytrace=False)):
+        yield
 
 CFG = MonitorConfig(window=16, min_q_samples=16)
 

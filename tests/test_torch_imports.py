@@ -7,7 +7,10 @@ machine has no jax.  Nor does the package import ``torch.testing``,
 PyTorch's test helpers (its tests may)."""
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -41,8 +44,14 @@ def test_port_has_sources():
                 "streams/pipeline.py", "kernels/monitor/rounds.py",
                 "ft/supervisor.py", "workloads/harness.py",
                 "data/pipeline.py", "launch/dryrun.py", "launch/sweep.py",
-                "models/moe.py"):
+                "models/moe.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/model.py",
+                "analysis/lock_order.py", "analysis/layering.py",
+                "analysis/races.py", "analysis/retrace.py",
+                "analysis/witness.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    for extra in ("baseline.json", "README.md"):
+        assert (REPO / "src" / "repro_torch" / "analysis" / extra).exists()
     assert (REPO / "chip_smoke.py").exists()
     assert (REPO / "src" / "repro_torch" / "kernels" / "monitor" / "csrc"
             / "monitor.cu").exists()
@@ -80,3 +89,41 @@ def test_scanner_catches_banned_imports():
     roots = [r for _, r in _imported_roots(ast.parse(src))]
     assert roots.count("jax") == 1 and roots.count("repro") == 2
     assert "repro_torch" in roots
+
+
+def test_dist_and_serve_import_neither_train_nor_control():
+    """The reference's import DAG: ``dist`` imports only ``dist`` and
+    ``configs``, and ``serve`` imports ``control`` and ``obs`` only inside
+    the functions that wire them (``# layer-ok``).  In a fresh
+    interpreter, importing every ``dist`` module and the engine loads no
+    ``train`` and no ``control`` module."""
+    code = ("import sys\n"
+            "import repro_torch.dist, repro_torch.dist.sharding\n"
+            "import repro_torch.dist.compression, repro_torch.serve.engine\n"
+            "print(sorted(m for m in sys.modules if m.startswith(\n"
+            "    ('repro_torch.train', 'repro_torch.control'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_analysis_is_stdlib_only():
+    """``repro_torch.analysis`` imports with ``torch`` and ``numpy``
+    blocked (the analyzer must run where the numeric stack is broken),
+    and runs its CLI there."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('torch', 'numpy', 'jax'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import repro_torch.analysis\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            "sys.exit(main(['-q']))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("repro_torch.analysis: 0 finding(s)")

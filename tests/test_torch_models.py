@@ -251,6 +251,23 @@ def test_init_params_takes_the_reference_dtype_argument():
     assert torch.equal(b["embed"], f["embed"].to(torch.bfloat16))
 
 
+
+def test_init_creator_takes_the_reference_dtype_argument():
+    """``init_creator(key, param_dtype=float32)`` as in the reference: a
+    positional dtype is the leaves' dtype, and ``device`` is a trailing
+    keyword (the card unless the caller asks for the CPU)."""
+    from repro_torch.models.layers import init_creator
+    mk = init_creator(torch.Generator().manual_seed(0), torch.bfloat16,
+                      device="cpu")
+    w = mk("w", (4, 8), ("embed", "mlp"), fan_in=4)
+    one = mk("g", (8,), ("embed",), kind="ones")
+    assert w.dtype == one.dtype == torch.bfloat16
+    assert w.device.type == one.device.type == "cpu"
+    f = init_creator(torch.Generator().manual_seed(0), device="cpu")(
+        "w", (4, 8), ("embed", "mlp"), fan_in=4)
+    assert f.dtype == torch.float32
+    assert torch.equal(w, f.to(torch.bfloat16))
+
 # -- the reference's attention keywords ---------------------------------------
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.witness import armed
 from repro_torch.configs import get_smoke_config
 from repro_torch.control import (AdmissionPolicy, BufferPolicy,
                                  ControlGroup, ControlLoop, PolicySet,
@@ -28,6 +29,15 @@ from repro_torch.streams import (STOP, CounterArena, InstrumentedQueue,
                                  Pipeline, Stage)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_witness():
+    """The module runs under the port's runtime lock witness, armed
+    before its shared fixtures are built: a lock-hierarchy hazard it
+    records (``LOCK_ORDER``) fails the module's last test."""
+    with armed(lambda msg: pytest.fail(msg, pytrace=False)):
+        yield
 
 CFG = MonitorConfig(window=16, min_q_samples=16)
 

@@ -28,11 +28,21 @@ from repro.models import build_model as j_build_model
 from repro.serve import Engine as JEngine
 from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
+from repro_torch.analysis.witness import armed
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.serve import Engine, Request, ServeConfig
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_witness():
+    """The module runs under the port's runtime lock witness, armed
+    before its shared fixtures are built: a lock-hierarchy hazard it
+    records (``LOCK_ORDER``) fails the module's last test."""
+    with armed(lambda msg: pytest.fail(msg, pytrace=False)):
+        yield
 
 ARCH = "internlm2-1.8b"
 B, S_MAX = 4, 32

@@ -1,19 +1,21 @@
 """The port keeps the JAX package's public names and signatures.
 
-For every public name of the port's ``workloads``, ``ft``, ``data``,
-``train``, ``ckpt``, ``models.api``, ``models.whisper``, ``models.moe``,
-``dist``, ``roofline`` and ``launch`` modules, for the repaired
-``models.attention`` names and for the public functions outside the
-reference's ``__all__`` in ``BEYOND_ALL``, the port's
-``inspect.signature`` must match the reference's: the same parameter names in the same order, of the same
+For every public name of the modules in ``MODULES`` (``workloads``,
+``ft``, ``data``, ``train``, ``ckpt``, ``models``, the kernel ops,
+``core``, ``control``, ``streams``, ``serve``, ``obs``, ``dist``,
+``roofline`` and ``launch``), for the repaired ``models.attention``
+names and for the public functions outside the reference's ``__all__``
+in ``BEYOND_ALL``, the port's ``inspect.signature`` must match the
+reference's: the same parameter names in the same order, of the same
 kinds, with the same defaults (a JAX dtype default matches the torch
 dtype of that name).  The only differences allowed are a trailing
 keyword-only ``device`` on an entry point that builds a monitor service,
 monitor state, parameters, a cache, a trainer's state or a mesh; the
-port's ``impl`` last on ``attention`` and ``kernel_impl`` last on the
-model facade and on the Whisper entry points; a ``jax.random`` key taken
-as a ``torch.Generator`` named ``generator``; and the names listed in
-``PORT_ONLY`` and ``NOT_PORTED``.
+port's trailing parameters named in ``EXTRA`` (``impl``,
+``kernel_impl``, ``ssd_impl``, a positional ``device``, and the few
+others it lists with their reason); the defaults in ``OWN_DEFAULT``; a
+``jax.random`` key taken as a ``torch.Generator`` named ``generator``;
+and the names listed in ``PORT_ONLY`` and ``NOT_PORTED``.
 A class is held by its constructor and by each public method it defines;
 a constant by its value, except the constants in ``OWN_VALUE`` (the
 card's own figures), held by their keys (the reference's, then the
@@ -36,26 +38,66 @@ MODULES = ("workloads.arrivals", "workloads.sim", "workloads.scenario",
            "models.api", "models.whisper", "models.moe", "dist.sharding",
            "dist.api", "dist.compression", "roofline.analytic",
            "roofline.analysis", "launch.mesh", "launch.dryrun",
-           "launch.sweep")
+           "launch.sweep", "models.layers", "models.transformer",
+           "models.ssm", "kernels.attention.ops", "kernels.ssd.ops",
+           "core.controller", "core.filters", "core.monitor",
+           "core.queueing", "core.simulate", "core.stats", "control.group",
+           "control.log", "control.loop", "control.policy", "streams.arena",
+           "streams.fleet", "streams.monitor_thread", "streams.pipeline",
+           "streams.queue", "serve.engine", "serve.qos", "obs.exporter")
 PACKAGES = ("workloads", "ft", "data", "train", "ckpt", "dist")
 ATTENTION = ("attention", "init_cache_spec", "attn_param_defs", "KVCache")
 # public functions the reference leaves out of its ``__all__``
 BEYOND_ALL = (("models.moe", "moe_block_ep"),
               ("launch.mesh", "make_moe_mesh"))
-# the port's extra trailing parameter, by name
-EXTRA = {"attention": "impl", "Model": "kernel_impl",
-         "build_model": "kernel_impl", "whisper_encode": "kernel_impl",
-         "whisper_forward": "kernel_impl", "whisper_loss": "kernel_impl"}
+# the port's extra trailing parameters, by name: the kernel route
+# (``impl``, ``kernel_impl``, ``ssd_impl``: the plain version beside the
+# hand-written kernel), the flash op's softcap, window and explicit scale
+# (the reference reaches them through ``models.attention`` only), the
+# leading dims of a batched monitor or statistics state, the fleet
+# scan's sub-tile length, and a ``device`` that is not keyword-only
+# (``control_decide``'s ``None`` means the state's own device)
+EXTRA = {"attention": ("impl",), "Model": ("kernel_impl",),
+         "build_model": ("kernel_impl",), "whisper_encode": ("kernel_impl",),
+         "whisper_forward": ("kernel_impl",),
+         "whisper_loss": ("kernel_impl",), "lm_forward": ("kernel_impl",),
+         "lm_loss": ("kernel_impl",), "mamba_block": ("ssd_impl",),
+         "ssd_chunked": ("impl",),
+         "flash_attention": ("scale", "softcap", "window", "impl"),
+         "attention_ref": ("softcap", "window"),
+         "monitor_init": ("batch", "device"),
+         "welford_init": ("shape", "device"),
+         "moments_init": ("shape", "device"), "run_monitor_fleet": ("sub_t",),
+         "control_init": ("device",), "control_decide": ("device",),
+         "Pipeline": ("device",), "Engine": ("device",)}
 DEVICE = {"run_cell", "run_matrix", "replay", "FleetRateTracker",
           "DataPipeline", "Trainer", "init_params", "init_cache",
-          "make_production_mesh", "make_local_mesh", "make_moe_mesh"}
+          "make_production_mesh", "make_local_mesh", "make_moe_mesh",
+          "init_creator", "run_monitor", "fleet_monitor_init",
+          "run_monitor_fleet", "ControlGroup", "FleetMonitorService"}
+# the port's own defaults: the fleet's fused kernel on the card, where
+# the reference defaults to its host fast path
+OWN_DEFAULT = {("run_monitor_fleet", "impl"): ("cuda", "rounds"),
+               ("FleetMonitorService", "impl"): ("cuda", "rounds")}
+# module constants that are bare sentinels: held by their type
+SENTINELS = {("streams.pipeline", "STOP")}
 # a jax.random key is a torch.Generator in the port
 RENAMED = {"key": "generator"}
 # public names only the port has: the JAX parameter tree as tensors, the
 # port's own PartitionSpec and its DTensor placements, the fake world
 PORT_ONLY = {"models.api": ["params_from_numpy"],
              "dist.sharding": ["PartitionSpec", "placements_for"],
-             "launch.mesh": ["fake_world"]}
+             "launch.mesh": ["fake_world"],
+             "models.layers": ["shape_creator", "target_logits",
+                               "logsumexp_last"],
+             "models.transformer": ["check_family"],
+             "models.ssm": ["F32_LEAVES"],
+             "kernels.attention.ops": ["FlashAttentionFn",
+                                       "flash_attention_fwd",
+                                       "flash_attention_bwd", "IMPLS"],
+             "kernels.ssd.ops": ["ssd_chunked", "IMPLS"],
+             "core.monitor": ["gated_rate_arrays", "fleet_state_from_numpy",
+                              "fleet_state_to_numpy", "resolve_device"]}
 # the reference's HLO text parse, which has no input in PyTorch (its
 # twin counts at run time)
 NOT_PORTED = {("roofline.analysis", "parse_collective_bytes")}
@@ -114,6 +156,8 @@ def _get(mod, dotted):
 def _same_default(a, b):
     if a is b:
         return True
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
     if isinstance(a, torch.dtype):
         return str(a).removeprefix("torch.") == np.dtype(b).name
     if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
@@ -178,6 +222,8 @@ def test_signature_matches_the_reference(mod, name):
     if not callable(want) or isinstance(want, (tuple, dict)):
         if (mod, name) in OWN_VALUE:
             assert list(got) == list(want) + OWN_VALUE[(mod, name)]
+        elif (mod, name) in SENTINELS:
+            assert type(got) is type(want) is object
         elif name == "SCENARIOS":        # values hold lambdas: by shape
             assert list(got) == list(want)
             for k in want:
@@ -199,12 +245,17 @@ def test_signature_matches_the_reference(mod, name):
             and all(p.name != "device" for p in ref)):
         assert ps[-1].default == "cuda"
         ps = ps[:-1]
-    if last in EXTRA and ps and ps[-1].name == EXTRA[last]:
-        ps = ps[:-1]
+    extra = EXTRA.get(last, ())
+    if extra and tuple(p.name for p in ps[-len(extra):]) == extra:
+        ps = ps[:-len(extra)]
     assert ([p.name for p in ps]
             == [RENAMED.get(r.name, r.name) for r in ref])
     for p, r in zip(ps, ref):
         assert p.kind == r.kind, p.name
+        if (last, p.name) in OWN_DEFAULT:
+            assert ((p.default, r.default)
+                    == OWN_DEFAULT[(last, p.name)]), p.name
+            continue
         assert _same_default(p.default, r.default), (
             p.name, p.default, r.default)
 

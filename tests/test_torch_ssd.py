@@ -139,6 +139,28 @@ def test_chunked_op_matches_jax(shape, chunk):
     _close(th.numpy(), h.numpy())
 
 
+
+def test_reference_op_name_and_keywords_run_on_the_port():
+    """``ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk, *, h0, interpret)``,
+    the JAX package's public op, is the port's op on its default route
+    (the plain version on CPU tensors, no launch) and matches the JAX
+    op called the same way, with and without a carried state."""
+    ins = _inputs((2, 32), 2, 8, 8, seed=4)
+    h0 = np.random.default_rng(5).standard_normal(
+        (2, 2, 8, 8)).astype(np.float32)
+    before = K.ssd_chunk.launches
+    for carry in (None, h0):
+        t_h0 = None if carry is None else torch.as_tensor(carry)
+        y, h = O.ssd_chunked_pallas(*_t(*ins), 8, h0=t_h0, interpret=True)
+        wy, wh = O.ssd_chunked(*_t(*ins), 8, h0=t_h0)
+        assert torch.equal(y, wy) and torch.equal(h, wh)
+        jy, jh = ssd_chunked_pallas(
+            *_j(*ins), 8, h0=None if carry is None else jnp.asarray(carry),
+            interpret=True)
+        _close(y.numpy(), jy)
+        _close(h.numpy(), jh)
+    assert K.ssd_chunk.launches == before
+
 @pytest.mark.parametrize("S,chunk", [(27, 8), (5, 16), (1, 8), (40, 16)])
 def test_ssd_chunked_pads_like_jax(S, chunk):
     """S % Q != 0, S < chunk and S = 1: the model's ``ssd_chunked`` pads

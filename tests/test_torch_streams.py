@@ -19,6 +19,7 @@ from repro.core.monitor import run_monitor_fleet as j_run_monitor_fleet
 from repro.streams import CounterArena as JArena
 from repro.streams import FleetMonitorService as JService
 from repro.streams import InstrumentedQueue as JQueue
+from repro_torch.analysis.witness import armed
 from repro_torch.core.monitor import (MonitorConfig,
                                       fleet_dispatch_trace_count,
                                       run_monitor_fleet)
@@ -29,6 +30,15 @@ from repro_torch.streams import (CounterArena, FleetMonitorService,
 # the test workers share the machine: keep PyTorch's CPU ops on one
 # thread so these files do not starve the timing-sensitive suites
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_witness():
+    """The module runs under the port's runtime lock witness, armed
+    before its shared fixtures are built: a lock-hierarchy hazard it
+    records (``LOCK_ORDER``) fails the module's last test."""
+    with armed(lambda msg: pytest.fail(msg, pytrace=False)):
+        yield
 
 
 def _drive(svc, queues, tc, blocked, ends="head"):
