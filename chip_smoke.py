@@ -8,8 +8,9 @@ training path of internlm2-1.8b at full width, the encoder-decoder
 8 of 32 layers) families, the hybrid (zamba2-7b) and the capped,
 windowed attention (gemma2-2b), both at full width, the vlm
 (qwen2-vl-72b, published widths at 20 of 80 layers) with M-RoPE, the
-sharded step, and the contract analyzer with its lock witness over the
-control plane.
+sharded step, the contract analyzer with its lock witness over the
+control plane, and the training path of mamba2-2.7b at full width
+through the SSD's backward kernel.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -267,6 +268,33 @@ failed check raises and exits non-zero):
    service-rank one.  Not armed over the timed phases (d)-(f).  One
    ``{"analysis": ...}`` line; (n.2)'s launches count into
    ``monitor_fleet``'s;
+(o) the ssm training path.  (o.1) ``ssd_chunk_bwd`` against
+   ``ssd_chunk_bwd_ref`` with random cotangents on y, state and decay,
+   at the training path's chunk step (2, 16, 256, 80, 64, 128) and at
+   zamba2's (8, 4, 256, 112, 64, 64), each with the test's draws and
+   with Mamba-2's init, and at odd shapes (Q 1, 17, 37, 64, 100, 193; N
+   4, 12; P 8-64): dx and ddt within 1e-4 of their (b, c, h) slice's
+   largest |plain|, dB and dC of their (b, c) slice's, dA of the sum of
+   its terms' magnitudes; two calls equal to the bit; timed in turns
+   with the plain backward, beside its bound (``ssd_bwd_bound``).
+   (o.2) mamba2-2.7b's gradients at published widths (64 layers, f32
+   master weights with Mamba-2's decay init, B 2 x 1024, remat "full")
+   under ``grad_gates`` on the SSD route: the loss rel 1e-3; the
+   backward kernel against the plain backward under the kernel's own
+   forward in float32, every leaf rel L2 1e-3, which the backward
+   kernel fed A x 1.02 must miss; float32 end to end 1e-3; bf16 end to
+   end within 1.5x two 1-ulp controls of the plain SSD; 128 forward and
+   64 backward launches.  (o.3) ``Trainer.fit`` on mamba2-2.7b as (i.3)
+   runs it (AdamW, seq 4096, global batch 4, ``DataPipeline`` links on
+   the card, 8 steps on one repeated batch; ``SSM_TRAIN_MICRO`` x
+   ``SSM_TRAIN_ROWS`` under remat "dots"): finite losses
+   and grad norms, the loss down >= 10%, ``monitor_fleet`` launched by
+   the links, exactly two SSD forwards and one backward a layer a
+   microbatch; step ms, tokens/s, MFU, the step's roofline share, peak
+   memory and a profiler split (``ssd_fwd``, ``ssd_bwd`` among the
+   categories).  One ``{"train_ssm": ...}`` line; (o.3)'s forward
+   launches count into ``ssd_chunk``'s, (o.2)'s and (o.3)'s backward
+   launches are ``ssd_chunk_bwd``'s;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -286,6 +314,7 @@ Inputs come from ``--seed`` through numpy.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import itertools
@@ -366,6 +395,11 @@ MOE_F32_LAYERS = 2           # the float32 gate's cut (10.5 GB of weights)
 ZAMBA_ARCH = "zamba2-7b"
 ZAMBA_FLASH_SHAPE = (8, 1024, 32, 32, 112)   # its shared attention's prefill
 ZAMBA_SSD_SHAPE = (8, 4, 256, 112, 64, 64)   # its prefill's chunk step
+SSD_TRAIN_SHAPE = (2, 16, 256, 80, 64, 128)  # mamba2's training chunk step
+# (o.3): global batch 4 at 4096 under TrainConfig's default remat
+# "dots".  2 x 2 ran out of the card's memory (70.8 GB allocated, 7.1
+# reserved); 4 x 1 fits (61.5 GB)
+SSM_TRAIN_MICRO, SSM_TRAIN_ROWS = 4, 1
 ZAMBA_F32_GROUPS = 2         # the float32 gate's cut (16 mamba layers)
 GEMMA_ARCH = "gemma2-2b"
 GEMMA_FLASH_SHAPE = (2, 8192, 8, 4, 256)     # 2 x its published context
@@ -2096,23 +2130,39 @@ def conv_spans(torch, ssm):
         ssm.causal_conv1d, ssm.conv_decode_step = orig
 
 
-def _span_kernels(torch, events, span):
-    """(name, µs) of the device kernels launched inside ``span`` ranges:
-    the kernels of every CPU op below such a range."""
-    cpu = torch.autograd.DeviceType.CPU
-    out, stack = [], [e for e in events
-                      if e.device_type == cpu and e.name == span]
-    while stack:
-        e = stack.pop()
-        out.extend((k.name, k.duration) for k in e.kernels)
-        stack.extend(e.cpu_children)
-    return out
-
-
 def _category(name: str, categories=_CATEGORIES) -> str:
     name = name.lower()
     return next((c for c, keys in categories
                  if any(k in name for k in keys)), "other")
+
+
+def _span_ops(ops, span):
+    """The correlation ids of the CPU ops inside ``span`` ranges (on the
+    range's thread, inside its interval): the ops whose kernels are the
+    span's.  ``ops``: (name, thread, start ns, end ns, correlation id,
+    linked correlation id) of each CPU event."""
+    ranges = {}
+    for name, tid, a, b, _, _ in ops:
+        if name == span:
+            ranges.setdefault(tid, []).append((a, b))
+    merged = {}
+    for tid, rs in ranges.items():
+        out = []
+        for a, b in sorted(rs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[tid] = ([a for a, _ in out], [b for _, b in out])
+    ids = set()
+    for _, tid, a, b, corr, linked in ops:
+        rs = merged.get(tid)
+        if rs is None or linked:
+            continue
+        i = bisect.bisect_right(rs[0], a) - 1
+        if i >= 0 and b <= rs[1][i]:
+            ids.add(corr)
+    return ids
 
 
 def _trace_split(torch, prof, wall_ms, steps, categories=_CATEGORIES,
@@ -2120,23 +2170,36 @@ def _trace_split(torch, prof, wall_ms, steps, categories=_CATEGORIES,
     """Device time per kernel category from a torch.profiler trace, per
     step: the sum of kernel durations (one stream), their count, and the
     card's idle share of the host wall time (the profiler's own overhead
-    included in the wall).  Kernels launched inside a ``span[0]`` range
-    move from their category to ``span[1]``; the range's own device
-    annotation is no kernel."""
+    included in the wall).  Kernels launched by a CPU op inside a
+    ``span[0]`` range count as ``span[1]``; the range's own device
+    annotation is no kernel.  It reads the profiler's raw events, each
+    kernel linked to its CPU op by correlation id: ``prof.events()``
+    would build a Python event tree, a minute's work at a train step's
+    million events."""
     cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ops, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        kind = e.device_type()
+        if kind == cuda:
+            kernels.append((e.name(), e.end_ns() - e.start_ns(),
+                            e.linked_correlation_id()))
+        elif kind == cpu:
+            ops.append((e.name(), e.start_thread_id(), e.start_ns(),
+                        e.end_ns(), e.correlation_id(),
+                        e.linked_correlation_id()))
+    in_span = _span_ops(ops, span[0])
     split = {c: 0.0 for c, _ in categories}
     split[span[1]] = split["other"] = 0.0
     n = 0
-    for e in events:
-        if e.device_type != cuda or e.name == span[0]:
+    for name, ns, linked in kernels:
+        name = torch._C._demangle(name)
+        if name == span[0]:
             continue
         n += 1
-        split[_category(e.name, categories)] += \
-            e.time_range.elapsed_us() / 1e3
-    for name, us in _span_kernels(torch, events, span[0]):
-        split[_category(name, categories)] -= us / 1e3
-        split[span[1]] += us / 1e3
+        cat = (span[1] if linked in in_span
+               else _category(name, categories))
+        split[cat] += ns / 1e6
     if n == 0:
         return None
     busy = sum(split.values())
@@ -2811,6 +2874,40 @@ def _rels(names, got, want):
     return {n: _rel_l2(a, b) for n, a, b in zip(names, got, want)}
 
 
+class GradRoute:
+    """What ``grad_gates`` needs of a kernel route: the module whose
+    counts it reads and the forward's and backward's names there; context
+    managers for the kernel's forward with the plain backward, for a
+    wrong backward (``wrong``, which gate (b) must catch) and for the
+    plain route with its outputs moved by ``rel`` (the 1-ulp controls);
+    the compute dtype and tolerance of gate (b) and the tolerance of the
+    float32 gate (c).  ``wrong`` names the wrong backward in the log,
+    ``wrong_key`` in the stats."""
+
+    def __init__(self, counts, fwd, bwd, plain_backward, wrong_backward,
+                 wrong_key, wrong, perturbed_plain, bwd_dtype, bwd_tol,
+                 f32_tol):
+        self.counts, self.fwd, self.bwd = counts, fwd, bwd
+        self.plain_backward = plain_backward
+        self.wrong_backward, self.wrong_key, self.wrong = \
+            wrong_backward, wrong_key, wrong
+        self.perturbed_plain = perturbed_plain
+        self.bwd_dtype, self.bwd_tol, self.f32_tol = bwd_dtype, bwd_tol, \
+            f32_tol
+
+
+def flash_route(torch, AK, AR, AO, dev):
+    """The attention's gates: (b) in bf16 at 2e-2 against the backward
+    kernel at 1.02 x the scale, (c) at 1e-4."""
+    return GradRoute(
+        AK, "flash_attention", "flash_attention_bwd",
+        lambda: plain_attention_backward(torch, AK, AR),
+        lambda: scaled_attention_backward(torch, AK, 1.02), "scale_2pct_off",
+        "at 1.02 x scale",
+        lambda rel, s: perturbed_plain_attention(torch, AO, rel, s, dev),
+        torch.bfloat16, 2e-2, 1e-4)
+
+
 def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
     """(i.2) internlm2-1.8b at published widths, random float32 master
     weights from ``--seed``, B 2 x S 1024, each layer rematerialised
@@ -2838,52 +2935,64 @@ def phase_train_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
     toks = rng.integers(0, cfg.vocab_size, (GRAD_B, GRAD_S + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
              "targets": torch.as_tensor(toks[:, 1:], device=dev)}
-    _, stats = grad_gates(torch, AK, AR, AO, models, cfg, params, batch,
-                          cfg.n_layers, seed, dev,
+    _, stats = grad_gates(torch, flash_route(torch, AK, AR, AO, dev), models,
+                          cfg, params, batch, cfg.n_layers, seed, dev,
                           f"B {GRAD_B} x S {GRAD_S}")
     return stats
 
 
-def grad_gates(torch, AK, AR, AO, models, cfg, params, batch, n_attn, seed,
+def grad_gates(torch, route, models, cfg, params, batch, n_layers, seed,
                dev, what):
     """The gradient gates (a)-(d) of ``phase_train_grads`` on ``cfg``'s
     model with float32 master weights ``params`` and ``batch``, each
-    layer rematerialised ("full"); ``n_attn`` attention layers, so a
-    gradient launches the forward kernel twice and the backward once for
-    each.  Returns (the backward's launches in the kernel run, the
-    stats)."""
+    layer rematerialised ("full"), for the kernel route ``route`` (a
+    ``GradRoute``); ``n_layers`` layers hold the route's kernel, so a
+    gradient launches its forward twice and its backward once for each.
+    Gate (b) runs in ``route.bwd_dtype``.  Returns (the backward's
+    launches in the kernel run, the stats)."""
     from repro_torch.ckpt.manager import _flatten
     names = _flatten(params)[1]
+    bf16 = route.bwd_dtype == torch.bfloat16
+    dname = "bf16" if bf16 else "f32"
 
     def grads(dtype, impl):
         model = models.build_model(cfg, dtype, kernel_impl=impl)
         return _model_grads(torch, model, params, batch, "full")
 
-    AK.reset_launch_counts()
+    def backward_gate(gk, gp, dtype):
+        """(b): gk against the kernel's forward with the plain backward,
+        and the wrong backward against the same; the kernel's forward
+        with the plain backward against plain (gp)."""
+        with route.plain_backward():
+            _, gkp = grads(dtype, "kernel")
+        backward, plain_bwd = _rels(names, gk, gkp), _rels(names, gkp, gp)
+        with route.wrong_backward():
+            _, gks = grads(dtype, "kernel")
+        return backward, plain_bwd, _rels(names, gks, gkp)
+
+    route.counts.reset_launch_counts()
     (lk, gk), ms_k = _sync_ms(torch, lambda: grads(torch.bfloat16,
                                                     "kernel"))
-    launches = AK.launch_counts()
+    launches = route.counts.launch_counts()
     (lp, gp), ms_p = _sync_ms(torch, lambda: grads(torch.bfloat16, "plain"))
     end_to_end = _rels(names, gk, gp)
     controls = []
     for s in (seed, seed + 1):
-        with perturbed_plain_attention(torch, AO, 2.0 ** -23, s, dev):
+        with route.perturbed_plain(2.0 ** -23, s):
             lc, gc = grads(torch.bfloat16, "plain")
         controls.append(_rels(names, gc, gp))
         del gc
-    with plain_attention_backward(torch, AK, AR):
-        _, gkp = grads(torch.bfloat16, "kernel")
-    backward = _rels(names, gk, gkp)
-    plain_bwd = _rels(names, gkp, gp)
+    if bf16:
+        backward, plain_bwd, backward_control = backward_gate(
+            gk, gp, torch.bfloat16)
     del gk, gp
-    with scaled_attention_backward(torch, AK, 1.02):
-        _, gks = grads(torch.bfloat16, "kernel")
-    backward_control = _rels(names, gks, gkp)
-    del gks, gkp
     torch.cuda.empty_cache()
     (l32, g32) = grads(torch.float32, "kernel")
     (lp32, gp32) = grads(torch.float32, "plain")
     f32 = _rels(names, g32, gp32)
+    if not bf16:
+        backward, plain_bwd, backward_control = backward_gate(
+            g32, gp32, torch.float32)
     del g32, gp32, params
     torch.cuda.empty_cache()
 
@@ -2891,44 +3000,47 @@ def grad_gates(torch, AK, AR, AO, models, cfg, params, batch, n_attn, seed,
         n = max(rels, key=rels.get)
         return n, rels[n]
     floor = max(worst(c)[1] for c in controls)
-    check(launches["flash_attention"] == 2 * n_attn
-          and launches["flash_attention_bwd"] == n_attn,
+    check(launches[route.fwd] == 2 * n_layers
+          and launches[route.bwd] == n_layers,
           f"grads with full remat launched {launches}, expected "
-          f"{2 * n_attn} forwards and {n_attn} backwards")
+          f"{2 * n_layers} forwards and {n_layers} backwards")
     check(np.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp),
           f"loss through the kernels {lk} vs plain {lp}")
-    check(worst(backward)[1] <= 2e-2, f"backward kernel vs plain backward "
-          f"under the same forward: {worst(backward)} over 2e-2")
-    check(worst(backward_control)[1] > 2e-2, f"control: the backward kernel "
-          f"at 1.02 x scale {worst(backward_control)} within 2e-2, so gate "
-          f"(b) could not fail")
-    check(worst(f32)[1] <= 1e-4, f"f32 grads, kernels vs plain: "
-          f"{worst(f32)} over 1e-4")
+    check(worst(backward)[1] <= route.bwd_tol, f"backward kernel vs plain "
+          f"backward under the same forward ({dname}): {worst(backward)} "
+          f"over {route.bwd_tol}")
+    check(worst(backward_control)[1] > route.bwd_tol, f"control: the "
+          f"backward kernel {route.wrong} {worst(backward_control)} within "
+          f"{route.bwd_tol}, so gate (b) could not fail")
+    check(worst(f32)[1] <= route.f32_tol, f"f32 grads, kernels vs plain: "
+          f"{worst(f32)} over {route.f32_tol}")
     check(worst(end_to_end)[1] <= 1.5 * floor,
           f"bf16 grads, kernels vs plain: {worst(end_to_end)} over 1.5x "
           f"the 1-ulp controls' {floor}")
     log(f"model grads {cfg.name} {what}, remat full: loss "
         f"kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e},"
         f" gate 1e-3), f32 {l32:.6f} / {lp32:.6f}; worst leaf rel L2: "
-        f"backward kernel vs plain backward (same forward, bf16) "
-        f"{worst(backward)[0]} {worst(backward)[1]:.3e} (gate 2e-2; the "
-        f"kernel at 1.02 x scale {worst(backward_control)[0]} "
-        f"{worst(backward_control)[1]:.3e} must miss it); f32 "
-        f"kernels vs plain {worst(f32)[0]} {worst(f32)[1]:.3e} (gate 1e-4);"
+        f"backward kernel vs plain backward (same forward, {dname}) "
+        f"{worst(backward)[0]} {worst(backward)[1]:.3e} (gate "
+        f"{route.bwd_tol:g}; the kernel {route.wrong} "
+        f"{worst(backward_control)[0]} {worst(backward_control)[1]:.3e} "
+        f"must miss it); f32 kernels vs plain {worst(f32)[0]} "
+        f"{worst(f32)[1]:.3e} (gate {route.f32_tol:g});"
         f" bf16 kernels vs plain {worst(end_to_end)[0]} "
         f"{worst(end_to_end)[1]:.3e} against the 1-ulp controls' "
         f"{', '.join(f'{worst(c)[1]:.3e}' for c in controls)} (gate 1.5x)"
         f" and the kernel's forward with the plain backward's "
-        f"{worst(plain_bwd)[1]:.3e};"
+        f"{worst(plain_bwd)[1]:.3e} ({dname});"
         f" {ms_k:.0f} ms with the kernels, {ms_p:.0f} ms plain (host "
         f"clock); launches {launches}")
-    return launches["flash_attention_bwd"], {
+    return launches[route.bwd], {
             "loss_kernel": lk, "loss_plain": lp, "loss_1ulp_control": lc,
             "loss_f32_kernel": l32, "loss_f32_plain": lp32,
             "grad_rel_l2_bf16": end_to_end,
             "grad_rel_l2_bf16_1ulp_controls": controls,
+            "bwd_gate_dtype": dname,
             "grad_rel_l2_bwd_kernel_vs_plain_bwd": backward,
-            "grad_rel_l2_bwd_kernel_scale_2pct_off_vs_plain_bwd":
+            f"grad_rel_l2_bwd_kernel_{route.wrong_key}_vs_plain_bwd":
                 backward_control,
             "grad_rel_l2_kernel_fwd_plain_bwd_vs_plain": plain_bwd,
             "grad_rel_l2_f32": f32, "ms_kernel": ms_k, "ms_plain": ms_p}
@@ -2936,6 +3048,8 @@ def grad_gates(torch, AK, AR, AO, models, cfg, params, batch, n_attn, seed,
 
 _TRAIN_CATEGORIES = (("flash_bwd", ("flash_bwd",)),
                      ("flash_fwd", ("flash_fwd",)),
+                     ("ssd_bwd", ("ssd_bwd",)),
+                     ("ssd_fwd", ("ssd_chunk_kernel",)),
                      ("gemm", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
                      ("copy", ("memcpy", "memset", "copy")),
                      ("elementwise", ("elementwise", "vectorized",
@@ -2972,20 +3086,59 @@ def _repeat_first(pipe):
         yield first
 
 
-def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
-    """(i.3) ``Trainer.fit`` at internlm2-1.8b's published widths: AdamW,
-    ``TrainConfig``'s default remat ("dots"), seq 4096 (train_4k's
-    length), a global batch of 4 as 2 microbatches of 2 rows, fed by
+def attention_train_flops(cfg, gb):
+    """The causal attention's score and value products of a train step
+    (forward and backward, 3 x 4 FLOP a head dim a pair), beside
+    ``model_flops``' 6 N tokens."""
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    return 3 * 4.0 * gb * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+
+
+@contextlib.contextmanager
+def gc_clock():
+    """The seconds the cyclic garbage collector runs inside the block,
+    and its collections per generation (``gc.callbacks``)."""
+    out, started = {"s": 0.0, "collections": [0, 0, 0]}, []
+
+    def cb(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["s"] += time.perf_counter() - started.pop()
+            out["collections"][info["generation"]] += 1
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def phase_trainer(torch, KC, K, cfgs, models, TS, D, dev, seed, *,
+                  arch=ARCH, micro=TRAIN_MICRO, rows=TRAIN_ROWS,
+                  fwd="flash_attention", bwd="flash_attention_bwd",
+                  fwd_exact=None, extra_flops=attention_train_flops,
+                  prepare=None):
+    """(i.3) ``Trainer.fit`` at ``arch``'s published widths (internlm2-1.8b
+    by default): AdamW, ``TrainConfig``'s default remat "dots", seq 4096
+    (train_4k's length), a global batch of 4 as ``micro`` microbatches
+    of ``rows`` rows, fed by
     ``DataPipeline(SyntheticLMSource)`` with its links on the card, 8
     steps on one repeated batch, ``log_every=2``.  The links' monitor
-    must launch ``monitor_fleet`` during the fit.  Then one more step
-    under torch.profiler."""
+    must launch ``monitor_fleet`` during the fit; ``KC``'s kernels
+    ``fwd`` and ``bwd`` must launch once a layer a microbatch a step
+    (the forward at least that, or exactly ``fwd_exact`` times that).
+    ``prepare(trainer)`` may set the weights up before the fit.  Then one
+    more step under torch.profiler.  The MFU's numerator is
+    ``roofline.analysis.model_flops`` (6 N tokens, the embedding's gather
+    excluded) plus ``extra_flops(cfg, global batch)``.  The host side of
+    the fit: the threads alive when it starts (the main one excepted)
+    and the seconds the garbage collector ran during it."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.roofline import analysis as RN
     from repro_torch.roofline import analytic as RA
     from repro_torch.train import OptConfig, TrainConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = cfgs.get_config(ARCH)
+    cfg = cfgs.get_config(arch)
     model = models.build_model(cfg, torch.bfloat16)
     n_params = sum(int(np.prod(s)) for s in _leaves(model.param_shapes()))
     n_embed = cfg.padded_vocab * cfg.d_model
@@ -2997,10 +3150,17 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
     tcfg = TrainerConfig(
         train=TrainConfig(opt=OptConfig(lr_peak=1e-3, lr_min=1e-4,
                                         warmup_steps=2, total_steps=100),
-                          microbatches=TRAIN_MICRO),
+                          microbatches=micro),
         log_every=2)
+    remat = tcfg.train.remat_policy
+    threads = sorted(f"{t.name} ({type(t).__name__})"
+                     for t in threading.enumerate()
+                     if t is not threading.main_thread())
+    gc_objects = len(gc.get_objects())
     t0 = time.perf_counter()
     trainer = Trainer(model, tcfg, seed=seed, device=dev)
+    if prepare is not None:
+        prepare(trainer)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     step_ms, seen = [], {}
@@ -3014,18 +3174,19 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         seen["batch"] = batch
         return out
     trainer.step_fn = timed
-    gb = TRAIN_MICRO * TRAIN_ROWS
+    gb = micro * rows
     pipe = D.DataPipeline(D.SyntheticLMSource(cfg.vocab_size,
                                               doc_len=TRAIN_SEQ, seed=seed),
                           seq_len=TRAIN_SEQ, batch_size=gb,
                           queue_capacity=4, max_batches=TRAIN_STEPS + 1,
                           device=dev).start()
-    AK.reset_launch_counts()
+    KC.reset_launch_counts()
     K.reset_launch_counts()
     try:
-        hist = trainer.fit(_repeat_first(pipe), steps=TRAIN_STEPS)
-        torch.cuda.synchronize()
-        launches = AK.launch_counts()
+        with gc_clock() as gcs:
+            hist = trainer.fit(_repeat_first(pipe), steps=TRAIN_STEPS)
+            torch.cuda.synchronize()
+        launches = KC.launch_counts()
         monitor_launches = K.launch_counts()["monitor_fleet"]
         rates = pipe.rates()
         heads = pipe.fleet.state_snapshot()
@@ -3038,7 +3199,7 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         for i, queue in enumerate(pipe.fleet.queues)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in hist]
-    per_step = TRAIN_MICRO * cfg.n_layers    # one a layer a microbatch
+    per_step = micro * cfg.n_layers         # one a layer a microbatch
     check(len(hist) == TRAIN_STEPS // tcfg.log_every,
           f"trainer.history holds {len(hist)} records")
     check(all(np.isfinite([h["loss"], h["grad_norm"]]).all()
@@ -3050,21 +3211,21 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
           "ft.rates received no step stream")
     check(monitor_launches > 0, "the pipeline's links launched no "
           "monitor_fleet during the fit")
-    check(launches["flash_attention"] >= per_step * TRAIN_STEPS
-          and launches["flash_attention_bwd"] == per_step * TRAIN_STEPS,
+    fwd_ok = (launches[fwd] >= per_step * TRAIN_STEPS if fwd_exact is None
+              else launches[fwd] == fwd_exact * per_step * TRAIN_STEPS)
+    check(fwd_ok and launches[bwd] == per_step * TRAIN_STEPS,
           f"launches {launches} in {TRAIN_STEPS} steps, expected "
-          f"{per_step} of each kernel a step (more forwards under remat)")
+          f"{per_step} backwards a step and "
+          + (f"at least {per_step}" if fwd_exact is None
+             else f"{fwd_exact * per_step}") + " forwards")
     med = float(np.median(step_ms[1:]))
     tokens = gb * TRAIN_SEQ
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn_flops = (3 * 4.0 * gb * cfg.n_heads * cfg.head_dim * pairs
-                  * cfg.n_layers)
-    model_flops = RN.model_flops(n_params - n_embed, tokens,
-                                 "train") + attn_flops
+    extra = extra_flops(cfg, gb)
+    model_flops = RN.model_flops(n_params - n_embed, tokens, "train") + extra
     mfu = model_flops / (med / 1e3) / RN.HW["peak_flops_bf16"]
     roof = roofline_line(RA, RN, cfg, ShapeConfig("train_step", TRAIN_SEQ,
                                                   gb, "train"), med / 1e3,
-                         remat_policy="dots")
+                         remat_policy=remat)
 
     # one more step under the profiler, the optimizer's kernels in a range
     from torch.profiler import ProfilerActivity, profile
@@ -3076,8 +3237,12 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
                          (OPT_SPAN, "optimizer"))
     del trainer
     torch.cuda.empty_cache()
+    log(f"trainer host: threads alive at the start {threads}; garbage "
+        f"collector {gcs['s']:.3f} s in the fit, collections per "
+        f"generation {gcs['collections']}, {gc_objects} objects tracked "
+        f"at the start")
     log(f"trainer {cfg.name}: {TRAIN_STEPS} steps of {gb} x {TRAIN_SEQ} "
-        f"({TRAIN_MICRO} microbatches), remat dots, AdamW: losses "
+        f"({micro} microbatches), remat {remat}, AdamW: losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f"; grad norms " + ", ".join(f"{h['grad_norm']:.3f}" for h in hist)
         + f"; init {t_init:.1f} s")
@@ -3085,14 +3250,15 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         + f"; median of steps 2-{TRAIN_STEPS} {med:.1f} ms, "
         f"{tokens / med * 1e3:.0f} tokens/s, MFU {mfu:.4f} (6 N tokens with "
         f"N {(n_params - n_embed) / 1e9:.4f} B (the embedding table's "
-        f"gather excluded) + attention {attn_flops / 1e12:.2f} TFLOP, over "
+        f"gather excluded) + {extra / 1e12:.2f} TFLOP outside the weights' "
+        f"products, over "
         f"{RN.HW['peak_flops_bf16'] / 1e12:g} TFLOP/s); peak memory "
         f"{peak_gb:.2f} GB "
         f"(torch.cuda.max_memory_allocated; reckoned state {state_gb:.2f} "
         f"GB); launches {launches}, monitor_fleet {monitor_launches}; "
         f"pipeline rates {rates}; link heads (consumer side, items/s) "
         f"{heads}")
-    log(f"trainer step roofline (analytic, remat dots, H100 peaks): "
+    log(f"trainer step roofline (analytic, remat {remat}, H100 peaks): "
         f"compute {roof['compute_s'] * 1e3:.1f} ms, memory "
         f"{roof['memory_s'] * 1e3:.1f} ms, {roof['dominant']} bound, "
         f"measured {med:.1f} ms = {roof['bound_share']:.3f} of the bound")
@@ -3101,9 +3267,9 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
     else:
         log("trainer profile (one step): " + ", ".join(
             f"{n} {x:.3f}" for n, x in trace.items()))
-    return launches["flash_attention_bwd"], {
-        "arch": ARCH, "seq": TRAIN_SEQ, "global_batch": gb,
-        "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+    return launches[bwd], {
+        "arch": arch, "seq": TRAIN_SEQ, "global_batch": gb,
+        "microbatches": micro, "remat": remat, "steps": TRAIN_STEPS,
         "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
         "step_ms": step_ms, "step_ms_median": med,
         "tokens_per_s": tokens / med * 1e3, "mfu": mfu,
@@ -3112,7 +3278,28 @@ def phase_trainer(torch, AK, K, cfgs, models, TS, D, dev, seed):
         "n_params": n_params, "launches": launches,
         "monitor_fleet_launches": monitor_launches, "pipeline_rates": rates,
         "pipeline_heads": heads, "trace": trace, "init_s": t_init,
-        "roofline": roof}
+        "roofline": roof, "threads_at_start": threads,
+        "gc_objects_at_start": gc_objects, "gc_s": gcs["s"],
+        "gc_collections": gcs["collections"]}
+
+
+def phase_ssm_trainer(torch, SK, K, cfgs, models, TS, D, dev, seed):
+    """(o.3) ``phase_trainer`` on mamba2-2.7b at full width: AdamW, seq
+    4096, a global batch of 4 as ``SSM_TRAIN_MICRO`` microbatches of
+    ``SSM_TRAIN_ROWS`` rows under remat "dots", the weights
+    given Mamba-2's decay init before the fit; the SSD forward must
+    launch exactly twice a layer a microbatch (the layer's forward and
+    its recomputation: the kernel is no operator the "dots" policy could
+    keep) and its backward once."""
+    def prepare(trainer):
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        with torch.no_grad():
+            mamba2_decay_init(torch, trainer.state["params"]["blocks"], g)
+    return phase_trainer(torch, SK, K, cfgs, models, TS, D, dev, seed,
+                         arch=SSM_ARCH, micro=SSM_TRAIN_MICRO,
+                         rows=SSM_TRAIN_ROWS,
+                         fwd="ssd_chunk", bwd="ssd_chunk_bwd", fwd_exact=2,
+                         extra_flops=lambda cfg, gb: 0.0, prepare=prepare)
 
 
 def phase_ckpt_resume(torch, cfgs, models, rng, dev, seed):
@@ -3455,7 +3642,8 @@ def phase_whisper_grads(torch, AK, AR, AO, cfgs, models, rng, seed, dev):
                  dtype=np.float32), device=dev),
              "tokens": torch.as_tensor(toks[:, :-1], device=dev),
              "targets": torch.as_tensor(toks[:, 1:], device=dev)}
-    out = grad_gates(torch, AK, AR, AO, models, cfg, params, batch,
+    out = grad_gates(torch, flash_route(torch, AK, AR, AO, dev), models,
+                     cfg, params, batch,
                      cfg.encoder_layers + 2 * cfg.n_layers, seed, dev,
                      f"frames {WHISPER_GRAD_B} x {cfg.encoder_seq}, targets "
                      f"{WHISPER_GRAD_B} x {WHISPER_GRAD_S}")
@@ -4502,6 +4690,210 @@ def phase_witness(torch, K, CT, S, M, FT, W, WT, LO, dev, seed):
         "witness_launches": cell_launches + chaos["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase (o): the ssm training path
+
+
+# per gradient of the chunk step, the dims of one slice: dx and ddt per
+# (b, c, h), dB and dC per (b, c); dA entry by entry (against the sum of
+# its terms' magnitudes)
+_SSD_BWD_SLICE = (("dx", (2, 4)), ("ddt", (2,)), ("dA", ()), ("dB", (2, 3)),
+                  ("dC", (2, 3)))
+
+
+def _ssd_cotangents(torch, g, shape, dev):
+    B, c, Q, H, P, N = shape
+    mk = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    return mk(B, c, Q, H, P), mk(B, c, H, P, N), mk(B, c, H)
+
+
+def ssd_bwd_gate(torch, what, got, want, dA_scale, tol=1e-4):
+    """Each gradient's error against its slice's largest |plain|; dA's,
+    entry by entry, against ``dA_scale`` (``ref.ssd_dA_scale``: the sum
+    of its terms' magnitudes, since they cancel).  Returns (worst share
+    of the scale, max abs err, each gradient's share)."""
+    worst, err, rels = 0.0, 0.0, {}
+    for (name, dims), g, w in zip(_SSD_BWD_SLICE, got, want):
+        check(bool(torch.isfinite(g).all()), f"{what} {name}: non-finite")
+        d = (g - w).abs()
+        scale = (w.abs().amax(dim=dims, keepdim=True) if dims
+                 else dA_scale).clamp_min(1e-30)
+        rel = float((d / scale).max())
+        check(rel <= tol, f"{what} {name}: error {rel} of its scale > {tol} "
+              f"(max abs err {float(d.max())})")
+        worst, err = max(worst, rel), max(err, float(d.max()))
+        rels[name] = rel
+    return worst, err, rels
+
+
+@contextlib.contextmanager
+def plain_ssd_backward(torch, SK, SR):
+    """``SSDChunkFn``'s backward replaced by ``ssd_chunk_bwd_ref``
+    (float32, explicit formulas): the kernel's forward with an exact
+    backward."""
+    orig = SK.ssd_chunk_bwd
+    SK.ssd_chunk_bwd = SR.ssd_chunk_bwd_ref
+    try:
+        yield
+    finally:
+        SK.ssd_chunk_bwd = orig
+
+
+@contextlib.contextmanager
+def scaled_A_ssd_backward(torch, SK, factor):
+    """The backward kernel fed ``factor`` times A: a wrong backward under
+    the right forward, the control for gate (b)."""
+    orig = SK.ssd_chunk_bwd
+
+    def off(x, dt, A, Bm, Cm, *cots):
+        return orig(x, dt, A * factor, Bm, Cm, *cots)
+    off.launches = 0          # the wrapper counts on the module's name
+    SK.ssd_chunk_bwd = off
+    try:
+        yield
+    finally:
+        SK.ssd_chunk_bwd = orig
+
+
+def ssd_route(torch, SK, SR, SO, dev):
+    """The SSD's gates (its model gate, as phase 10 holds the logits):
+    (b) in float32 at 1e-3 against the backward kernel fed A x 1.02,
+    (c) at 1e-3."""
+    return GradRoute(
+        SK, "ssd_chunk", "ssd_chunk_bwd",
+        lambda: plain_ssd_backward(torch, SK, SR),
+        lambda: scaled_A_ssd_backward(torch, SK, 1.02), "A_2pct_off",
+        "fed A x 1.02",
+        lambda rel, s: perturbed_plain_ssd(torch, SO, rel, s, dev),
+        torch.float32, 1e-3, 1e-3)
+
+
+def phase_ssm_grads(torch, SK, SR, SO, cfgs, models, rng, seed, dev):
+    """(o.2) mamba2-2.7b at published widths (64 layers), random float32
+    master weights from ``--seed`` with Mamba-2's decay init, B 2 x S
+    1024, each layer rematerialised ("full"): the gates of
+    ``grad_gates`` on the SSD route -- (a) the loss, kernels vs plain,
+    rel 1e-3; (b) the backward kernel vs the plain backward under the
+    kernel's own forward, in float32, every leaf rel L2 1e-3, which the
+    backward kernel fed A x 1.02 must miss; (c) the whole path in
+    float32, kernels vs plain, every leaf 1e-3; (d) bf16 end to end
+    within 1.5x two 1-ulp controls of the plain SSD.  A gradient
+    launches the forward kernel twice a layer and the backward once."""
+    cfg = cfgs.get_config(SSM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    params = models.build_model(cfg).init_params(g, torch.float32,
+                                                 device=dev)
+    mamba2_decay_init(torch, params["blocks"], g)
+    toks = rng.integers(0, cfg.vocab_size, (GRAD_B, GRAD_S + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "targets": torch.as_tensor(toks[:, 1:], device=dev)}
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = grad_gates(torch, ssd_route(torch, SK, SR, SO, dev), models, cfg,
+                     params, batch, cfg.n_layers, seed, dev,
+                     f"({cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+                     f"parameters) B {GRAD_B} x S {GRAD_S}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_bwd_bound(shape):
+    """Least time of one chunk-step backward at ``shape`` (float32 in and
+    out): x, dt, A, B, C and the three cotangents read once, the five
+    gradients written once, against the least work -- the causal half of
+    dy.x^T and M^T.dy and the whole of B.dstate^T and x.dstate per head,
+    the causal half of C.B^T, dCB.B and dCB^T.C per chunk (2 FLOP per
+    multiply-add) -- at ``ssd_bound``'s rate, 3xTF32 on the tensor
+    cores."""
+    B, c, Q, H, P, N = shape
+    rows, pairs = B * c * Q, Q * (Q + 1) // 2
+    nbytes = 4 * (2 * (rows * H * P + rows * H + H + 2 * rows * N)
+                  + rows * H * P + B * c * H * P * N + B * c * H)
+    flops = 2.0 * B * c * (H * (2 * pairs * P + 2 * Q * P * N)
+                           + 3 * pairs * N)
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_o = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        nbytes, flops
+
+
+def phase_ssd_bwd(torch, SK, SR, dev, seed):
+    """(o.1) The backward kernel against ``ssd_chunk_bwd_ref`` on the card,
+    with random cotangents on y, state and decay: at the training path's
+    chunk step ``SSD_TRAIN_SHAPE`` and at zamba2's ``ZAMBA_SSD_SHAPE``,
+    each with the test's draws and with Mamba-2's init, and at odd shapes
+    (Q 1, 17, 100, 193; N 4 and 12; P 8-64); each gradient's error at
+    most 1e-4 of its slice's largest |plain| (dx and ddt per (b, c, h),
+    dB and dC per (b, c)), dA's entry by entry of the sum of its terms'
+    magnitudes, and two calls equal to the bit.  Then timed at ``SSD_TRAIN_SHAPE`` in turns with the plain
+    backward (kernel, plain, plain, kernel)."""
+    from repro_torch.kernels._build import ptxas_report
+    rng = np.random.default_rng(seed + 27)
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    cases = [(shape, init) for shape in (SSD_TRAIN_SHAPE, ZAMBA_SSD_SHAPE)
+             for init in (False, True)]
+    cases += [((2, 3, 17, 3, 32, 16), False), ((1, 2, 100, 9, 64, 64), True),
+              ((1, 1, 1, 2, 8, 8), False), ((1, 2, 193, 17, 16, 128), True),
+              ((1, 3, 37, 3, 32, 12), False), ((2, 1, 64, 5, 8, 4), False)]
+    worst, err = 0.0, 0.0
+    for shape, init in cases:
+        B, c, Q, H, P, N = shape
+        ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev, init=init)
+        cots = _ssd_cotangents(torch, g, shape, dev)
+        got = SK.ssd_chunk_bwd(*ins, *cots)
+        again = SK.ssd_chunk_bwd(*ins, *cots)
+        want = SR.ssd_chunk_bwd_ref(*ins, *cots)
+        torch.cuda.synchronize()
+        what = (f"ssd_chunk_bwd {shape} "
+                f"({'Mamba-2 init' if init else 'test draws'})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two calls differ")
+        rel, e, rels = ssd_bwd_gate(torch, what, got, want,
+                                    SR.ssd_dA_scale(*ins, *cots))
+        log(f"{what}: error of each slice's scale " + ", ".join(
+            f"{n} {r:.3e}" for n, r in rels.items()) + f" (gate 1e-4), max "
+            f"abs err {e:.3e}; two calls equal to the bit")
+        worst, err = max(worst, rel), max(err, e)
+        del ins, cots, got, again, want
+    # None cotangents count as zeros
+    B, c, Q, H, P, N = shape = (1, 2, 64, 3, 16, 8)
+    ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev)
+    dy = _ssd_cotangents(torch, g, shape, dev)[0]
+    ssd_bwd_gate(torch, "ssd_chunk_bwd, dy alone",
+                 SK.ssd_chunk_bwd(*ins, dy, None, None),
+                 SR.ssd_chunk_bwd_ref(*ins, dy, None, None),
+                 SR.ssd_dA_scale(*ins, dy, None, None))
+    B, c, Q, H, P, N = SSD_TRAIN_SHAPE
+    ins = _ssd_inputs(torch, rng, (B, c, Q), H, P, N, dev, init=True)
+    cots = _ssd_cotangents(torch, g, SSD_TRAIN_SHAPE, dev)
+    turns = []
+    for fn, reps, warm in ((SK.ssd_chunk_bwd, 10, 2),
+                           (SR.ssd_chunk_bwd_ref, 3, 1),
+                           (SR.ssd_chunk_bwd_ref, 3, 1),
+                           (SK.ssd_chunk_bwd, 10, 2)):
+        turns.append(event_ms(torch, lambda: fn(*ins, *cots), reps=reps,
+                              warm=warm))
+    ms, plain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    fwd_ms = event_ms(torch, lambda: SK.ssd_chunk(*ins), reps=10)
+    bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(SSD_TRAIN_SHAPE)
+    log(f"ssd_chunk_bwd timing {SSD_TRAIN_SHAPE} f32 (Mamba-2 init): "
+        f"{ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}: "
+        f"kernel, plain, plain, kernel), plain {plain_ms:.4f} ms; the "
+        f"forward kernel at this shape {fwd_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB is "
+        f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP is "
+        f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms as 3xTF32 products, "
+        f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 rate; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the function)")
+    for r in ptxas_report(Path(str(SK.build_bwd()) + ".log").read_text()):
+        log(f"ssd_chunk_bwd ptxas {r['kernel']}: {r['registers']} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} B spill stores/loads")
+    return {"max_abs_err": err, "worst_rel": worst, "ms": ms,
+            "plain_ms": plain_ms, "turns_ms": turns, "fwd_ms": fwd_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tflops": flops / ms / 1e9}
+
+
 @contextlib.contextmanager
 def _wall(walls, name):
     t0 = time.perf_counter()
@@ -4570,9 +4962,10 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:       # one nvcc per source, together
+    with ThreadPoolExecutor(5) as pool:       # one nvcc per source, together
         libs = list(pool.map(lambda build: build(),
-                             (K.build, AK.build, AK.build_bwd, SK.build)))
+                             (K.build, AK.build, AK.build_bwd, SK.build,
+                              SK.build_bwd)))
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
         f"{[lib.name for lib in libs]}")
     for lib in libs:
@@ -4717,6 +5110,15 @@ def main() -> int:
             torch, K, CT, S, M, FT, W, WT, LO, dev, args.seed)
     analysis.update(witness, n1_wall_s=walls["n.1 analyzer"],
                     n2_wall_s=walls["n.2 witness"])
+    with wall("o.1 ssd backward"):
+        ssd_bwd = phase_ssd_bwd(torch, SK, SR, dev, args.seed)
+    with wall("o.2-o.3 ssm grads, trainer"):
+        train_ssm = {"ssd_chunk_bwd": ssd_bwd}
+        ssm_grad_launches, train_ssm["grads"] = phase_ssm_grads(
+            torch, SK, SR, SO, C, MD, rng, args.seed, dev)
+        ssm_fit_launches, train_ssm["fit"] = phase_ssm_trainer(
+            torch, SK, K, C, MD, TS, D, dev, args.seed)
+        torch.cuda.empty_cache()
 
     src = "src/repro_torch/kernels/monitor/csrc/monitor.cu"
     kernels = [
@@ -4724,7 +5126,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/monitor/kernel.py:120",
          "launches": (fleet_launches + sum(fault_launches.values())
                       + train["fit"]["monitor_fleet_launches"]
-                      + witness_launches),
+                      + witness_launches
+                      + train_ssm["fit"]["monitor_fleet_launches"]),
          "max_abs_err": fleet["max_abs_err"],
          "ms": fleet["ms"], "plain_ms": fleet["plain_ms"],
          "bound_ms": fleet["bound_ms"], "bound_by": fleet["bound_by"],
@@ -4750,7 +5153,8 @@ def main() -> int:
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:25",
-         "launches": ssd_launches + zamba_ssd,
+         "launches": (ssd_launches + zamba_ssd
+                      + train_ssm["fit"]["launches"]["ssd_chunk"]),
          "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
@@ -4764,6 +5168,15 @@ def main() -> int:
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
          "library_ms": bwd["library_ms"]},
+        {"name": "ssd_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+         "replaces": "src/repro/train/step.py:54 (jax.value_and_grad of "
+                     "src/repro/models/ssm.py:104)",
+         "launches": ssm_fit_launches + ssm_grad_launches,
+         "max_abs_err": ssd_bwd["max_abs_err"],
+         "ms": ssd_bwd["ms"], "plain_ms": ssd_bwd["plain_ms"],
+         "bound_ms": ssd_bwd["bound_ms"], "bound_by": ssd_bwd["bound_by"],
+         "library_ms": ssd_bwd["library_ms"]},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -4804,12 +5217,15 @@ def main() -> int:
         f"{VLM_ARCH} prefill {SERVE_B}x{PREFILL_S} ({VLM_LAYERS} layers)":
             vlm_roof,
         f"{ARCH} train step {TRAIN_MICRO * TRAIN_ROWS}x{TRAIN_SEQ}":
-            train["fit"]["roofline"]}}))
+            train["fit"]["roofline"],
+        f"{SSM_ARCH} train step {SSM_TRAIN_MICRO * SSM_TRAIN_ROWS}x"
+        f"{TRAIN_SEQ}": train_ssm["fit"]["roofline"]}}))
     walls["total"] = time.perf_counter() - start
     log(json.dumps({"wall_s": walls}))
     log(json.dumps({"train": {"flash_attention_bwd": {k: bwd[k] for k in (
         "ms", "library_ms", "turns_ms", "tflops", "tile_tflops", "fwd_ms",
         "fwd_lse_ms", "controls_rel_l2")}, **train}}))
+    log(json.dumps({"train_ssm": train_ssm}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

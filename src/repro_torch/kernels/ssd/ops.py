@@ -23,9 +23,33 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref, ssd_chunk_ref
 
-__all__ = ["ssd_chunked_pallas", "ssd_chunk_ref", "ssd_chunked", "IMPLS"]
+__all__ = ["ssd_chunked_pallas", "ssd_chunk_ref", "ssd_chunked", "IMPLS",
+           "SSDChunkFn"]
 
 IMPLS = ("kernel", "plain")
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """The intra-chunk step with the hand-written backward: the forward
+    (``kernel.ssd_chunk``) saves its inputs; the backward
+    (``kernel.ssd_chunk_bwd``) takes the cotangents of (y, state, decay)
+    and returns the inputs' gradients in their dtypes.  Autograd may
+    hand a cotangent over strided (``y.sum()`` gives a stride-0 one),
+    and the kernel takes contiguous float32, so each is made so here."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return _kernel.ssd_chunk(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstate, ddecay):
+        ins = ctx.saved_tensors
+        cots = (None if g is None else g.float().contiguous()
+                for g in (dy, dstate, ddecay))
+        grads = _kernel.ssd_chunk_bwd(*ins, *cots)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
@@ -41,6 +65,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
                 "registered (ROADMAP.md, Queue 2 item 7); run the ssm model "
                 "unsharded on the card, or with kernel_impl=\"plain\"")
         chunk_fn = _kernel.ssd_chunk
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            chunk_fn = SSDChunkFn.apply
     elif impl == "plain":
         chunk_fn = ssd_chunk_batched_ref
     else:

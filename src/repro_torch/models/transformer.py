@@ -31,8 +31,9 @@ placement search weighs communication only), 16 times the FLOPs on a
 Training: ``lm_loss`` is the next-token cross entropy of ``lm_forward``
 in mode "train", whose layers may be rematerialised in the backward
 (``_maybe_remat``).  On the card the attention differentiates through
-the hand-written backward kernel (``kernels.attention.ops``); the SSD
-kernel has no backward yet, so an ssm model trains on the CPU only.
+the hand-written backward kernel (``kernels.attention.ops``) and the
+SSD through its own (``kernels.ssd.ops.SSDChunkFn``), so the ssm family
+trains there; the hybrid waits for the flash backward at hd 112.
 
 The vlm family (qwen2-vl) is the dense stack fed precomputed patch
 embeddings (``embeds``) or tokens, its q and k rotated by M-RoPE: the

@@ -32,7 +32,8 @@ from repro_torch.kernels.monitor.ref import (batched_monitor_ref,
                                              monitor_fleet_ref, window_carry)
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as SO
-from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref
+from repro_torch.kernels.ssd.ref import (ssd_chunk_batched_ref,
+                                         ssd_chunk_bwd_ref, ssd_dA_scale)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,7 @@ def cuda():
     AK.build()
     AK.build_bwd()
     SK.build()
+    SK.build_bwd()
     return torch.device("cuda")
 
 
@@ -723,15 +725,85 @@ def test_flash_attention_fn_on_the_card(cuda):
 def test_kernels_refuse_grad_outside_a_function(cuda):
     """On the card neither kernel cuts a gradient silently: with grad
     mode on and an input that requires grad, the flash wrapper and the
-    SSD wrapper raise (the SSD has no backward kernel yet)."""
+    SSD wrapper raise, each naming the autograd Function to go through
+    (``FlashAttentionFn``, ``SSDChunkFn``)."""
     q, k, v = _qkv((1, 64, 2, 1, 32), 1, torch.float32, cuda)
     with pytest.raises(RuntimeError, match="FlashAttentionFn"):
         AK.flash_attention(q.requires_grad_(), k, v)
     with torch.no_grad():
         AK.flash_attention(q, k, v)
     x, dt, A, Bm, Cm = _ssd_inputs((1, 2, 16), 2, 16, 8, 0, cuda)
-    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
+    with pytest.raises(RuntimeError, match="SSDChunkFn"):
         SK.ssd_chunk(x.requires_grad_(), dt, A, Bm, Cm)
+    with torch.no_grad():
+        SK.ssd_chunk(x, dt, A, Bm, Cm)
+
+
+@pytest.mark.parametrize("B,c,Q,H,P,N", [
+    (1, 4, 8, 2, 8, 8), (2, 3, 17, 3, 32, 16), (1, 2, 100, 9, 64, 64),
+    (2, 1, 256, 5, 64, 128), (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128),
+    (1, 3, 37, 3, 32, 12), (2, 1, 64, 11, 8, 4)])
+def test_ssd_chunk_bwd_kernel_matches_ref(cuda, B, c, Q, H, P, N):
+    """The backward kernel against ``ssd_chunk_bwd_ref`` with cotangents
+    on y, state and decay: each gradient within 1e-4 of its slice's
+    largest |plain| (dx and ddt per (b, c, h), dB and dC per (b, c)), dA
+    within 1e-4 of the sum of its terms' magnitudes; two calls equal to
+    the bit, one launch counted each."""
+    ins = _ssd_inputs((B, c, Q), H, P, N, seed=B + c + Q + H, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(Q)
+    cots = (torch.randn((B, c, Q, H, P), generator=g, device=cuda),
+            torch.randn((B, c, H, P, N), generator=g, device=cuda),
+            torch.randn((B, c, H), generator=g, device=cuda))
+    before = SK.ssd_chunk_bwd.launches
+    got = SK.ssd_chunk_bwd(*ins, *cots)
+    again = SK.ssd_chunk_bwd(*ins, *cots)
+    torch.cuda.synchronize()
+    assert SK.ssd_chunk_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_chunk_bwd_ref(*ins, *cots)
+    dA_scale = ssd_dA_scale(*ins, *cots)
+    for (name, dims), gt, w in zip(
+            (("dx", (2, 4)), ("ddt", (2,)), ("dA", None), ("dB", (2, 3)),
+             ("dC", (2, 3))), got, want):
+        assert bool(torch.isfinite(gt).all()), name
+        scale = (dA_scale if dims is None
+                 else w.abs().amax(dim=dims, keepdim=True))
+        assert bool(((gt - w).abs() <= 1e-4 * scale.clamp_min(1e-30)).all()), \
+            name
+
+
+def test_ssd_grad_goes_through_the_backward_kernel(cuda):
+    """On the card a gradient through ``ssd_chunked(impl="kernel")``
+    launches ``ssd_chunk_bwd`` once and agrees with autograd through the
+    plain version (rel L2 1e-4)."""
+    B, S, H, P, N = 2, 96, 4, 16, 8
+    ins = _ssd_inputs((B, S), H, P, N, seed=3, device=cuda)
+    grads = {}
+    for impl in SO.IMPLS:
+        leaves = [t.clone().requires_grad_() for t in ins]
+        before = SK.ssd_chunk_bwd.launches
+        y, h = SO.ssd_chunked(*leaves, 32, impl=impl)
+        grads[impl] = torch.autograd.grad(y.square().sum() + h.sum(), leaves)
+        assert SK.ssd_chunk_bwd.launches == before + (impl == "kernel")
+    for gk, gp in zip(grads["kernel"], grads["plain"]):
+        assert float((gk - gp).norm() / gp.norm()) <= 1e-4
+
+
+def test_ssd_grad_of_a_plain_sum_goes_through_the_backward_kernel(cuda):
+    """``y.sum()`` hands the Function a stride-0 cotangent: on the card
+    it still reaches ``ssd_chunk_bwd`` once (no contiguity error) and
+    agrees with autograd through the plain version (rel L2 1e-4)."""
+    B, S, H, P, N = 2, 96, 4, 16, 8
+    ins = _ssd_inputs((B, S), H, P, N, seed=4, device=cuda)
+    grads = {}
+    for impl in SO.IMPLS:
+        leaves = [t.clone().requires_grad_() for t in ins]
+        before = SK.ssd_chunk_bwd.launches
+        y, _ = SO.ssd_chunked(*leaves, 32, impl=impl)
+        grads[impl] = torch.autograd.grad(y.sum(), leaves)
+        assert SK.ssd_chunk_bwd.launches == before + (impl == "kernel")
+    for gk, gp in zip(grads["kernel"], grads["plain"]):
+        assert float((gk - gp).norm() / gp.norm()) <= 1e-4
 
 
 def _ssd_inputs(lead, H, P, N, seed, device):

@@ -84,7 +84,9 @@ SENTINELS = {("streams.pipeline", "STOP")}
 # a jax.random key is a torch.Generator in the port
 RENAMED = {"key": "generator"}
 # public names only the port has: the JAX parameter tree as tensors, the
-# port's own PartitionSpec and its DTensor placements, the fake world
+# port's own PartitionSpec and its DTensor placements, the fake world,
+# the autograd Functions around the hand-written backward kernels (the
+# reference differentiates its ops with jax.grad)
 PORT_ONLY = {"models.api": ["params_from_numpy"],
              "dist.sharding": ["PartitionSpec", "placements_for"],
              "launch.mesh": ["fake_world"],
@@ -95,7 +97,7 @@ PORT_ONLY = {"models.api": ["params_from_numpy"],
              "kernels.attention.ops": ["FlashAttentionFn",
                                        "flash_attention_fwd",
                                        "flash_attention_bwd", "IMPLS"],
-             "kernels.ssd.ops": ["ssd_chunked", "IMPLS"],
+             "kernels.ssd.ops": ["ssd_chunked", "IMPLS", "SSDChunkFn"],
              "core.monitor": ["gated_rate_arrays", "fleet_state_from_numpy",
                               "fleet_state_to_numpy", "resolve_device"]}
 # the reference's HLO text parse, which has no input in PyTorch (its
