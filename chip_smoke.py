@@ -276,7 +276,10 @@ failed check raises and exits non-zero):
    4, 12; P 8-64): dx and ddt within 1e-4 of their (b, c, h) slice's
    largest |plain|, dB and dC of their (b, c) slice's, dA of the sum of
    its terms' magnitudes; two calls equal to the bit; timed in turns
-   with the plain backward, beside its bound (``ssd_bwd_bound``).
+   with the plain backward, beside its bound (``ssd_bwd_bound``) and
+   the TFLOP/s of the function; the device ms of each of its seven
+   kernels in one call (``ssd_bwd_kernel_split``) and each kernel's
+   registers and spills (``ptxas_report``).
    (o.2) mamba2-2.7b's gradients at published widths (64 layers, f32
    master weights with Mamba-2's decay init, B 2 x 1024, remat "full")
    under ``grad_gates`` on the SSD route: the loss rel 1e-3; the
@@ -4817,6 +4820,40 @@ def ssd_bwd_bound(shape):
         nbytes, flops
 
 
+def ssd_bwd_kernel_split(torch, fn, calls=5):
+    """Device ms a call of each of the SSD backward's kernels
+    (``ssd_bwd_cb``, ``_main``, ``_v``, ``_dcb``, ``_dbc``, ``_finish``,
+    ``_da``) from a profiler trace of ``calls`` calls, read from the
+    profiler's raw events as ``_trace_split`` reads them: a call launches
+    each kernel once, so a kernel's mean over the launches the trace
+    holds (a trace late in a long process may hold fewer than
+    ``calls``; ``launches_seen`` says how many).  Kernels of no
+    ``ssd_bwd_`` name are summed under "other", per call.  {} when the
+    trace has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        m = re.search(r"ssd_bwd_([a-z]+)", torch._C._demangle(e.name()))
+        key = m.group(1) if m else "other"
+        total[key] = total.get(key, 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+        count[key] = count.get(key, 0) + 1
+    if not total:
+        return {}
+    out = {k: total[k] / (calls if k == "other" else count[k])
+           for k in sorted(total)}
+    out["launches_seen"] = min(v for k, v in count.items() if k != "other")
+    return out
+
+
 def phase_ssd_bwd(torch, SK, SR, dev, seed):
     """(o.1) The backward kernel against ``ssd_chunk_bwd_ref`` on the card,
     with random cotangents on y, state and decay: at the training path's
@@ -4825,8 +4862,10 @@ def phase_ssd_bwd(torch, SK, SR, dev, seed):
     (Q 1, 17, 100, 193; N 4 and 12; P 8-64); each gradient's error at
     most 1e-4 of its slice's largest |plain| (dx and ddt per (b, c, h),
     dB and dC per (b, c)), dA's entry by entry of the sum of its terms'
-    magnitudes, and two calls equal to the bit.  Then timed at ``SSD_TRAIN_SHAPE`` in turns with the plain
-    backward (kernel, plain, plain, kernel)."""
+    magnitudes, and two calls equal to the bit.  Then timed at
+    ``SSD_TRAIN_SHAPE`` in turns with the plain backward (kernel, plain,
+    plain, kernel), its device time split by kernel from a profiler
+    trace, and each kernel's registers and spills from ptxas."""
     from repro_torch.kernels._build import ptxas_report
     rng = np.random.default_rng(seed + 27)
     g = torch.Generator(device=dev).manual_seed(seed + 27)
@@ -4884,14 +4923,26 @@ def phase_ssd_bwd(torch, SK, SR, dev, seed):
         f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP is "
         f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms as 3xTF32 products, "
         f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 rate; "
-        f"{flops / ms / 1e9:.1f} TFLOP/s of the function)")
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the function against "
+        f"{flops / bound_ms / 1e9:.1f} at the bound)")
+    split = ssd_bwd_kernel_split(torch, lambda: SK.ssd_chunk_bwd(*ins, *cots))
+    log(f"ssd_chunk_bwd device ms a call at {SSD_TRAIN_SHAPE} by kernel "
+        f"(the mean of {split.get('launches_seen')} launches each): "
+        + ", ".join(f"ssd_bwd_{k} {v:.4f}" for k, v in split.items()
+                    if k != "launches_seen"))
+    regs = {}
     for r in ptxas_report(Path(str(SK.build_bwd()) + ".log").read_text()):
-        log(f"ssd_chunk_bwd ptxas {r['kernel']}: {r['registers']} registers, "
+        m = re.search(r"(ssd_bwd_[a-z]+)(?:ILi(\d+)E)?E", r["kernel"])
+        name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                if m else r["kernel"])
+        regs[name] = [r["registers"], r["spill_stores"], r["spill_loads"]]
+        log(f"ssd_chunk_bwd ptxas {name}: {r['registers']} registers, "
             f"{r['spill_stores']}/{r['spill_loads']} B spill stores/loads")
     return {"max_abs_err": err, "worst_rel": worst, "ms": ms,
             "plain_ms": plain_ms, "turns_ms": turns, "fwd_ms": fwd_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "tflops": flops / ms / 1e9}
+            "tflops": flops / ms / 1e9, "split_ms": split,
+            "ptxas_registers_spills": regs}
 
 
 @contextlib.contextmanager

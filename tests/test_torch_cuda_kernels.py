@@ -742,7 +742,8 @@ def test_kernels_refuse_grad_outside_a_function(cuda):
 @pytest.mark.parametrize("B,c,Q,H,P,N", [
     (1, 4, 8, 2, 8, 8), (2, 3, 17, 3, 32, 16), (1, 2, 100, 9, 64, 64),
     (2, 1, 256, 5, 64, 128), (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128),
-    (1, 3, 37, 3, 32, 12), (2, 1, 64, 11, 8, 4)])
+    (1, 3, 37, 3, 32, 12), (2, 1, 64, 11, 8, 4), (1, 1, 193, 3, 8, 4),
+    (1, 1, 256, 9, 64, 64), (1, 2, 256, 3, 64, 128), (1, 2, 70, 3, 16, 196)])
 def test_ssd_chunk_bwd_kernel_matches_ref(cuda, B, c, Q, H, P, N):
     """The backward kernel against ``ssd_chunk_bwd_ref`` with cotangents
     on y, state and decay: each gradient within 1e-4 of its slice's
@@ -770,6 +771,23 @@ def test_ssd_chunk_bwd_kernel_matches_ref(cuda, B, c, Q, H, P, N):
                  else w.abs().amax(dim=dims, keepdim=True))
         assert bool(((gt - w).abs() <= 1e-4 * scale.clamp_min(1e-30)).all()), \
             name
+
+
+def test_ssd_chunk_bwd_kernels_do_not_spill(cuda):
+    """ptxas's report of the backward library: no kernel of it spills,
+    the tensor-core ``ssd_bwd_main`` at every head dim included."""
+    from pathlib import Path
+
+    from repro_torch.kernels._build import ptxas_report
+    rep = ptxas_report(Path(str(SK.build_bwd()) + ".log").read_text())
+    names = " ".join(r["kernel"] for r in rep)
+    for kernel in ("ssd_bwd_cb", "ssd_bwd_main", "ssd_bwd_dcb", "ssd_bwd_dbc",
+                   "ssd_bwd_finish", "ssd_bwd_da"):
+        assert kernel in names, kernel
+    assert sum("ssd_bwd_main" in r["kernel"] for r in rep) == len(
+        SK.HEAD_DIMS)
+    for r in rep:
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 
 
 def test_ssd_grad_goes_through_the_backward_kernel(cuda):

@@ -11,9 +11,11 @@ Then the chunked op under grad, which on the kernel route goes through
 versions), against ``jax.grad`` of the JAX package's
 ``models.ssm.ssd_chunked`` with a carried-in state and an S that needs
 padding (1e-4).  Inputs come from numpy with a seed, drawn as the JAX
-package's kernel tests draw them.  The backward kernel runs its products
-as float32 FMA, so there is no reduced-precision arithmetic to emulate
-here; the card tests hold it against the plain version.
+package's kernel tests draw them.  The backward kernel runs its four
+per-head products (B.dstate^T, (w o x).dstate, dy.x^T and M^T.dy) on the
+tensor cores as 3xTF32; that arithmetic is emulated here and held to the
+card tests' gate, and the card tests hold the kernel itself against the
+plain version.
 """
 
 import jax
@@ -308,3 +310,143 @@ def test_function_hands_the_backward_contiguous_float32_cotangents(
     assert cots and all(g.is_contiguous() and g.dtype == torch.float32
                         for g in cots)
     assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+# The kernel's arithmetic.  Each of the four per-head products runs as
+# 3xTF32: each operand a splits into big = tf32(a) and small = tf32(a -
+# big), rounded to nearest with ties away from zero, and a.b is summed in
+# float32 as small.big + big.small + big.big.  The per-chunk products
+# (C.B^T, dCB.B, dCB^T.C) and everything elementwise stay float32.
+
+# the shapes of the card test of the backward kernel (B, c, Q, H, P, N)
+CARD_SHAPES = [(1, 4, 8, 2, 8, 8), (2, 3, 17, 3, 32, 16),
+               (1, 2, 100, 9, 64, 64), (2, 1, 256, 5, 64, 128),
+               (1, 1, 1, 2, 8, 8), (1, 2, 193, 17, 16, 128),
+               (1, 3, 37, 3, 32, 12), (2, 1, 64, 11, 8, 4),
+               (1, 1, 193, 3, 8, 4), (1, 1, 256, 9, 64, 64),
+               (1, 2, 256, 3, 64, 128), (1, 2, 70, 3, 16, 196)]
+# per gradient, the dims of the slice whose largest |plain| scales its
+# error (dx, ddt per (b, c, h); dB, dC per (b, c)); dA's scale is
+# ssd_dA_scale
+SLICES = {"dx": (2, 4), "ddt": (2,), "dB": (2, 3), "dC": (2, 3)}
+
+
+def _tf32(a):
+    """float32 -> TF32 (10 mantissa bits), to nearest, ties away from
+    zero: cvt.rna.tf32.f32 on the int32 view, as the kernel does it."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b from three TF32 products of the split operands."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _mm1(a, b):
+    """a @ b from one TF32 product: the contrast."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_bwd_emulated(x, dt, A, Bm, Cm, dy, dstate, ddecay, mm=_mm3):
+    """``ref._bwd``'s formulas with the kernel's four per-head products
+    through ``mm``: U = B.dstate^T, the state term of dB as one product
+    over (h, p) of w o x and dstate, dM = dy.x^T and dx's M^T.dy; exp is
+    taken only where j <= i (exp of 0 elsewhere)."""
+    Bsz, c, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    acum = torch.cumsum(dt * A, dim=2)                     # (B,c,Q,H)
+    CB = Cm @ Bm.transpose(-1, -2)                         # (B,c,i,j)
+    ar = torch.arange(Q)
+    mask = (ar[:, None] >= ar[None, :])[..., None]         # (i,j,1)
+    diff = acum[..., :, None, :] - acum[..., None, :, :]   # (B,c,i,j,H)
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    dtj = dt[:, :, None, :, :]                             # (B,c,1,j,H)
+    M = CB[..., None] * L * dtj
+    xh = x.permute(0, 1, 3, 2, 4)                          # (B,c,H,Q,P)
+    dyh = dy.permute(0, 1, 3, 2, 4)
+    dM = mm(dyh, xh.transpose(-1, -2)).permute(0, 1, 3, 4, 2)  # (B,c,i,j,H)
+    G = dM * L
+    dte = torch.exp(acum[:, :, -1:, :] - acum)
+    w = dt * dte
+    U = mm(Bm[:, :, None], dstate.transpose(-1, -2))       # (B,c,H,Q,P)
+    U = U.permute(0, 1, 3, 2, 4)                           # (B,c,Q,H,P)
+    Mt = M.permute(0, 1, 4, 3, 2)                          # (B,c,H,j,i)
+    dx = (w[..., None] * U
+          + mm(Mt, dyh).permute(0, 1, 3, 2, 4))
+    dCB = (G * dtj).sum(-1)
+    dC = dCB @ Bm
+    wx = (w[..., None] * x).reshape(Bsz, c, Q, H * P)
+    dB = dCB.transpose(-1, -2) @ Cm + mm(wx, dstate.reshape(Bsz, c, H * P,
+                                                             N))
+    dw = (x * U).sum(-1)
+    GCB = G * CB[..., None]
+    R = GCB * dtj
+    dacum = R.sum(3) - R.sum(2) - dw * w
+    last = (dw * w).sum(2) + ddecay * torch.exp(acum[:, :, -1, :])
+    dacum = torch.cat([dacum[:, :, :-1], dacum[:, :, -1:] + last[:, :, None]],
+                      dim=2)
+    da = torch.flip(torch.cumsum(torch.flip(dacum, (2,)), 2), (2,))
+    ddt = GCB.sum(2) + dw * dte + A * da
+    dA = (da * dt).sum((0, 1, 2))
+    return dx, ddt, dA, dB, dC
+
+
+def _gate_shares(ins, cots, mm=_mm3):
+    """Each gradient's largest error as a share of its scale (the card
+    gate passes at <= 1e-4), and the emulated gradients."""
+    got = _ssd_bwd_emulated(*ins, *cots, mm=mm)
+    want = ssd_chunk_bwd_ref(*ins, *cots)
+    dA_scale = ssd_dA_scale(*ins, *cots)
+    shares = {}
+    for name, g, w in zip(NAMES, got, want):
+        assert bool(torch.isfinite(g).all()), name
+        scale = (w.abs().amax(dim=SLICES[name], keepdim=True)
+                 if name in SLICES else dA_scale).clamp_min(1e-30)
+        shares[name] = float(((g - w).abs() / scale).max())
+    return shares, got
+
+
+@pytest.mark.parametrize("B,c,Q,H,P,N", CARD_SHAPES)
+def test_3xtf32_emulation_holds_the_card_gate(B, c, Q, H, P, N):
+    """The backward kernel's 3xTF32 arithmetic against the plain version
+    at the card test's shapes (its draws, numpy cotangents on y, state
+    and decay), under the card's gate: dx and ddt within 1e-4 of their
+    (b, c, h) slice's largest |plain|, dB and dC of their (b, c) slice's,
+    dA of the sum of its terms' magnitudes."""
+    lead = (B, c, Q)
+    ins = _t(*_inputs(lead, H, P, N, seed=B + c + Q + H))
+    cots = _t(*_cotangents(lead, H, P, N, seed=Q))
+    shares, _ = _gate_shares(ins, cots)
+    assert max(shares.values()) <= 1e-4, shares
+
+
+def test_3xtf32_emulation_steep_decay():
+    """dt near 0.1 and A near -16 at Q 256: acum falls by ~1.6 a row, so
+    exp above the diagonal would overflow; the emulated kernel stays
+    finite and within the card gate."""
+    rng = np.random.default_rng(7)
+    f = np.float32
+    lead, H, P, N = (1, 2, 256), 3, 64, 128
+    x = rng.standard_normal(lead + (H, P)).astype(f)
+    dt = rng.uniform(0.09, 0.11, lead + (H,)).astype(f)
+    A = (-rng.uniform(15.0, 16.0, H)).astype(f)
+    Bm = rng.standard_normal(lead + (N,)).astype(f)
+    Cm = rng.standard_normal(lead + (N,)).astype(f)
+    cots = _t(*_cotangents(lead, H, P, N, seed=7))
+    shares, _ = _gate_shares(_t(x, dt, A, Bm, Cm), cots)
+    assert max(shares.values()) <= 1e-4, shares
+
+
+def test_single_tf32_misses_the_card_gate():
+    """The contrast: one TF32 product per k-step (tf32(a).tf32(b)), at the
+    path's P and N, misses the gate that 3xTF32 holds."""
+    B, c, Q, H, P, N = 2, 1, 256, 5, 64, 128
+    lead = (B, c, Q)
+    ins = _t(*_inputs(lead, H, P, N, seed=B + c + Q + H))
+    cots = _t(*_cotangents(lead, H, P, N, seed=Q))
+    three, _ = _gate_shares(ins, cots)
+    one, _ = _gate_shares(ins, cots, mm=_mm1)
+    assert max(three.values()) <= 1e-4 < max(one.values()), (three, one)
