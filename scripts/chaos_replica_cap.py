@@ -4,7 +4,7 @@ rate leg do to its availability on one card, and time
 ``HostMonitor.update`` on this host.
 
     python3 scripts/chaos_replica_cap.py [--caps 64 16] [--repeats 3]
-        [--stub-rate-leg-caps 64] [--seed 0]
+        [--stub-rate-leg-caps 64] [--turns 1] [--seed 0]
     python3 scripts/chaos_replica_cap.py --host-monitor-only --src DIR
 
 The chaos pipeline is ``chip_smoke.chaos_runs`` (a paced source, a
@@ -13,7 +13,10 @@ seeded kills and a monitor-thread death, a ``ReplicaSupervisor``), run
 ``--repeats`` times at each replica cap in ``--caps``, and at each cap
 in ``--stub-rate-leg-caps`` once more per repeat with the supervisor's
 per-replica Algorithm-1 rate leg (``HostRateTracker.record_steps``)
-replaced by a no-op.  ``HostMonitor.update`` is timed on a seeded
+replaced by a no-op.  ``--turns 2`` measures each repeat as
+``chip_smoke.py``'s phase (e) does: fault-free, chaos, chaos,
+fault-free, the availability from the sums of the walls.
+``HostMonitor.update`` is timed on a seeded
 Poisson stream on the host clock; ``--src`` points at another tree's
 ``src`` (a ``git archive`` unpacked into a gitignored directory) to time
 its ``HostMonitor`` instead (only that, with ``--host-monitor-only``).
@@ -54,6 +57,7 @@ def main() -> int:
     ap.add_argument("--stub-rate-leg-caps", type=int, nargs="*",
                     default=[64])
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--host-monitor-only", action="store_true")
@@ -89,12 +93,12 @@ def main() -> int:
                 (lambda self, *a, **kw: None) if stub else real)
             try:
                 r = CS.chaos_runs(torch, K, CT, S, M, FT, dev, args.seed,
-                                  max_replicas=cap)
+                                  max_replicas=cap, turns=args.turns)
             finally:
                 FF.HostRateTracker.record_steps = real
             row = {"cap": cap, "rate_leg": not stub,
                    **{k: r[k] for k in ("availability", "recovery",
-                                        "t_base", "t_chaos", "peak",
+                                        "t_bases", "t_chaoses", "peak",
                                         "respawns", "unhandled")}}
             print(json.dumps(row), flush=True)
             runs.append(row)

@@ -8,15 +8,20 @@
 // backward is hand-written too.  From q (B,S,H,hd) and k, v (B,T,K,hd),
 // bf16 or float32, with the forward's o (B,S,H,hd) f32, the output
 // gradient dO (B,S,H,hd) f32 and the forward's lse (B,H,S) f32 (log2 of
-// sum_t 2^(scale log2(e) q.k_t)), it gives dq, dk and dv in float32:
+// sum_t 2^(log2(e) s'_t)), it gives dq, dk and dv in float32:
 //
-//   P  = 2^(scale log2(e) Q.K^T - lse)     (recomputed, never stored)
+//   s' = scale Q.K^T, or cap tanh(scale Q.K^T / cap) with a softcap
+//   P  = 2^(log2(e) s' - lse)              (recomputed, never stored)
 //   D  = rowsum(dO o)                      dP = dO.V^T
-//   dS = P (dP - D)                        dV = sum_g P^T.dO
+//   dS = P (dP - D) (1 - t^2)              dV = sum_g P^T.dO
 //   dQ = scale dS.K                        dK = scale sum_g dS^T.Q
 //
-// with query head h on kv head h / (H/K), causal aligned at the first
-// position or not, any S and T, hd 16, 32, 64 or 128.
+// with t = tanh(scale Q.K^T / cap) (t = 0 without a softcap), query head
+// h on kv head h / (H/K), causal aligned at the first position or not, a
+// sliding window (keys t <= q - window masked, as the forward masks
+// them), any S and T, hd 16, 32, 64, 112, 128 or 256.  The wrapper
+// refuses a window that leaves a row with no key (S >= T + window), as
+// the forward's does.
 //
 // What bounds it on the card: at the training path's shape (B 2, S = T
 // 4096, H 16, K 8, hd 128, bf16, causal) the five products over the
@@ -30,17 +35,23 @@
 // per block with the causal tail on a few SMs: 198 TFLOP/s of its own
 // products, 3.0x SDPA's backward).
 //
-// (p) flash_bwd_prep_kernel: D = rowsum(dO o) in float32 (a fixed
-//     butterfly over the row's lanes) and dO rounded to bf16, so that the
-//     main kernels can load bf16 dO by TMA; lse and D copied into rows
-//     padded to a multiple of ROW_PAD, rows past S holding lse = +inf and
-//     D = 0, so that a 64-row block of both is one TMA box of a 3-d map.
+// (p) flash_bwd_prep_kernel: D = rowsum(dO o) in float32 and dO rounded
+//     to bf16, so that the main kernels can load bf16 dO by TMA; lse and
+//     D copied into rows padded to a multiple of ROW_PAD, rows past S
+//     holding lse = +inf and D = 0, so that a 64-row block of both is one
+//     TMA box of a 3-d map.  A row takes L lanes, L the largest power of
+//     two that divides hd / 4, at most 32 (4 at hd 112, 32 at hd 128 and
+//     256): L divides the warp, so a row never straddles two warps, and
+//     the butterfly over its lanes never reaches the next row.  Each lane
+//     sums its float4 chunks p, p + L, ... in order before the butterfly,
+//     a fixed order: two calls give equal bits.
 // Both main kernels run NWG = 2 consumer warpgroups a CTA and a producer
 // warpgroup whose one working thread keeps a ring of TMA loads full
 // (mbarriers: full and empty per stage, full and empty for the resident
 // tiles).  384 threads a CTA get 168 registers a thread; the producer
 // gives its registers to the consumers (setmaxnreg: it keeps 24, each
-// consumer gets 240), which hold two 64 x hd float32 accumulators.
+// consumer gets 240), which hold two 64 x 128 float32 accumulators at
+// most.
 // (a) flash_bwd_dkdv_wgmma_kernel: a CTA owns 128 keys of one kv head at
 //     a time, 64 a consumer warpgroup, with K and V resident in shared
 //     memory, and walks the (query head of the group, q block) steps,
@@ -59,7 +70,7 @@
 //     exponentials a consumer would spill at hd 128.
 // (b) flash_bwd_dq_wgmma_kernel: a CTA owns 128 query rows of one head, 64
 //     a consumer warpgroup, Q and bf16 dO resident, and streams the K and
-//     V blocks up to the diagonal through a ring of DQ_STAGES stages: S =
+//     V blocks of its rows' keys through a ring of DQ_STAGES stages: S =
 //     Q.K^T and dP = dO.V^T (m64n64k16, shared memory), dQ += dS.K (A
 //     from registers, K MN-major), the dQ product left in flight while the
 //     next step's S and dP run.
@@ -78,25 +89,71 @@
 // ragged last one leading), dealt out in a snake (CTA c takes tile c of
 // the first round, grid - 1 - c of the second, ...), so the causal tail
 // is spread over the card and each CTA's work stays near the mean.
-// Which SM takes a tile does not change its result.
+// Which SM takes a tile does not change its result.  Under a window a
+// tile's work is capped: (a) walks a key block's q blocks only up to the
+// one that holds its last key + window - 1, (b) starts at the key block
+// that holds q0 - window + 1 (the forward's first_tile); causal (the
+// training paths), both lists stay longest first in the same order (a
+// key block's work is constant, then falls; a q block's rises, then is
+// constant).
+//
+// The softcap and the window (CW, a template flag, as in the forward): a
+// call with neither runs CW = false, where both are compiled out, with
+// the registers and the time of a kernel without them.  With a softcap
+// the scores are s' = cap tanh(scale s / cap) in the forward's arithmetic
+// (the accurate tanhf, in the log2 domain: cap log2(e) tanh(...)), so that
+// P matches the forward's lse, and dS takes the factor 1 - t^2.  Keeping
+// t beside the dP^T accumulators would cost 32 registers more in (a), and
+// at hd 128 those accumulators are issued late precisely so as not to
+// spill; instead (a) packs bf16(P) for the dV product and then overwrites
+// P^T's float32 registers with P (1 - t^2) in the same loop, so that dS^T
+// = P^T (1 - t^2) (dP^T - D) needs no register more than without a cap;
+// (b) needs P only inside dS and keeps P (1 - t^2) from the start.  Keys
+// at or before q - window are masked on the tiles that cross the window's
+// left edge, as the diagonal and T-tail tiles are.
+//
+// hd 112 (zamba2's shared attention) runs on the 128-wide geometry, as
+// the forward does: the tensor maps keep the tensors' 112 columns, so the
+// TMA zero-fills columns 112-127 of Q, K, V and bf16 dO; S^T, dP^T, S and
+// dP contract over the 7 k-steps that hold data; the dV, dK and dQ
+// products run at n = 128 (their columns 112-127 are zeros); the
+// epilogues store 112 columns.
+//
+// hd 256 (gemma2): two 64 x 256 float32 accumulators a warpgroup would be
+// 256 registers a thread, and 128 resident rows with two stages would not
+// fit shared memory.  So a CTA owns 64 keys ((a)) or 64 query rows ((b)),
+// and its two consumer warpgroups split the accumulators' head dims, 128
+// columns each: each warpgroup computes the whole S^T and dP^T (S and dP
+// in (b)), contracted over 256, for itself, and its dV, dK (dQ) products
+// run at n = 128 over its half of dO, Q (K).  A consumer then holds two
+// 64 x 128 accumulators and two 64 x 64, the register profile of hd 128,
+// and the warpgroups exchange nothing.  The cost is the duplicated S^T
+// and dP^T: 1.5x the products of (a) and (b).  Shared memory: the two
+// resident 64-row tiles (64 KiB) and two stages of two 64-row tiles (128
+// KiB) in both kernels, (b) with two stages, not DQ_STAGES.
 //
 // Rounding: dO, P and dS are rounded to bf16 for their products, as the
 // JAX package's bf16 compute rounds them; every sum is float32.  Masks:
 // TMA fills rows past S or T with zeros, which would give P = 2^-lse for
-// a zero key, so keys past T, rows past S and the causal upper triangle
-// are masked explicitly on the tiles that cross them; rows past S also
-// read the padded lse = +inf, and rows with no unmasked key carry lse =
-// +inf from the forward, so they give P = 0, never NaN.
+// a zero key, so keys past T, rows past S, the causal upper triangle and
+// the keys left of the window are masked explicitly on the tiles that
+// cross them; rows past S also read the padded lse = +inf, and rows with
+// no unmasked key carry lse = +inf from the forward, so they give P = 0,
+// never NaN.
 //
 // float32 inputs: the CUDA cores in float32 FMAs (67 TFLOP/s peak), which
-// hold the float32 gate; two kernels, (b) then (a), one CTA per 64-row
-// block, 256 threads, every tile in shared memory with odd row strides,
-// each thread owning 4 x 4 of a 64 x 64 product and 4 x hd/16 of a 64 x hd
-// one.
+// hold the float32 gate; two kernels, (b) then (a), one CTA per block of
+// BR rows (64, or 32 at hd 256, where four 64-row tiles of 257 floats a
+// row would not fit shared memory), 256 threads, every tile in shared
+// memory with odd row strides, each thread owning (BR/16) x (BR/16) of a
+// BR x BR product and BR/16 x hd/16 of a BR x hd one.  The softcap and
+// the window as in the bf16 kernels (CW; the factor 1 - t^2 on dS).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma (shared with the forward)
 
@@ -108,6 +165,27 @@ constexpr float kLog2e = 1.4426950408889634f;
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+// scores -> log2 domain with a softcap: cap log2(e) tanh(scale s / cap)
+// (cap_in = scale / cap, cap_out = cap log2(e)); cap_out = 0 means none
+// (then s scale log2(e))
+struct Scaling {
+  float cap_in, cap_out;
+};
+
+// log2(e) s' - m for a raw score s: with a softcap t = tanh(scale s /
+// cap) (the forward's accurate tanhf), else t = 0 and s scale log2(e)
+// (sl2 = scale log2(e)) in the same fmaf as without CW
+template <bool CW>
+__device__ __forceinline__ float score2(float s, float m, float sl2,
+                                        const Scaling& sg, float& t) {
+  if (CW && sg.cap_out != 0.f) {
+    t = tanhf(s * sg.cap_in);
+    return fmaf(sg.cap_out, t, -m);
+  }
+  t = 0.f;
+  return fmaf(s, sl2, -m);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA (see the note at the top)
@@ -127,34 +205,77 @@ constexpr int ROW_PAD = 128;  // lse/D rows padded to this
 static_assert((168 - PRODUCER_REGS) * 128 >= (CONSUMER_REGS - 168) * 128 * NWG,
               "the producer frees the registers the consumers take");
 
-template <int HD, int ST>
+// the head dims the tiles hold: HD, or 128 for hd 112 (TMA zero-fills
+// columns 112-127)
+template <int HD>
+constexpr int padded() {
+  return HD <= 64 ? HD : (HD + 63) / 64 * 64;
+}
+
+// SPLIT: the warpgroups split the accumulators' columns and share the
+// CTA's 64 rows, else each owns 64 rows of every column; by default above
+// 128 head dims (see the note)
+template <int HD, int ST, bool SPLIT_ = (padded<HD>() > 128)>
 struct Geo {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle bytes
+  static constexpr int HDP = padded<HD>();
+  static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle bytes
   static constexpr int PC = SW / 2;       // head dims per panel (a row of
-  static constexpr int NP = HD / PC;      // SW bytes); panels per row
+  static constexpr int NP = HDP / PC;     // SW bytes); panels per row
+  static constexpr bool SPLIT = SPLIT_;
+  static constexpr int HA = SPLIT ? HDP / NWG : HDP;  // a warpgroup's columns
   static constexpr int NT = 128 * (NWG + 1);  // consumers, then producer
-  static constexpr int RES = 64 * NWG;        // rows of a resident tile
-  static constexpr uint32_t TILE = BM * HD * 2;       // a streamed tile
-  static constexpr uint32_t RES_TILE = RES * HD * 2;  // a resident tile
+  static constexpr int RES = SPLIT ? BM : BM * NWG;  // rows of a resident tile
+  static constexpr uint32_t TILE = BM * HDP * 2;       // a streamed tile
+  static constexpr uint32_t RES_TILE = RES * HDP * 2;  // a resident tile
   static constexpr uint32_t ROWS = 2 * BM * 4;  // a stage's lse and D
   // 1024 bytes of alignment slack, two resident tiles, ST x (two streamed
   // tiles, lse and D), the mbarriers (full and empty per stage, resident
   // full and empty)
   static constexpr int SMEM =
       1024 + 2 * RES_TILE + ST * (2 * TILE + ROWS) + 8 * (2 * ST + 2);
-  static_assert(HD % 16 == 0 && HD <= 128 && NP * PC == HD, "head dim");
+  static_assert(HD % 16 == 0 && HA <= 128 && NP * PC == HDP, "head dim");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
+// (a) with the softcap and the window (CW) splits the columns from 112
+// head dims on: its consumers hold the cap's and the window's state
+// beside two 64 x 128 accumulators, which spills (see the note)
+template <int HD, bool CW>
+using GeoA = Geo<HD, DKDV_STAGES, (padded<HD>() > 128 ||
+                                   (CW && padded<HD>() == 128))>;
+// (b) at hd 256 in two stages: three do not fit
 template <int HD>
-using GeoA = Geo<HD, DKDV_STAGES>;
-template <int HD>
-using GeoB = Geo<HD, DQ_STAGES>;
+using GeoB = Geo<HD, (HD > 128 ? 2 : DQ_STAGES)>;
 
-// dynamic shared memory of an instance: the larger of (a)'s and (b)'s
+// the producer's and each consumer's registers after setmaxnreg in (a):
+// with CW the producer keeps 40 (its window bounds), the consumers 232
+template <bool CW>
+__host__ __device__ constexpr int producer_regs() {
+  return CW ? 40 : PRODUCER_REGS;
+}
+template <bool CW>
+__host__ __device__ constexpr int consumer_regs() {
+  return CW ? 232 : CONSUMER_REGS;
+}
+static_assert((168 - producer_regs<true>()) * 128 >=
+                  (consumer_regs<true>() - 168) * 128 * NWG,
+              "the producer frees the registers the consumers take");
+
+constexpr int max3(int a, int b, int c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// dynamic shared memory of an instance: the largest of (a)'s (with and
+// without CW) and (b)'s
 template <int HD>
 constexpr int smem_bytes() {
-  return GeoA<HD>::SMEM > GeoB<HD>::SMEM ? GeoA<HD>::SMEM : GeoB<HD>::SMEM;
+  return max3(GeoA<HD, false>::SMEM, GeoA<HD, true>::SMEM, GeoB<HD>::SMEM);
+}
+
+// (p)'s lanes a row: the largest power of two dividing HD / 4, at most 32
+template <int HD>
+__host__ __device__ constexpr int prep_lanes() {
+  return ((HD / 4) & -(HD / 4)) < 32 ? ((HD / 4) & -(HD / 4)) : 32;
 }
 
 // 2^x (the MUFU's approximation, as exp2f; results below 2^-126 flush
@@ -246,8 +367,9 @@ __device__ __forceinline__ uint64_t kstep(uint32_t tile, int rows, int row0,
                        row0 * G::SW + (kk * 16) % G::PC * 2);
 }
 
-// d = A.B^T over hd: A rows row0.. of the `rows`-row tile at `ta`, B the
-// 64-row streamed tile at `tb`, both K-major; issued, not committed
+// d = A.B^T over the HD head dims that hold data: A rows row0.. of the
+// `rows`-row tile at `ta`, B the 64-row streamed tile at `tb`, both
+// K-major; issued, not committed
 template <class G, int HD>
 __device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t ta,
                                          int rows, int row0, uint32_t tb) {
@@ -259,7 +381,7 @@ __device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t ta,
 
 // d += A.B over 64 rows of B: A 64 x 64 bf16 pairs in registers (pairs
 // 4 kk .. 4 kk + 3 the fragment of k-step kk), B the 64-row streamed tile
-// at `tb`, MN-major; issued, not committed
+// at `tb` (from its first column on), MN-major; issued, not committed
 template <class G, int N>
 __device__ __forceinline__ void issue_nn(float (&d)[N], const uint32_t (&a)[16],
                                          uint32_t tb) {
@@ -269,9 +391,10 @@ __device__ __forceinline__ void issue_nn(float (&d)[N], const uint32_t (&a)[16],
              desc_mn<G::SW>(tb + kk * 16 * G::SW, BM * G::SW));
 }
 
-// (p) D = rowsum(dO o) and bf16(dO); lse and D into padded rows.  HD / 4
-// lanes a row, each over 4 head dims, then a butterfly over the lanes.
-// Rows are (b, h, s) with s < S_pad; s >= S writes the padding.
+// (p) D = rowsum(dO o) and bf16(dO); lse and D into padded rows.  L =
+// prep_lanes lanes a row, each over the float4 chunks part, part + L, ...
+// in order, then a butterfly over the lanes.  Rows are (b, h, s) with s <
+// S_pad; s >= S writes the padding.
 template <int HD>
 __global__ void __launch_bounds__(256)
     flash_bwd_prep_kernel(const float* __restrict__ o,
@@ -279,7 +402,9 @@ __global__ void __launch_bounds__(256)
                           const float* __restrict__ lse,
                           bf16* __restrict__ dob, float* __restrict__ rows,
                           int B, int S, int H, int S_pad) {
-  constexpr int L = HD / 4;
+  constexpr int L = prep_lanes<HD>();
+  constexpr int NC = HD / 4 / L;  // chunks a lane
+  static_assert(32 % L == 0 && NC * L * 4 == HD, "lane map");
   const int part = threadIdx.x % L;
   const long long total = (long long)B * H * S_pad;
   const long long vr =
@@ -290,15 +415,19 @@ __global__ void __launch_bounds__(256)
   const bool in = vr < total && s < S;
   float acc = 0.f;
   if (in) {
-    const size_t off = (((size_t)b * S + s) * H + h) * HD + part * 4;
-    const float4 g = *reinterpret_cast<const float4*>(dout + off);
-    const float4 y = *reinterpret_cast<const float4*>(o + off);
-    acc = fmaf(g.x, y.x, acc);
-    acc = fmaf(g.y, y.y, acc);
-    acc = fmaf(g.z, y.z, acc);
-    acc = fmaf(g.w, y.w, acc);
-    *reinterpret_cast<uint2*>(dob + off) =
-        make_uint2(pack(g.x, g.y), pack(g.z, g.w));
+    const size_t row = (((size_t)b * S + s) * H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const size_t off = row + (part + L * c) * 4;
+      const float4 g = *reinterpret_cast<const float4*>(dout + off);
+      const float4 y = *reinterpret_cast<const float4*>(o + off);
+      acc = fmaf(g.x, y.x, acc);
+      acc = fmaf(g.y, y.y, acc);
+      acc = fmaf(g.z, y.z, acc);
+      acc = fmaf(g.w, y.w, acc);
+      *reinterpret_cast<uint2*>(dob + off) =
+          make_uint2(pack(g.x, g.y), pack(g.z, g.w));
+    }
   }
 #pragma unroll
   for (int m = L / 2; m >= 1; m /= 2)
@@ -309,11 +438,31 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// (a)'s q blocks [lo, hi) of the key block starting at key k0: from the
+// diagonal (causal) and, under a window, up to the one that holds the
+// block's last key + window - 1
+template <class G, bool CW>
+__device__ __forceinline__ int2 q_range(int k0, int n_qb, int causal,
+                                        int window) {
+  const int lo = causal ? min(k0 / BM, n_qb) : 0;
+  const int hi = CW && window > 0
+                     ? min(n_qb, (k0 + G::RES - 1 + window - 1) / BM + 1)
+                     : n_qb;
+  return make_int2(lo, hi);
+}
+
+// (b)'s first key block for the rows starting at q0: the one that holds
+// q0 - window + 1 (0 without a window)
+template <bool CW>
+__device__ __forceinline__ int first_kv(int q0, int window) {
+  return CW && window > 0 ? max(q0 - window + 1, 0) / BM : 0;
+}
+
 // (a) dK and dV.  Tiles: key blocks of RES keys x kv heads x batch, key
 // block outermost (longest first).  Steps of a tile: (query head gi, q
-// block) for the q blocks from the diagonal on, q blocks innermost.
-template <int HD, int ST>
-__global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
+// block) for the q blocks of q_range, q blocks innermost.
+template <int HD, bool CW>
+__global__ void __launch_bounds__(GeoA<HD, CW>::NT, 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
@@ -321,9 +470,12 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
                                 const __grid_constant__ CUtensorMap trows,
                                 float* __restrict__ dk,
                                 float* __restrict__ dv, int B, int S, int Tn,
-                                int H, int KH, int causal, float scale) {
-  using G = Geo<HD, ST>;
+                                int H, int KH, int causal, float scale,
+                                Scaling sg, int window) {
+  using G = GeoA<HD, CW>;
+  constexpr int ST = DKDV_STAGES;
   constexpr int SW = G::SW, PC = G::PC, NP = G::NP, RES = G::RES;
+  constexpr int HA = G::HA;
   extern __shared__ __align__(128) unsigned char bwd_smem[];
   const Smem<G, ST> sm(bwd_smem);
   const int tid = threadIdx.x;
@@ -331,18 +483,24 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
 
   const int GH = H / KH;
   const int n_qb = (S + BM - 1) / BM;
-  const int n_tiles = (Tn + RES - 1) / RES * KH * B;
+  const int n_kb = (Tn + RES - 1) / RES;
+  const int n_tiles = n_kb * KH * B;
 
   if (tid >= 128 * NWG) {
     // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        producer_regs<CW>()));
     if (tid == 128 * NWG) {
       int it = 0, nt = 0;
       for (int i = 0, t; (t = tile_of(blockIdx.x, i, gridDim.x, n_tiles)) >= 0;
            ++i) {
         const int kb = t / (KH * B), kh = t % KH, b = t / KH % B;
-        const int q_first = causal ? kb * RES / BM * BM : 0;
+        // q_range's rows, bounded by the kernel's arguments where it can
+        // (24 registers): from the diagonal (causal) up to S and, under a
+        // window, up to the block's last key + window - 1
+        const int q_first = causal ? kb * RES : 0;
         if (q_first >= S) continue;
+        const int q_last = CW && window > 0 ? kb * RES + RES + window - 2 : S;
         mbar_wait(sm.res_empty(), (nt++ & 1) ^ 1);
         mbar_expect_tx(sm.res_full(), 2 * G::RES_TILE);
         for (int p = 0; p < NP; ++p) {
@@ -352,7 +510,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
                    kb * RES, b);
         }
         for (int h = kh * GH; h < kh * GH + GH; ++h)
-          for (int q0 = q_first; q0 < S; q0 += BM, ++it) {
+          for (int q0 = q_first; q0 < S && q0 <= q_last; q0 += BM, ++it) {
             const int s = it % ST;
             mbar_wait(sm.empty(s), ((it / ST) & 1) ^ 1);  // 1st pass: free
             mbar_expect_tx(sm.full(s), 2 * G::TILE + G::ROWS);
@@ -371,27 +529,32 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
     return;
   }
 
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each tile; a
-  // thread holds accumulator rows (keys) r0 and r0 + 8, columns 8 j + cq
-  // and + 1 (element 4 j + 2 r + e: row r0 + 8 r, column 8 j + cq + e).
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each tile
+  // (split: keys k0 .. + 63, columns HA wg .. + HA - 1); a thread holds
+  // accumulator rows (keys) r0 and r0 + 8, columns 8 j + cq and + 1
+  // (element 4 j + 2 r + e: row r0 + 8 r, column 8 j + cq + e).
   // Software-pipelined: step i's dK product is left in flight while step
   // i + 1's S^T is issued; step i's stage is released once that product
   // is done.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      consumer_regs<CW>()));
   const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int rw = G::SPLIT ? 0 : 64 * wg;  // the warpgroup's first row
+  const int c0 = G::SPLIT ? HA * wg : 0;  // and first column
+  const uint32_t cofs = (uint32_t)(c0 / PC) * BM * SW;  // its panel
   const float sl2 = scale * kLog2e;
-  float adk[HD / 2], adv[HD / 2], st[32], dpt[32];
+  float adk[HA / 2], adv[HA / 2], st[32], dpt[32];
   uint32_t pa[16];  // P^T, then dS^T, as bf16 pairs
   int it = 0, nt = 0;
   for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
        ++ti) {
     const int kb = t / (KH * B), kh = t % KH, b = t / KH % B;
-    const int k0 = kb * RES, kw0 = k0 + 64 * wg;
-    const int qlo = causal ? min(k0 / BM, n_qb) : 0;
-    const int nq = n_qb - qlo;
+    const int k0 = kb * RES, kw0 = k0 + rw;
+    const int2 qr = q_range<G, CW>(k0, n_qb, causal, window);
+    const int qlo = qr.x, nq = qr.y - qr.x;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+    for (int i = 0; i < HA / 2; ++i) adk[i] = adv[i] = 0.f;
     if (nq > 0) {
       mbar_wait(sm.res_full(), nt & 1);
       ++nt;
@@ -400,7 +563,8 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
         const int q0 = (qlo + i % nq) * BM;
         const int s = it % ST;
         mbar_wait(sm.full(s), (it / ST) & 1);
-        if (kw0 >= Tn || (causal && kw0 > q0 + BM - 1)) {
+        if (kw0 >= Tn || (causal && kw0 > q0 + BM - 1) ||
+            (CW && window > 0 && q0 >= kw0 + 63 + window)) {
           // no pair of this warpgroup's: free the stage, and the one the
           // product in flight reads (the next live step may reuse it)
           if (held >= 0) {
@@ -419,7 +583,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
         reg_fence(st);
         reg_fence(dpt);
         wg_fence();
-        issue_nt<G, HD>(st, kres, RES, 64 * wg, qs);   // S^T = K.Q^T
+        issue_nt<G, HD>(st, kres, RES, rw, qs);   // S^T = K.Q^T
         wg_commit();
         wg_wait<0>();  // the last dK product and S^T are in
         reg_fence(st);
@@ -427,29 +591,54 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
         reg_fence(pa);
         if (held >= 0) release(sm.empty(held), lane);
         const bool edge = (causal && kw0 + 63 > q0) || kw0 + 64 > Tn ||
-                          q0 + BM > S;
+                          q0 + BM > S ||
+                          (CW && window > 0 && q0 + BM - 1 - kw0 >= window);
         float2 l;  // the lse of columns 8 j + cq, + 1
+        if constexpr (CW) {
+          // P for dV's product, then P (1 - t^2) in P^T's registers
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int col = 8 * (e >> 2) + cq + (e & 1);  // query q0 + col
-          if ((e & 3) == 0) l = lds2(lse_s + 4 * (col - (e & 1)));
-          float p = ex2(fmaf(st[e], sl2, -((e & 1) ? l.y : l.x)));
-          if (edge) {
-            const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr = q0 + col;
-            if (key >= Tn || qr >= S || (causal && key > qr)) p = 0.f;
+          for (int j = 0; j < 16; ++j) {
+            float p[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int e = 2 * j + u;
+              const int col = 8 * (e >> 2) + cq + u;  // query q0 + col
+              if ((e & 3) == 0) l = lds2(lse_s + 4 * col);
+              float tt;
+              p[u] = ex2(score2<CW>(st[e], u ? l.y : l.x, sl2, sg, tt));
+              if (edge) {
+                const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr_ = q0 + col;
+                if (key >= Tn || qr_ >= S || (causal && key > qr_) ||
+                    (window > 0 && key <= qr_ - window))
+                  p[u] = 0.f;
+              }
+              st[e] = p[u] * (1.f - tt * tt);
+            }
+            pa[j] = pack(p[0], p[1]);
           }
-          st[e] = p;
-        }
+        } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) pa[j] = pack(st[2 * j], st[2 * j + 1]);
+          for (int e = 0; e < 32; ++e) {
+            const int col = 8 * (e >> 2) + cq + (e & 1);  // query q0 + col
+            if ((e & 3) == 0) l = lds2(lse_s + 4 * (col - (e & 1)));
+            float p = ex2(fmaf(st[e], sl2, -((e & 1) ? l.y : l.x)));
+            if (edge) {
+              const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr_ = q0 + col;
+              if (key >= Tn || qr_ >= S || (causal && key > qr_)) p = 0.f;
+            }
+            st[e] = p;
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j) pa[j] = pack(st[2 * j], st[2 * j + 1]);
+        }
         reg_fence(pa);
         reg_fence(adv);
         wg_fence();
         // dV += P^T.dO, then dP^T = V.dO^T (issued only now: live beside
         // P^T's registers, its 32 accumulators would spill at hd 128)
-        issue_nn<G>(adv, pa, dos);
+        issue_nn<G>(adv, pa, dos + cofs);
         wg_commit();
-        issue_nt<G, HD>(dpt, vres, RES, 64 * wg, dos);
+        issue_nt<G, HD>(dpt, vres, RES, rw, dos);
         wg_commit();
         wg_wait<0>();
         reg_fence(adv);
@@ -467,7 +656,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
         reg_fence(pa);
         reg_fence(adk);
         wg_fence();
-        issue_nn<G>(adk, pa, qs);  // dK += dS^T.Q, left in flight
+        issue_nn<G>(adk, pa, qs + cofs);  // dK += dS^T.Q, left in flight
         wg_commit();
         held = s;
       }
@@ -476,14 +665,16 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
       if (held >= 0) release(sm.empty(held), lane);
       release(sm.res_empty(), lane);
     }
-    // dK = scale acc, dV = acc, keys past T dropped
+    // dK = scale acc, dV = acc, keys past T and columns past HD dropped
+    constexpr int NJ = (G::SPLIT ? HA : HD) / 8;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = kw0 + r0 + 8 * r;
       if (key >= Tn) continue;
-      const size_t off = (((size_t)b * Tn + key) * KH + kh) * HD + cq;
+      const size_t off = (((size_t)b * Tn + key) * KH + kh) * HD + c0 + cq;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
+        if (G::SPLIT && HD < G::HDP && c0 + 8 * j >= HD) continue;
         *reinterpret_cast<float2*>(dk + off + 8 * j) = make_float2(
             adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
         *reinterpret_cast<float2*>(dv + off + 8 * j) =
@@ -495,9 +686,9 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
 
 // (b) dQ.  Tiles: q blocks of RES rows x heads x batch, q block outermost
 // in descending order (longest first).  Steps: the key blocks of 64 from
-// 0 to the diagonal (causal) or to T.
-template <int HD, int ST>
-__global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
+// first_kv to the diagonal (causal) or to T.
+template <int HD, bool CW>
+__global__ void __launch_bounds__(GeoB<HD>::NT, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
@@ -505,9 +696,11 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
                               const float* __restrict__ rows,
                               float* __restrict__ dq, int B, int S, int Tn,
                               int H, int KH, int S_pad, int causal,
-                              float scale) {
-  using G = Geo<HD, ST>;
+                              float scale, Scaling sg, int window) {
+  using G = GeoB<HD>;
+  constexpr int ST = HD > 128 ? 2 : DQ_STAGES;
   constexpr int SW = G::SW, PC = G::PC, NP = G::NP, RES = G::RES;
+  constexpr int HA = G::HA;
   extern __shared__ __align__(128) unsigned char bwd_smem[];
   const Smem<G, ST> sm(bwd_smem);
   const int tid = threadIdx.x;
@@ -516,7 +709,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
   const int GH = H / KH;
   const int n_rb = (S + RES - 1) / RES;
   const int n_tiles = n_rb * H * B;
-  // key blocks of the tile whose rows start at q0
+  // key blocks of the tile whose rows start at q0: [first_kv, n_kv)
   const auto n_kv = [&](int q0) {
     const int end = causal ? min(q0 + RES, Tn) : Tn;
     return (end + BM - 1) / BM;
@@ -539,7 +732,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
                    b);
         }
         const int nk = n_kv(q0);
-        for (int j = 0; j < nk; ++j, ++it) {
+        for (int j = first_kv<CW>(q0, window); j < nk; ++j, ++it) {
           const int s = it % ST;
           mbar_wait(sm.empty(s), ((it / ST) & 1) ^ 1);
           mbar_expect_tx(sm.full(s), 2 * G::TILE);
@@ -555,20 +748,24 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
     return;
   }
 
-  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; a thread holds
-  // rows r0, r0 + 8 of them (accumulator layout as in (a)).  Pipelined as
-  // (a): step j's dQ product runs while step j + 1's S and dP are issued.
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 (split: rows q0
+  // .. + 63, columns HA wg ..); a thread holds rows r0, r0 + 8 of them
+  // (accumulator layout as in (a)).  Pipelined as (a): step j's dQ
+  // product runs while step j + 1's S and dP are issued.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
   const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int rw = G::SPLIT ? 0 : 64 * wg;  // the warpgroup's first row
+  const int c0 = G::SPLIT ? HA * wg : 0;  // and first column
+  const uint32_t cofs = (uint32_t)(c0 / PC) * BM * SW;  // its panel
   const float sl2 = scale * kLog2e;
   const size_t plane = (size_t)B * H * S_pad;
-  float adq[HD / 2], sc[32], dp[32];
+  float adq[HA / 2], sc[32], dp[32];
   uint32_t da[16];
   int it = 0, nt = 0;
   for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
        ++ti, ++nt) {
-    const int q0 = (n_rb - 1 - t / (H * B)) * RES, qw0 = q0 + 64 * wg;
+    const int q0 = (n_rb - 1 - t / (H * B)) * RES, qw0 = q0 + rw;
     const int h = t % H, b = t / H % B;
     // the rows' lse and D (padded: rows past S read +inf and 0)
     float lse_r[2], del_r[2];
@@ -579,15 +776,16 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
       del_r[r] = rows[plane + at];
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) adq[i] = 0.f;
+    for (int i = 0; i < HA / 2; ++i) adq[i] = 0.f;
     mbar_wait(sm.res_full(), nt & 1);
     const int nk = n_kv(q0);
     int held = -1;  // the stage the dQ product in flight reads
-    for (int j = 0; j < nk; ++j, ++it) {
+    for (int j = first_kv<CW>(q0, window); j < nk; ++j, ++it) {
       const int t0 = j * BM;
       const int s = it % ST;
       mbar_wait(sm.full(s), (it / ST) & 1);
-      if (qw0 >= S || (causal && t0 > qw0 + 63)) {
+      if (qw0 >= S || (causal && t0 > qw0 + 63) ||
+          (CW && window > 0 && t0 + 63 + window <= qw0)) {
         if (held >= 0) {  // as in (a)
           wg_wait<0>();
           reg_fence(adq);
@@ -602,9 +800,9 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
       reg_fence(sc);
       reg_fence(dp);
       wg_fence();
-      issue_nt<G, HD>(sc, qres, RES, 64 * wg, ks);  // S = Q.K^T
+      issue_nt<G, HD>(sc, qres, RES, rw, ks);  // S = Q.K^T
       wg_commit();
-      issue_nt<G, HD>(dp, dores, RES, 64 * wg, vs);  // dP = dO.V^T
+      issue_nt<G, HD>(dp, dores, RES, rw, vs);  // dP = dO.V^T
       wg_commit();
       wg_wait<1>();  // the last dQ product and S are in
       reg_fence(sc);
@@ -612,17 +810,21 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
       reg_fence(da);
       if (held >= 0) release(sm.empty(held), lane);
       const bool edge = (causal && t0 + 63 > qw0) || t0 + BM > Tn ||
-                        qw0 + 64 > S;
+                        qw0 + 64 > S ||
+                        (CW && window > 0 && qw0 + 63 - t0 >= window);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int rr = (e >> 1) & 1;
-        float p = ex2(fmaf(sc[e], sl2, -lse_r[rr]));
+        float tt;
+        float p = ex2(score2<CW>(sc[e], lse_r[rr], sl2, sg, tt));
         if (edge) {
           const int key = t0 + 8 * (e >> 2) + cq + (e & 1);
           const int row = qw0 + r0 + 8 * rr;
-          if (key >= Tn || row >= S || (causal && key > row)) p = 0.f;
+          if (key >= Tn || row >= S || (causal && key > row) ||
+              (CW && window > 0 && key <= row - window))
+            p = 0.f;
         }
-        sc[e] = p;
+        sc[e] = CW ? p * (1.f - tt * tt) : p;  // P (1 - t^2)
       }
       wg_wait<0>();
       reg_fence(dp);
@@ -633,7 +835,7 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
       reg_fence(da);
       reg_fence(adq);
       wg_fence();
-      issue_nn<G>(adq, da, ks);  // dQ += dS.K, left in flight
+      issue_nn<G>(adq, da, ks + cofs);  // dQ += dS.K, left in flight
       wg_commit();
       held = s;
     }
@@ -641,14 +843,15 @@ __global__ void __launch_bounds__(Geo<HD, ST>::NT, 1)
     reg_fence(adq);
     if (held >= 0) release(sm.empty(held), lane);
     release(sm.res_empty(), lane);
-    // dQ = scale acc, rows past S dropped
+    // dQ = scale acc, rows past S and columns past HD dropped
+    constexpr int NJ = (G::SPLIT ? HA : HD) / 8;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = qw0 + r0 + 8 * r;
       if (row >= S) continue;
-      float* dst = dq + (((size_t)b * S + row) * H + h) * HD + cq;
+      float* dst = dq + (((size_t)b * S + row) * H + h) * HD + c0 + cq;
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj)
+      for (int jj = 0; jj < NJ; ++jj)
         *reinterpret_cast<float2*>(dst + 8 * jj) = make_float2(
             adq[4 * jj + 2 * r] * scale, adq[4 * jj + 2 * r + 1] * scale);
     }
@@ -682,16 +885,44 @@ int persistent_grid(K kernel, int tiles, int* grid) {
   return 0;
 }
 
+// (a) then (b), the instances for CW
+template <int HD, bool CW>
+int launch_main(const CUtensorMap (&m)[8], const CUtensorMap& ra,
+                const float* rows, void* dq, void* dk, void* dv, int B, int S,
+                int Tn, int H, int KH, int S_pad, int causal, float scale,
+                Scaling sg, int window, cudaStream_t st) {
+  using GA = GeoA<HD, CW>;
+  using GB = GeoB<HD>;
+  const auto ka_fn = flash_bwd_dkdv_wgmma_kernel<HD, CW>;
+  const auto kb_fn = flash_bwd_dq_wgmma_kernel<HD, CW>;
+  int grid = 0;
+  int rc = persistent_grid<GA>(ka_fn, (Tn + GA::RES - 1) / GA::RES * KH * B,
+                               &grid);
+  if (rc != 0) return rc;
+  ka_fn<<<grid, GA::NT, GA::SMEM, st>>>(
+      m[0], m[2], m[3], m[1], ra, static_cast<float*>(dk),
+      static_cast<float*>(dv), B, S, Tn, H, KH, causal, scale, sg, window);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rc = persistent_grid<GB>(kb_fn, (S + GB::RES - 1) / GB::RES * H * B, &grid);
+  if (rc != 0) return rc;
+  kb_fn<<<grid, GB::NT, GB::SMEM, st>>>(m[4], m[6], m[7], m[5], rows,
+                                        static_cast<float*>(dq), B, S, Tn, H,
+                                        KH, S_pad, causal, scale, sg, window);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* rows, void* dob, int B, int S, int Tn, int H, int KH,
-           int causal, float scale, cudaStream_t st) {
-  using GA = GeoA<HD>;
+           int causal, float scale, float softcap, int window,
+           cudaStream_t st) {
   using GB = GeoB<HD>;
-  constexpr int SW = GA::SW;
+  constexpr int SW = GB::SW;
   const int S_pad = (S + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
-  const long long prep_threads = (long long)B * H * S_pad * (HD / 4);
+  const long long prep_threads =
+      (long long)B * H * S_pad * prep_lanes<HD>();
   flash_bwd_prep_kernel<HD><<<(unsigned)((prep_threads + 255) / 256), 256, 0,
                               st>>>(
       static_cast<const float*>(o), static_cast<const float*>(dout),
@@ -700,39 +931,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  CUtensorMap qa, ka, va, da, qb, kb, vb, db;
-  if (!encode_map<HD, SW>(&qa, q, B, S, H, BM) ||
-      !encode_map<HD, SW>(&da, dob, B, S, H, BM) ||
-      !encode_map<HD, SW>(&ka, k, B, Tn, KH, GA::RES) ||
-      !encode_map<HD, SW>(&va, v, B, Tn, KH, GA::RES) ||
-      !encode_map<HD, SW>(&qb, q, B, S, H, GB::RES) ||
-      !encode_map<HD, SW>(&db, dob, B, S, H, GB::RES) ||
-      !encode_map<HD, SW>(&kb, k, B, Tn, KH, BM) ||
-      !encode_map<HD, SW>(&vb, v, B, Tn, KH, BM))
+  // (a)'s q, dO, k, v and (b)'s; the maps hold the tensors' HD columns,
+  // so a box past them reads zeros (hd 112)
+  const int res_a = softcap > 0.f || window > 0 ? GeoA<HD, true>::RES
+                                                : GeoA<HD, false>::RES;
+  CUtensorMap m[8];
+  if (!encode_map<HD, SW>(&m[0], q, B, S, H, BM) ||
+      !encode_map<HD, SW>(&m[1], dob, B, S, H, BM) ||
+      !encode_map<HD, SW>(&m[2], k, B, Tn, KH, res_a) ||
+      !encode_map<HD, SW>(&m[3], v, B, Tn, KH, res_a) ||
+      !encode_map<HD, SW>(&m[4], q, B, S, H, GB::RES) ||
+      !encode_map<HD, SW>(&m[5], dob, B, S, H, GB::RES) ||
+      !encode_map<HD, SW>(&m[6], k, B, Tn, KH, BM) ||
+      !encode_map<HD, SW>(&m[7], v, B, Tn, KH, BM))
     return (int)cudaErrorInvalidValue;
-  const float* r = static_cast<const float*>(rows);
   // the rows as (S_pad, B H, 2): a box is one q block's lse and D
   CUtensorMap ra;
   if (!encode_map_f32(&ra, rows, S_pad, B * H, 2, BM, 1, 2))
     return (int)cudaErrorInvalidValue;
-
-  const auto ka_fn = flash_bwd_dkdv_wgmma_kernel<HD, DKDV_STAGES>;
-  const auto kb_fn = flash_bwd_dq_wgmma_kernel<HD, DQ_STAGES>;
-  int grid = 0;
-  int rc = persistent_grid<GA>(ka_fn, (Tn + GA::RES - 1) / GA::RES * KH * B,
-                               &grid);
-  if (rc != 0) return rc;
-  ka_fn<<<grid, GA::NT, GA::SMEM, st>>>(
-      qa, ka, va, da, ra, static_cast<float*>(dk), static_cast<float*>(dv), B,
-      S, Tn, H, KH, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rc = persistent_grid<GB>(kb_fn, (S + GB::RES - 1) / GB::RES * H * B, &grid);
-  if (rc != 0) return rc;
-  kb_fn<<<grid, GB::NT, GB::SMEM, st>>>(qb, kb, vb, db, r,
-                                        static_cast<float*>(dq), B, S, Tn, H,
-                                        KH, S_pad, causal, scale);
-  return (int)cudaGetLastError();
+  const float* r = static_cast<const float*>(rows);
+  const Scaling sg = softcap > 0.f ? Scaling{scale / softcap, softcap * kLog2e}
+                                   : Scaling{0.f, 0.f};
+  return softcap > 0.f || window > 0
+             ? launch_main<HD, true>(m, ra, r, dq, dk, dv, B, S, Tn, H, KH,
+                                     S_pad, causal, scale, sg, window, st)
+             : launch_main<HD, false>(m, ra, r, dq, dk, dv, B, S, Tn, H, KH,
+                                      S_pad, causal, scale, sg, window, st);
 }
 
 }  // namespace tc
@@ -742,75 +966,86 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 namespace simt {
 
-constexpr int NT = 256;  // (ty, tx) = (tid / 16, tid % 16)
+// (ty, tx) = (tid / 16, tid % 16); two CTAs an SM in the launch bounds (at
+// most 128 registers a thread), without which ptxas held the softcap's
+// instances to 64 registers and spilled
+constexpr int NT = 256;
 
 template <int HD>
 struct Geo {
+  // rows of a block: 64, or 32 at hd 256 (four 64-row tiles would not fit)
+  static constexpr int BR = HD > 128 ? 32 : BM;
+  static constexpr int RI = BR / 16;  // a thread's rows (and columns) of
+                                      // a BR x BR product
   static constexpr int LD = HD + 1;  // odd float strides: no conflicts
-  static constexpr int PD = BM + 1;
+  static constexpr int PD = BR + 1;
   static constexpr int ND = HD / 16;  // head dims a thread owns
-  static constexpr int TILE = BM * LD;
-  static constexpr int SMEM = (4 * TILE + 2 * BM * PD + 2 * BM) * 4;
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  static constexpr int TILE = BR * LD;
+  static constexpr int SMEM = (4 * TILE + 2 * BR * PD + 2 * BR) * 4;
+  static_assert(HD % 16 == 0 && HD <= 256, "head dim");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
-// rows [0, valid) of a (BM, HD) float32 tile, `stride` floats apart ->
+// rows [0, valid) of a (BR, HD) float32 tile, `stride` floats apart ->
 // shared memory; rows past `valid` are zero
 template <int HD, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           size_t stride, int valid) {
-  for (int idx = threadIdx.x; idx < BM * HD; idx += NT) {
+  constexpr int BR = Geo<HD>::BR;
+  for (int idx = threadIdx.x; idx < BR * HD; idx += NT) {
     const int r = idx / HD, c = idx % HD;
     dst[r * Geo<HD>::LD + c] = r < valid ? (float)src[r * stride + c] : 0.f;
   }
 }
 
-// c[i][j] = sum_d A[ty + 16 i][d] B[tx + 16 j][d] over two (BM, HD) tiles
+// c[i][j] = sum_d A[ty + 16 i][d] B[tx + 16 j][d] over two (BR, HD) tiles
 template <int HD>
-__device__ __forceinline__ void nt_product(const float* A, const float* Bt,
-                                           int ty, int tx, float (&c)[4][4]) {
-  constexpr int LD = Geo<HD>::LD;
+__device__ __forceinline__ void nt_product(
+    const float* A, const float* Bt, int ty, int tx,
+    float (&c)[Geo<HD>::RI][Geo<HD>::RI]) {
+  constexpr int LD = Geo<HD>::LD, RI = Geo<HD>::RI;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) c[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float a[4], bb[4];
+    float a[RI], bb[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < RI; ++i) a[i] = A[(ty + 16 * i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = Bt[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < RI; ++j) bb[j] = Bt[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], bb[j], c[i][j]);
+      for (int j = 0; j < RI; ++j) c[i][j] = fmaf(a[i], bb[j], c[i][j]);
   }
 }
 
-// acc[i][n] += sum_c P[ty + 16 i][c] X[c][tx + 16 n], P (BM, BM), X (BM, HD)
+// acc[i][n] += sum_c P[ty + 16 i][c] X[c][tx + 16 n], P (BR, BR), X (BR, HD)
 template <int HD>
-__device__ __forceinline__ void nn_product(const float* P, const float* X,
-                                           int ty, int tx,
-                                           float (&acc)[4][Geo<HD>::ND]) {
+__device__ __forceinline__ void nn_product(
+    const float* P, const float* X, int ty, int tx,
+    float (&acc)[Geo<HD>::RI][Geo<HD>::ND]) {
   constexpr int LD = Geo<HD>::LD, PD = Geo<HD>::PD, ND = Geo<HD>::ND;
+  constexpr int BR = Geo<HD>::BR, RI = Geo<HD>::RI;
 #pragma unroll 4
-  for (int c = 0; c < BM; ++c) {
-    float p[4], x[ND];
+  for (int c = 0; c < BR; ++c) {
+    float p[RI], x[ND];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * PD + c];
+    for (int i = 0; i < RI; ++i) p[i] = P[(ty + 16 * i) * PD + c];
 #pragma unroll
     for (int n = 0; n < ND; ++n) x[n] = X[c * LD + tx + 16 * n];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int n = 0; n < ND; ++n) acc[i][n] = fmaf(p[i], x[n], acc[i][n]);
   }
 }
 
 // (b) dQ, and D for (a).  Grid (q blocks, H, B).
-template <int HD>
-__global__ void __launch_bounds__(NT)
+template <int HD, bool CW>
+__global__ void __launch_bounds__(NT, 2)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -819,24 +1054,24 @@ __global__ void __launch_bounds__(NT)
                         const float* __restrict__ lse,
                         float* __restrict__ dq, float* __restrict__ delta,
                         int S, int Tn, int H, int KH, int causal,
-                        float scale) {
+                        float scale, Scaling sg, int window) {
   using G = Geo<HD>;
-  constexpr int PD = G::PD, ND = G::ND;
+  constexpr int PD = G::PD, ND = G::ND, BR = G::BR, RI = G::RI;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* dOs = Qs + G::TILE;
   float* Ks = dOs + G::TILE;
   float* Vs = Ks + G::TILE;
   float* Ps = Vs + G::TILE;  // dS
-  float* lse_s = Ps + 2 * BM * PD;
-  float* del_s = lse_s + BM;
+  float* lse_s = Ps + 2 * BR * PD;
+  float* del_s = lse_s + BR;
 
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int q0 = qb * BM;
+  const int q0 = qb * BR;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int rows = min(BM, S - q0);
+  const int rows = min(BR, S - q0);
   const size_t row_q = (size_t)H * HD, row_k = (size_t)KH * HD;
   const size_t qofs = ((size_t)b * S + q0) * row_q + (size_t)h * HD;
 
@@ -852,7 +1087,7 @@ __global__ void __launch_bounds__(NT)
         acc = fmaf(dout[qofs + r * row_q + c], o[qofs + r * row_q + c], acc);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) {
+    if (part == 0 && r < BR) {
       const bool in = r < rows;
       del_s[r] = in ? acc : 0.f;
       lse_s[r] = in ? lse[((size_t)b * H + h) * S + q0 + r] : inf();
@@ -860,39 +1095,48 @@ __global__ void __launch_bounds__(NT)
     }
   }
   const float sl2 = scale * kLog2e;
-  float acc[4][ND];
+  float acc[RI][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int n = 0; n < ND; ++n) acc[i][n] = 0.f;
 
-  const int kv_end = causal ? min(q0 + BM, Tn) : Tn;
-  const int n_tiles = (kv_end + BM - 1) / BM;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int t0 = jt * BM;
+  const int kv_end = causal ? min(q0 + BR, Tn) : Tn;
+  const int n_tiles = (kv_end + BR - 1) / BR;
+  const int jt0 = CW && window > 0 ? max(q0 - window + 1, 0) / BR : 0;
+  for (int jt = jt0; jt < n_tiles; ++jt) {
+    const int t0 = jt * BR;
     __syncthreads();
     const size_t kofs = ((size_t)b * Tn + t0) * row_k + (size_t)kh * HD;
-    load_tile<HD>(Ks, k + kofs, row_k, min(BM, Tn - t0));
-    load_tile<HD>(Vs, v + kofs, row_k, min(BM, Tn - t0));
+    load_tile<HD>(Ks, k + kofs, row_k, min(BR, Tn - t0));
+    load_tile<HD>(Vs, v + kofs, row_k, min(BR, Tn - t0));
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     nt_product<HD>(Qs, Ks, ty, tx, s);
     nt_product<HD>(dOs, Vs, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const bool ok = t0 + c < Tn && (!causal || t0 + c <= q0 + r);
-        const float p = ok ? exp2f(fmaf(s[i][j], sl2, -lse_s[r])) : 0.f;
-        Ps[r * PD + c] = p * (dp[i][j] - del_s[r]);
+        const bool ok = t0 + c < Tn && (!causal || t0 + c <= q0 + r) &&
+                        (!CW || window <= 0 || t0 + c > q0 + r - window);
+        if constexpr (CW) {
+          float tt;
+          const float x = score2<CW>(s[i][j], lse_s[r], sl2, sg, tt);
+          const float p = ok ? exp2f(x) : 0.f;
+          Ps[r * PD + c] = p * (1.f - tt * tt) * (dp[i][j] - del_s[r]);
+        } else {
+          const float p = ok ? exp2f(fmaf(s[i][j], sl2, -lse_s[r])) : 0.f;
+          Ps[r * PD + c] = p * (dp[i][j] - del_s[r]);
+        }
       }
     __syncthreads();
     nn_product<HD>(Ps, Ks, ty, tx, acc);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
 #pragma unroll
@@ -902,8 +1146,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 // (a) dK and dV.  Grid (key blocks, KH, B); reads D from (b).
-template <int HD>
-__global__ void __launch_bounds__(NT)
+template <int HD, bool CW>
+__global__ void __launch_bounds__(NT, 2)
     flash_bwd_dkdv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -912,67 +1156,80 @@ __global__ void __launch_bounds__(NT)
                           const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int S, int Tn, int H, int KH, int causal,
-                          float scale) {
+                          float scale, Scaling sg, int window) {
   using G = Geo<HD>;
-  constexpr int PD = G::PD, ND = G::ND;
+  constexpr int PD = G::PD, ND = G::ND, BR = G::BR, RI = G::RI;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + G::TILE;
   float* Qs = Vs + G::TILE;
   float* dOs = Qs + G::TILE;
   float* Ps = dOs + G::TILE;  // P^T
-  float* Ds = Ps + BM * PD;   // dS^T
-  float* lse_s = Ds + BM * PD;
-  float* del_s = lse_s + BM;
+  float* Ds = Ps + BR * PD;   // dS^T
+  float* lse_s = Ds + BR * PD;
+  float* del_s = lse_s + BR;
 
   const int kb = blockIdx.x;
   const int kh = blockIdx.y, b = blockIdx.z;
   const int GH = H / KH;
-  const int t0 = kb * BM;
+  const int t0 = kb * BR;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row_q = (size_t)H * HD, row_k = (size_t)KH * HD;
-  const int krows = min(BM, Tn - t0);
+  const int krows = min(BR, Tn - t0);
   const float sl2 = scale * kLog2e;
   const size_t kofs = ((size_t)b * Tn + t0) * row_k + (size_t)kh * HD;
   load_tile<HD>(Ks, k + kofs, row_k, krows);
   load_tile<HD>(Vs, v + kofs, row_k, krows);
 
-  float ak[4][ND], av[4][ND];
+  float ak[RI][ND], av[RI][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int n = 0; n < ND; ++n) ak[i][n] = av[i][n] = 0.f;
 
-  const int qt_begin = causal ? t0 / BM : 0;
-  const int n_qt = (S + BM - 1) / BM;
+  const int qt_begin = causal ? t0 / BR : 0;
+  const int n_qt = (S + BR - 1) / BR;
+  // under a window, up to the q block that holds the last key + window - 1
+  const int qt_end = CW && window > 0
+                         ? min(n_qt, (t0 + BR - 1 + window - 1) / BR + 1)
+                         : n_qt;
   for (int gi = 0; gi < GH; ++gi) {
     const int h = kh * GH + gi;
-    for (int it = qt_begin; it < n_qt; ++it) {
-      const int q0 = it * BM;
-      const int rows = min(BM, S - q0);
+    for (int it = qt_begin; it < qt_end; ++it) {
+      const int q0 = it * BR;
+      const int rows = min(BR, S - q0);
       __syncthreads();
       const size_t qofs = ((size_t)b * S + q0) * row_q + (size_t)h * HD;
       load_tile<HD>(Qs, q + qofs, row_q, rows);
       load_tile<HD>(dOs, dout + qofs, row_q, rows);
-      if (tid < BM) {
+      if (tid < BR) {
         const bool in = tid < rows;
         const size_t at = ((size_t)b * H + h) * S + q0 + tid;
         lse_s[tid] = in ? lse[at] : inf();
         del_s[tid] = in ? delta[at] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
+      float s[RI][RI], dp[RI][RI];
       nt_product<HD>(Ks, Qs, ty, tx, s);
       nt_product<HD>(Vs, dOs, ty, tx, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;  // key r, query c
-          const bool ok = t0 + r < Tn && (!causal || t0 + r <= q0 + c);
-          const float p = ok ? exp2f(fmaf(s[i][j], sl2, -lse_s[c])) : 0.f;
-          Ps[r * PD + c] = p;
-          Ds[r * PD + c] = p * (dp[i][j] - del_s[c]);
+          const bool ok = t0 + r < Tn && (!causal || t0 + r <= q0 + c) &&
+                          (!CW || window <= 0 || t0 + r > q0 + c - window);
+          if constexpr (CW) {
+            float tt;
+            const float x = score2<CW>(s[i][j], lse_s[c], sl2, sg, tt);
+            const float p = ok ? exp2f(x) : 0.f;
+            Ps[r * PD + c] = p;
+            Ds[r * PD + c] = p * (1.f - tt * tt) * (dp[i][j] - del_s[c]);
+          } else {
+            const float p = ok ? exp2f(fmaf(s[i][j], sl2, -lse_s[c])) : 0.f;
+            Ps[r * PD + c] = p;
+            Ds[r * PD + c] = p * (dp[i][j] - del_s[c]);
+          }
         }
       __syncthreads();
       nn_product<HD>(Ps, dOs, ty, tx, av);
@@ -981,7 +1238,7 @@ __global__ void __launch_bounds__(NT)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= krows) continue;
 #pragma unroll
@@ -992,17 +1249,18 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* delta, int B, int S, int Tn, int H, int KH, int causal,
-           float scale, cudaStream_t st) {
-  const int smem = Geo<HD>::SMEM;
+template <int HD, bool CW>
+int launch_cw(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* dq, void* dk, void* dv,
+              void* delta, int B, int S, int Tn, int H, int KH, int causal,
+              float scale, Scaling sg, int window, cudaStream_t st) {
+  using G = Geo<HD>;
+  const int smem = G::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<HD, CW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD, CW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return (int)err;
@@ -1011,64 +1269,95 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float* fv = static_cast<const float*>(v);
   const float* fdo = static_cast<const float*>(dout);
   const float* fl = static_cast<const float*>(lse);
-  flash_bwd_dq_kernel<HD><<<dim3((S + BM - 1) / BM, H, B), NT, smem, st>>>(
-      fq, fk, fv, static_cast<const float*>(o), fdo, fl,
-      static_cast<float*>(dq), static_cast<float*>(delta), S, Tn, H, KH,
-      causal, scale);
+  flash_bwd_dq_kernel<HD, CW>
+      <<<dim3((S + G::BR - 1) / G::BR, H, B), NT, smem, st>>>(
+          fq, fk, fv, static_cast<const float*>(o), fdo, fl,
+          static_cast<float*>(dq), static_cast<float*>(delta), S, Tn, H, KH,
+          causal, scale, sg, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<HD><<<dim3((Tn + BM - 1) / BM, KH, B), NT, smem, st>>>(
-      fq, fk, fv, fdo, fl, static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), S, Tn, H, KH, causal,
-      scale);
+  flash_bwd_dkdv_kernel<HD, CW>
+      <<<dim3((Tn + G::BR - 1) / G::BR, KH, B), NT, smem, st>>>(
+          fq, fk, fv, fdo, fl, static_cast<const float*>(delta),
+          static_cast<float*>(dk), static_cast<float*>(dv), S, Tn, H, KH,
+          causal, scale, sg, window);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+           void* delta, int B, int S, int Tn, int H, int KH, int causal,
+           float scale, float softcap, int window, cudaStream_t st) {
+  const Scaling sg = softcap > 0.f ? Scaling{scale / softcap, softcap * kLog2e}
+                                   : Scaling{0.f, 0.f};
+  return softcap > 0.f || window > 0
+             ? launch_cw<HD, true>(q, k, v, o, dout, lse, dq, dk, dv, delta,
+                                   B, S, Tn, H, KH, causal, scale, sg, window,
+                                   st)
+             : launch_cw<HD, false>(q, k, v, o, dout, lse, dq, dk, dv, delta,
+                                    B, S, Tn, H, KH, causal, scale, sg,
+                                    window, st);
+}
+
 }  // namespace simt
+
+// the instances: f(std::integral_constant<int, hd>) for a supported hd
+template <typename F>
+int with_hd(int hd, F f) {
+  switch (hd) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    default: return -1;
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
 // dynamic shared memory of the instances for (hd, input type), bytes (for
-// bf16 the larger of the dK/dV and dQ kernels')
+// bf16 the larger of the dK/dV and dQ kernels'); 0 for a head dim
+// without an instance
 int repro_flash_attention_bwd_smem(int hd, int is_bf16) {
-  switch (hd) {
-    case 16: return is_bf16 ? tc::smem_bytes<16>() : simt::Geo<16>::SMEM;
-    case 32: return is_bf16 ? tc::smem_bytes<32>() : simt::Geo<32>::SMEM;
-    case 64: return is_bf16 ? tc::smem_bytes<64>() : simt::Geo<64>::SMEM;
-    case 128: return is_bf16 ? tc::smem_bytes<128>() : simt::Geo<128>::SMEM;
-    default: return 0;
-  }
+  const int bytes = with_hd(hd, [is_bf16](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return is_bf16 ? tc::smem_bytes<HD>() : simt::Geo<HD>::SMEM;
+  });
+  return bytes < 0 ? 0 : bytes;
 }
 
 // q (B,S,H,hd), k/v (B,T,KH,hd) contiguous, f32 (is_bf16 = 0) or bf16;
-// o, dout (B,S,H,hd) and lse (B,H,S) float32 from the forward; outputs dq
+// o, dout (B,S,H,hd) and lse (B,H,S) float32 from the forward (called
+// with the same causal, scale, softcap and window); outputs dq
 // (B,S,H,hd), dk/dv (B,T,KH,hd) float32; scratch delta, float32: (B,H,S)
 // for float32 inputs, 2 x (B,H,S_pad) for bf16 (lse, then D, with S_pad =
 // S rounded up to a multiple of 128), and for bf16 dob (B,S,H,hd) bf16.
-// All 16-byte aligned.  Launches on `stream` (f32: (b) then (a); bf16:
-// (p), (a), (b)).  Returns a cudaError_t.
+// softcap <= 0: none; window <= 0: none (a window must leave every row a
+// key: S < T + window).  All 16-byte aligned.  Launches on `stream` (f32:
+// (b) then (a); bf16: (p), (a), (b)).  Returns a cudaError_t.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dq, void* dk, void* dv,
                               void* delta, void* dob, int B, int S, int Tn,
                               int H, int KH, int hd, int is_bf16, int causal,
-                              float scale, void* stream) {
+                              float scale, float softcap, int window,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_BWD(HD)                                                        \
-  return is_bf16 ? tc::launch<HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, \
-                                  dob, B, S, Tn, H, KH, causal, scale, st)  \
-                 : simt::launch<HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, \
-                                   B, S, Tn, H, KH, causal, scale, st)
-  switch (hd) {
-    case 16: REPRO_BWD(16);
-    case 32: REPRO_BWD(32);
-    case 64: REPRO_BWD(64);
-    case 128: REPRO_BWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef REPRO_BWD
+  const int rc = with_hd(hd, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return is_bf16 ? tc::launch<HD>(q, k, v, o, dout, lse, dq, dk, dv, delta,
+                                    dob, B, S, Tn, H, KH, causal, scale,
+                                    softcap, window, st)
+                   : simt::launch<HD>(q, k, v, o, dout, lse, dq, dk, dv,
+                                      delta, B, S, Tn, H, KH, causal, scale,
+                                      softcap, window, st);
+  });
+  return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 
 }  // extern "C"

@@ -13,12 +13,12 @@ launch on ``torch.cuda.current_stream()`` and count their launches in
 CPU tensors they run the plain PyTorch versions from ``ref.py``; on
 CUDA tensors they launch the kernel or raise — they never fall back.
 
-The forward has instances at every head dim of ``HEAD_DIMS``, each with
-an attention-logit softcap and a sliding window as launch arguments.
-The backward has fewer (``BWD_HEAD_DIMS``, no softcap, no window): on
-the card ``flash_attention_bwd`` raises ``NotImplementedError`` for the
-rest (ROADMAP.md, Queue 2 item 2); on the CPU the plain versions take
-every case.
+Both have instances at every head dim of ``HEAD_DIMS``, each with an attention-logit
+softcap and a sliding window as launch arguments.  On the card both
+refuse a window that leaves a row with no key (S >= T + window), where
+the reference's uniform softmax gives the mean of v and the kernels
+would give 0 (``require_bwd_instance``; ROADMAP.md, reference caveats);
+on the CPU the plain versions take every case.
 
 The kernels have no autograd history: on the card, ``flash_attention``
 raises when grad mode is on and an input requires grad, since its
@@ -43,13 +43,12 @@ from repro_torch.kernels.attention.ref import (attention_bwd_ref,
 __all__ = ["flash_attention", "flash_attention_bwd", "build", "build_bwd",
            "launch_counts", "reset_launch_counts", "shared_memory_bytes",
            "shared_memory_bytes_bwd", "SOURCE", "SOURCE_BWD", "NVCC_FLAGS",
-           "HEAD_DIMS", "BWD_HEAD_DIMS", "require_bwd_instance"]
+           "HEAD_DIMS", "require_bwd_instance"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "attention_bwd.cu"
 NVCC_FLAGS = COMMON_FLAGS
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 BWD_ROW_PAD = 128    # tc::ROW_PAD in attention_bwd.cu
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,7 +66,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention_bwd.argtypes = ([_VP] * 11 + [_I] * 8
-                                              + [_F, _VP])
+                                              + [_F, _F, _I, _VP])
     lib.repro_flash_attention_bwd.restype = _I
     lib.repro_flash_attention_bwd_smem.argtypes = [_I, _I]
     lib.repro_flash_attention_bwd_smem.restype = _I
@@ -144,16 +143,31 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def require_bwd_instance(hd: int, softcap=None, window: int = 0) -> None:
-    """Raise ``NotImplementedError`` where the backward kernel has no
-    instance for this call: a head dim outside ``BWD_HEAD_DIMS``, a
-    softcap or a window."""
-    missing = ([f"head_dim {hd}"] if hd not in BWD_HEAD_DIMS else []) + (
-        ["a softcap"] if softcap else []) + (["a window"] if window else [])
-    if missing:
+def _no_key_rows(S: int, T: int, window: int) -> bool:
+    """A window that leaves the rows from T + window - 1 on with no key."""
+    return window > 0 and S >= T + window
+
+
+def _no_key_message(name, S, T, window):
+    return (f"{name} at S {S}, T {T}, window {window}: rows from "
+            f"{T + window - 1} on keep no key, where the reference's "
+            "uniform softmax gives the mean of v and the kernel would give "
+            "0; the kernel takes no such call (ROADMAP.md, reference "
+            "caveats)")
+
+
+def require_bwd_instance(hd: int, S: int, T: int, window: int = 0) -> None:
+    """Raise ``NotImplementedError`` where the backward kernel takes no
+    call, as the forward's wrapper refuses it: a head dim outside
+    ``HEAD_DIMS``, or a window that leaves a row with no key (S >= T
+    + window)."""
+    if hd not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention_bwd has no kernel instance for "
-            f"{' or '.join(missing)} (ROADMAP.md, Queue 2 item 2)")
+            f"flash_attention_bwd has no kernel instance for head_dim {hd} "
+            f"(have {HEAD_DIMS}; ROADMAP.md)")
+    if _no_key_rows(S, T, int(window or 0)):
+        raise NotImplementedError(_no_key_message(
+            "flash_attention_bwd", S, T, window))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
@@ -184,13 +198,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     _check_card("flash_attention", q,
                 {"q": (q, None), "k": (k, None), "v": (v, None)},
                 (torch.float32, torch.bfloat16))
-    if window > 0 and S >= T + window:
-        raise NotImplementedError(
-            f"flash_attention at S {S}, T {T}, window {window}: rows from "
-            f"{T + window - 1} on keep no key, where the reference's "
-            "uniform softmax gives the mean of v and the kernel would give "
-            "0; the kernel takes no such call (ROADMAP.md, reference "
-            "caveats)")
+    if _no_key_rows(S, T, window):
+        raise NotImplementedError(_no_key_message("flash_attention", S, T,
+                                                  window))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -228,9 +238,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     """The gradients of ``flash_attention``'s output ``o`` (B,S,H,hd)
     under ``do`` (B,S,H,hd): q (B,S,H,hd), k/v (B,T,K,hd) as the forward
     took them, o, do and the forward's ``lse`` (B,H,S) float32 ->
-    (dq, dk, dv) float32 in q's, k's and v's shapes.  On CPU tensors the
-    plain version, which recomputes the softmax and ignores ``lse``; on
-    the card ``require_bwd_instance`` raises for a missing instance."""
+    (dq, dk, dv) float32 in q's, k's and v's shapes; ``causal``,
+    ``scale``, ``softcap`` and ``window`` as the forward took them.  On
+    CPU tensors the plain version, which recomputes the softmax and
+    ignores ``lse``; on the card ``require_bwd_instance`` raises for a
+    call the kernel does not take."""
     B, S, T, H, K, hd = _check(q, k, v)
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (B, H, S))):
@@ -238,10 +250,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
             raise ValueError(f"{name} is {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
     scale = float(scale) if scale is not None else hd ** -0.5
+    softcap, window = float(softcap or 0.0), int(window or 0)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale,
                                  softcap=softcap, window=window)
-    require_bwd_instance(hd, softcap, window)
+    require_bwd_instance(hd, S, T, window)
     f32 = torch.float32
     _check_card("flash_attention_bwd", q,
                 {"q": (q, None), "k": (k, None), "v": (v, None),
@@ -269,8 +282,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(),
             dob.data_ptr() if dob is not None else None,
-            B, S, T, H, K, hd, int(is_bf16), int(causal), scale,
-            torch.cuda.current_stream(dev).cuda_stream)
+            B, S, T, H, K, hd, int(is_bf16), int(causal), scale, softcap,
+            window, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{rc}")

@@ -10,10 +10,11 @@ kernel on the card, ``ref.attention_bwd_ref`` on the CPU).  The forward
 with its log-sum-exp is the operator ``torch.ops.repro_torch.
 flash_attention_fwd``, so a selective activation checkpoint can keep its
 outputs (``models.transformer``'s "dots" policies).  Every form takes an
-attention-logit ``softcap`` and a sliding ``window``; on the card
-``FlashAttentionFn`` raises before its forward launches when the backward
-kernel has no instance for the call (``kernel.require_bwd_instance``: hd
-112 and 256, a softcap, a window; ROADMAP.md, Queue 2 item 2).  ``impl="plain"``
+attention-logit ``softcap`` and a sliding ``window``, forward and
+backward, at every head dim of ``kernel.HEAD_DIMS``; on the card
+``FlashAttentionFn`` raises before its forward launches for a call the
+backward kernel does not take (``kernel.require_bwd_instance``: another
+head dim, or a window that leaves a row with no key).  ``impl="plain"``
 always runs the plain version, differentiated by autograd; it exists for
 the tests and for ``chip_smoke.py``'s comparison on the card.
 
@@ -128,7 +129,8 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, scale: float,
                 softcap: float = 0.0, window: int = 0):
         if q.device.type == "cuda":
-            _kernel.require_bwd_instance(q.shape[-1], softcap, window)
+            _kernel.require_bwd_instance(q.shape[-1], q.shape[1],
+                                         k.shape[1], window)
         out, lse = flash_attention_fwd(q, k, v, causal, scale, softcap,
                                        window)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -32,8 +32,14 @@ Training: ``lm_loss`` is the next-token cross entropy of ``lm_forward``
 in mode "train", whose layers may be rematerialised in the backward
 (``_maybe_remat``).  On the card the attention differentiates through
 the hand-written backward kernel (``kernels.attention.ops``) and the
-SSD through its own (``kernels.ssd.ops.SSDChunkFn``), so the ssm family
-trains there; the hybrid waits for the flash backward at hd 112.
+SSD through its own (``kernels.ssd.ops.SSDChunkFn``), so every LM family
+trains there.  Where the float32 logits of a batch would pass
+``LOSS_CHUNK_LOGITS`` elements (gemma2's 256 000-token vocabulary at
+8192 rows: 8.4 GB a copy, ~55 GB with the softcap, the logsumexp and
+their gradients), ``lm_loss`` runs the cross entropy over row chunks,
+each chunk's logits rematerialised in the backward: the same arithmetic
+a row, summed chunk by chunk.  Under a sharding context it keeps the
+whole logits, which the vocab's shards already split.
 
 The vlm family (qwen2-vl) is the dense stack fed precomputed patch
 embeddings (``embeds``) or tokens, its q and k rotated by M-RoPE: the
@@ -43,9 +49,7 @@ does; a caller with a vision layout passes its own streams to
 ``attention``.
 
 Ported: every family of the JAX package here, and the audio
-encoder-decoder in ``models.whisper``.  On the card the hybrid trains
-through neither kernel's backward yet: the SSD kernel has none, and the
-flash backward has no hd 112 instance (ROADMAP.md, Queue 2).
+encoder-decoder in ``models.whisper``.
 """
 
 from __future__ import annotations
@@ -68,6 +72,10 @@ from repro_torch.models.ssm import (mamba_block, mamba_decode_step,
 
 __all__ = ["lm_param_defs", "lm_forward", "lm_loss", "norm_def",
            "apply_norm", "mlp_param_defs", "check_family"]
+
+# float32 logits (B x S x vocab elements) past which ``lm_loss`` runs the
+# cross entropy in row chunks of a quarter of this each (1 GiB)
+LOSS_CHUNK_LOGITS = 1 << 30
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -462,12 +470,39 @@ def lm_forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
         return x, new_cache, aux
     if logits_mode == "last":
         x = x[:, -1:]
+    logits = _logits(x, params, cfg, compute_dtype)
+    logits = constrain(logits, ("batch", "seq", "vocab"))
+    return logits, new_cache, aux
+
+
+def _logits(x, params, cfg: ArchConfig, compute_dtype):
+    """The final norm's output ``x`` times the unembedding, soft-capped,
+    in float32."""
     unembed = (params["embed"].T if cfg.tie_embeddings
                else params["unembed"])
     logits = ll._mm(x, unembed, compute_dtype)
-    logits = ll.softcap(logits.float(), cfg.final_logit_softcap)
-    logits = constrain(logits, ("batch", "seq", "vocab"))
-    return logits, new_cache, aux
+    return ll.softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def _ce_sum(x, params, cfg: ArchConfig, targets, compute_dtype):
+    """The sum over rows of logsumexp(logits) - logits[target]."""
+    logits = _logits(x, params, cfg, compute_dtype)
+    return torch.sum(ll.logsumexp_last(logits)
+                     - ll.target_logits(logits, targets))
+
+
+def _chunked_ce(x, params, cfg: ArchConfig, targets, compute_dtype):
+    """The mean cross entropy over the rows of ``x`` (B, S, d), in chunks
+    of rows whose float32 logits hold a quarter of ``LOSS_CHUNK_LOGITS``,
+    each chunk rematerialised in the backward, so that one chunk's
+    logits and their gradient are live at a time."""
+    xf, tf = x.reshape(-1, x.shape[-1]), targets.reshape(-1)
+    rows = max(1, LOSS_CHUNK_LOGITS // 4 // cfg.vocab_size)
+    total = sum(checkpoint(_ce_sum, xf[i:i + rows], params, cfg,
+                           tf[i:i + rows], compute_dtype,
+                           use_reentrant=False)
+                for i in range(0, xf.shape[0], rows))
+    return total / xf.shape[0]
 
 
 def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
@@ -475,16 +510,24 @@ def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
             kernel_impl: str = "kernel"):
     """Next-token cross entropy (+ ``aux_weight`` times the MoE
     load-balance aux, zero for the dense and ssm families): the mean
-    over (B, S) of logsumexp(logits) - logits[target], the full logits
-    in float32.  Returns (loss, {"ce", "aux"})."""
-    logits, _, aux = lm_forward(
+    over (B, S) of logsumexp(logits) - logits[target], the logits in
+    float32, whole or, past ``LOSS_CHUNK_LOGITS`` with no sharding
+    context, in row chunks (``_chunked_ce``).  Returns (loss, {"ce",
+    "aux"})."""
+    x, _, aux = lm_forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         mode="train", compute_dtype=compute_dtype,
-        remat_policy=remat_policy, logits_mode="full",
+        remat_policy=remat_policy, logits_mode="none",
         kernel_impl=kernel_impl)
-    logits = logits.float()
-    lse = ll.logsumexp_last(logits)
-    tgt = ll.target_logits(logits, batch["targets"])
-    # a site of the port's own: the batch stays sharded in the backward
-    ce = torch.mean(constrain(lse - tgt, ("batch", "seq")))
+    B, S = x.shape[:2]
+    if (active_context() is None
+            and B * S * cfg.vocab_size > LOSS_CHUNK_LOGITS):
+        ce = _chunked_ce(x, params, cfg, batch["targets"], compute_dtype)
+    else:
+        logits = constrain(_logits(x, params, cfg, compute_dtype),
+                           ("batch", "seq", "vocab"))
+        lse = ll.logsumexp_last(logits)
+        tgt = ll.target_logits(logits, batch["targets"])
+        # a site of the port's own: the batch stays sharded in the backward
+        ce = torch.mean(constrain(lse - tgt, ("batch", "seq")))
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}

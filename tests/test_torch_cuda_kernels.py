@@ -263,31 +263,64 @@ _BWD = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
                                           AK.SOURCE_BWD.read_text())}
 
 
-def _bwd_smem_bytes(hd, nwg, stages):
-    """tc::Geo<HD, NWG, ST>::SMEM: 1024 bytes of alignment slack, two
-    resident tiles of 64 NWG rows, per stage two streamed 64-row tiles and
-    64 lse and 64 D floats, and the mbarriers."""
-    tile, res = 64 * hd * 2, 64 * nwg * hd * 2
+def _bwd_padded(hd):
+    """tc::padded: the head dims the tiles hold (128 at hd 112)."""
+    return hd if hd <= 64 else -(-hd // 64) * 64
+
+
+def _bwd_smem_bytes(hd, nwg, stages, split=None):
+    """tc::Geo<HD, ST, SPLIT>::SMEM: 1024 bytes of alignment slack, two
+    resident tiles of 64 NWG rows (64 where the warpgroups split the
+    columns: above 128 padded head dims by default), per stage two
+    streamed 64-row tiles and 64 lse and 64 D floats, and the mbarriers;
+    tiles of the padded width."""
+    hdp = _bwd_padded(hd)
+    split = hdp > 128 if split is None else split
+    tile, res = 64 * hdp * 2, (64 if split else 64 * nwg) * hdp * 2
     return 1024 + 2 * res + stages * (2 * tile + 2 * 64 * 4) + 8 * (
         2 * stages + 2)
 
 
 def _bwd_instance_smem(hd):
-    return max(_bwd_smem_bytes(hd, _BWD["NWG"], _BWD["DKDV_STAGES"]),
-               _bwd_smem_bytes(hd, _BWD["NWG"], _BWD["DQ_STAGES"]))
+    """The largest of (a) without and with the softcap/window (which
+    splits the columns from 128 padded head dims on) and (b) (two stages
+    at hd 256)."""
+    nwg, hdp = _BWD["NWG"], _bwd_padded(hd)
+    return max(_bwd_smem_bytes(hd, nwg, _BWD["DKDV_STAGES"]),
+               _bwd_smem_bytes(hd, nwg, _BWD["DKDV_STAGES"],
+                               split=hdp >= 128),
+               _bwd_smem_bytes(hd, nwg, 2 if hd > 128 else _BWD["DQ_STAGES"]))
 
 
-@pytest.mark.parametrize("hd", AK.BWD_HEAD_DIMS)
+def _bwd_f32_smem_bytes(hd):
+    """simt::Geo<HD>::SMEM: four (BR, hd + 1) float tiles, two (BR, BR +
+    1) and 2 BR floats, BR = 64 rows (32 at hd 256)."""
+    br = 32 if hd > 128 else 64
+    return (4 * br * (hd + 1) + 2 * br * (br + 1) + 2 * br) * 4
+
+
+@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
 def test_bwd_shared_memory_fits_every_instance(hd):
     """Both bf16 backward kernels fit a CTA's 232 448 bytes at every head
     dim."""
     assert _bwd_instance_smem(hd) <= SMEM_MAX == 232448
 
 
+@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+def test_bwd_f32_shared_memory_fits_every_instance(hd):
+    """The float32 backward kernels fit at every head dim: 32-row blocks
+    at hd 256, where 64 rows would take 296 960 bytes."""
+    assert _bwd_f32_smem_bytes(hd) <= SMEM_MAX
+    if hd == 256:
+        assert (4 * 64 * 257 + 2 * 64 * 65 + 128) * 4 == 296960 > SMEM_MAX
+
+
 def test_bwd_shared_memory_mirror_matches_the_library(cuda):
-    for hd in AK.BWD_HEAD_DIMS:
+    for hd in AK.HEAD_DIMS:
         assert AK.shared_memory_bytes_bwd(hd, torch.bfloat16) == \
             _bwd_instance_smem(hd)
+        assert AK.shared_memory_bytes_bwd(hd, torch.float32) == \
+            _bwd_f32_smem_bytes(hd)
 
 
 def test_fleet_shared_memory_fits_every_instance():
@@ -592,23 +625,65 @@ def test_flash_attention_rows_without_a_key_raise(cuda, hd, causal):
     _close_bf16(_launch_once(q, k, v, **kw), attention_ref(q, k, v, **kw))
 
 
-def test_flash_attention_backward_instances_raise_before_the_forward(cuda):
-    """The backward kernel has no hd 112 or 256 instance, no softcap and
-    no window: on the card ``FlashAttentionFn`` raises naming ROADMAP.md
-    before the forward launches, and ``flash_attention_bwd`` raises; a
-    call without grad runs the forward."""
-    for hd, kw in ((112, {}), (256, {}), (128, dict(softcap=50.0)),
-                   (128, dict(window=64))):
-        q, k, v = _qkv((1, 64, 2, 1, hd), hd, torch.bfloat16, cuda)
-        before = AK.flash_attention.launches
-        with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
+# (hd, shape (B,S,H,K,hd) with hd last, T or None, arguments, q
+# multiplier): each instance this backward gained, through the op
+NEW_BWD_INSTANCES = [
+    ((2, 300, 8, 8, 112), None, dict(causal=True), 1.0),
+    ((1, 333, 8, 4, 256), 300, dict(causal=True, softcap=50.0, window=100),
+     8.0),
+    ((1, 300, 8, 4, 256), None, dict(causal=True, softcap=50.0), 8.0),
+    ((2, 300, 8, 4, 128), None, dict(causal=True, softcap=30.0), 4.0),
+    ((2, 300, 8, 4, 128), None, dict(causal=True, window=70), 1.0),
+    ((1, 250, 4, 2, 112), 300, dict(causal=True, softcap=50.0, window=45),
+     4.0),
+    ((1, 300, 4, 2, 32), 350, dict(causal=False, window=90), 1.0)]
+
+
+@pytest.mark.parametrize("shape,T,kw,qmul", NEW_BWD_INSTANCES)
+def test_flash_attention_fn_runs_every_new_backward_instance(cuda, shape,
+                                                             T, kw, qmul):
+    """hd 112 and 256, the softcap and the window through
+    ``FlashAttentionFn`` on the card: one forward and one backward
+    launch, the gradients against ``attention_bwd_ref`` under the
+    forward's output (rel L2 1e-2, bf16)."""
+    B, S, H, K_, hd = shape
+    q, k, v = _qkv(shape, hd + S, torch.bfloat16, cuda, T=T)
+    q = (q.float() * qmul).to(torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = AK.launch_counts()
+    out = AO.flash_attention(q, k, v, **kw)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    now = AK.launch_counts()
+    assert now["flash_attention"] == counts["flash_attention"] + 1
+    assert now["flash_attention_bwd"] == counts["flash_attention_bwd"] + 1
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                             out.detach(), do, **kw)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= 1e-2
+
+
+def test_flash_attention_fn_refuses_before_the_forward(cuda):
+    """What the backward kernel does not take raises before the forward
+    launches, naming ROADMAP.md: a window that leaves rows with no key
+    (S >= T + window) and a head dim outside ``HEAD_DIMS``; one row short
+    of the first (S = T + window - 1) runs."""
+    for shape, T, kw in (((1, 200, 2, 1, 64), 77, dict(window=123)),
+                         ((1, 64, 2, 1, 48), None, {})):
+        q, k, v = _qkv(shape, 5, torch.bfloat16, cuda, T=T)
+        before = AK.launch_counts()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             AO.flash_attention(q.requires_grad_(), k, v, **kw)
-        assert AK.flash_attention.launches == before
-        q = q.detach()
-        o, lse = AK.flash_attention(q, k, v, return_lse=True, **kw)
-        assert AK.flash_attention.launches == before + 1
-        with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-            AK.flash_attention_bwd(q, k, v, o, o.clone(), lse, **kw)
+        assert AK.launch_counts() == before
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            AK.require_bwd_instance(shape[-1], shape[1], T or shape[1],
+                                    kw.get("window", 0))
+    q, k, v = _qkv((1, 199, 2, 1, 64), 5, torch.bfloat16, cuda, T=77)
+    out = AO.flash_attention(q.requires_grad_(), k, v, window=123)
+    torch.autograd.grad(out, q, torch.ones_like(out))
+    torch.cuda.synchronize()
 
 
 def _rel_l2(a, b):
@@ -641,62 +716,94 @@ BWD_CASES = ([((2, 130, 4, 2, hd), None, torch.float32, c, None, 1e-4)
                  1e-2)])
 
 
-@pytest.mark.parametrize("shape,T,dtype,causal,scale,tol", BWD_CASES)
+# hd 112 and 256, the softcap and the window, in both input types:
+# (shape, T, dtype, causal, scale, tol, softcap, window); the softcap's
+# cases scale q x 4 in the test, so that the scores bend
+BWD_CASES_CW = ([((2, 130, 4, 2, hd), None, dt, c, None, tol, None, 0)
+                 for hd in (112, 256) for c in (True, False)
+                 for dt, tol in ((torch.float32, 1e-4),
+                                 (torch.bfloat16, 1e-2))]
+                + [((1, 333, 8, 2, 112), 190, torch.bfloat16, True, None,
+                    1e-2, None, 0),
+                   ((1, 300, 4, 1, 256), 350, torch.bfloat16, True, 0.1,
+                    1e-2, 50.0, 100),
+                   ((2, 250, 8, 4, 128), 300, torch.bfloat16, True, None,
+                    1e-2, 30.0, 0),
+                   ((2, 250, 8, 4, 128), 300, torch.float32, True, None,
+                    1e-4, 30.0, 64),
+                   ((1, 300, 4, 4, 64), 250, torch.bfloat16, False, None,
+                    1e-2, None, 80),
+                   ((1, 200, 4, 2, 16), 270, torch.bfloat16, True, None,
+                    1e-2, 10.0, 33),
+                   ((1, 200, 4, 2, 256), 150, torch.float32, True, None,
+                    1e-4, 50.0, 60)])
+
+
+@pytest.mark.parametrize(
+    "shape,T,dtype,causal,scale,tol,softcap,window",
+    [c + (None, 0) for c in BWD_CASES] + BWD_CASES_CW)
 def test_flash_attention_bwd_kernel_matches_ref(cuda, shape, T, dtype,
-                                                causal, scale, tol):
+                                                causal, scale, tol, softcap,
+                                                window):
     """The backward kernel against ``attention_bwd_ref`` on the same o
     and dO, each output by relative L2; the forward's lse against
     ``attention_lse_ref`` and its output unchanged by asking for it."""
     B, S, H, K_, hd = shape
     q, k, v = _qkv(shape, S + hd, dtype, cuda, T=T)
+    if softcap:
+        q = (q.float() * 4).to(dtype)
+    kw = dict(causal=causal, scale=scale, softcap=softcap, window=window)
     do = torch.randn((B, S, H, hd), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(1))
-    o, lse = AK.flash_attention(q, k, v, causal=causal, scale=scale,
-                                return_lse=True)
-    assert torch.equal(o, AK.flash_attention(q, k, v, causal=causal,
-                                             scale=scale))
-    torch.testing.assert_close(lse, attention_lse_ref(
-        q, k, causal=causal, scale=scale), rtol=1e-5, atol=1e-4)
+    o, lse = AK.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, AK.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw),
+                               rtol=1e-5, atol=1e-4)
     before = AK.flash_attention_bwd.launches
-    got = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                 scale=scale)
+    got = AK.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert AK.flash_attention_bwd.launches == before + 1
-    want = attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale)
+    want = attention_bwd_ref(q, k, v, o, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert bool(torch.isfinite(g).all())
         assert _rel_l2(g, w) <= tol
 
 
-@pytest.mark.parametrize("shape,T,causal", [
-    ((2, 1000, 16, 8, 128), None, True), ((1, 250, 8, 2, 64), 77, False),
-    ((1, 77, 4, 4, 16), 250, True)])
-def test_flash_attention_bwd_bf16_is_deterministic(cuda, shape, T, causal):
+@pytest.mark.parametrize("shape,T,kw", [
+    ((2, 1000, 16, 8, 128), None, dict(causal=True)),
+    ((1, 250, 8, 2, 64), 77, dict(causal=False)),
+    ((1, 77, 4, 4, 16), 250, dict(causal=True)),
+    ((1, 1000, 8, 8, 112), None, dict(causal=True)),
+    ((1, 1000, 8, 4, 256), None, dict(causal=True, softcap=50.0,
+                                      window=300)),
+    ((2, 300, 8, 4, 128), 333, dict(causal=True, softcap=30.0, window=64))])
+def test_flash_attention_bwd_bf16_is_deterministic(cuda, shape, T, kw):
     """No float atomics: two calls on the same inputs give equal bits."""
     B, S, H, K_, hd = shape
     q, k, v = _qkv(shape, 11, torch.bfloat16, cuda, T=T)
     do = torch.randn((B, S, H, hd), device=cuda,
                      generator=torch.Generator(cuda).manual_seed(2))
-    o, lse = AK.flash_attention(q, k, v, causal=causal, return_lse=True)
-    first = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-    again = AK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    o, lse = AK.flash_attention(q, k, v, return_lse=True, **kw)
+    first = AK.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = AK.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 
 
 def test_flash_attention_bwd_kernels_do_not_spill(cuda):
-    """ptxas's report of the backward library: the tensor-core kernels
-    at hd 128 keep everything in registers."""
+    """ptxas's report of the backward library: every kernel of every
+    instance (prep, the tensor-core kernels with and without the
+    softcap and the window, the float32 kernels) keeps everything in
+    registers."""
     from pathlib import Path
 
     from repro_torch.kernels._build import ptxas_report
     rep = ptxas_report(Path(str(AK.build_bwd()) + ".log").read_text())
-    mine = [r for r in rep if "wgmma" in r["kernel"]
-            and r["kernel"].split("<")[1].startswith("128,")]
-    assert len(mine) == 2
-    for r in mine:
+    assert len([r for r in rep if "wgmma" in r["kernel"]]) == 4 * len(
+        AK.HEAD_DIMS)
+    for r in rep:
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 
 

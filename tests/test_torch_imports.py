@@ -1,6 +1,5 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing
-in ``chip_smoke.py``, ``scripts/monitor_kernel_turns.py`` or
-``scripts/chaos_replica_cap.py`` (all run on the card's machine)
+in ``chip_smoke.py`` or ``scripts/*.py`` (all run on the card's machine)
 imports ``jax`` or the JAX package ``repro`` (any ``repro.*`` import
 would run ``repro/core/__init__.py`` and with it jax).  The card's
 machine has no jax.  Nor does the package import ``torch.testing``,
@@ -16,8 +15,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "monitor_kernel_turns.py",
-    REPO / "scripts" / "chaos_replica_cap.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

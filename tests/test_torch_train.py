@@ -35,6 +35,7 @@ from repro.train import pick_optimizer as j_pick_optimizer
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataPipeline, SyntheticLMSource
 from repro_torch.models import build_model, params_from_numpy
+from repro_torch.models import transformer as TM
 from repro_torch.models.transformer import _maybe_remat
 from repro_torch.train import (OptConfig, TrainConfig, clip_by_global_norm,
                                init_opt_state, lr_schedule, make_train_step,
@@ -154,6 +155,36 @@ def test_remat_policies_recompute_as_named(ref):
         _maybe_remat(lambda x: x, "everything")
 
 
+@pytest.mark.parametrize("arch", [ARCH, "gemma2-2b"])
+def test_chunked_cross_entropy_matches_jax(arch, monkeypatch):
+    """Past ``LOSS_CHUNK_LOGITS`` ``lm_loss`` sums the cross entropy over
+    row chunks, each rematerialised in the backward: here chunks of 5 of
+    the 64 rows (the last ragged), gemma2 with its tied embedding and
+    the final logits' softcap.  The loss and every leaf's gradient
+    against ``jax.value_and_grad`` at the tolerances above, and against
+    the whole logits to 1e-6 (the same arithmetic a row, summed in
+    another order)."""
+    cfg, jm, tree, tm = _smoke_ref(arch)
+    batch = _batch(cfg, 5)
+    (j_loss, _), j_grads = jax.value_and_grad(jm.loss, has_aux=True)(
+        tree, _j(batch))
+    whole, _, g_whole = _loss_and_grads(tm, _params(cfg, tree), batch)
+    monkeypatch.setattr(TM, "LOSS_CHUNK_LOGITS", 4 * 5 * cfg.vocab_size)
+    calls, ce_sum = [], TM._ce_sum
+    monkeypatch.setattr(TM, "_ce_sum", lambda x, *a: calls.append(
+        x.shape[0]) or ce_sum(x, *a))
+    loss, _, grads = _loss_and_grads(tm, _params(cfg, tree), batch)
+    assert calls[:13] == [5] * 12 + [4]
+    assert loss == pytest.approx(float(j_loss), rel=1e-5)
+    assert loss == pytest.approx(whole, rel=1e-6)
+    j_leaves = jax.tree_util.tree_leaves(j_grads)
+    assert len(grads) == len(j_leaves)
+    for g, w, jg in zip(grads, g_whole, j_leaves):
+        assert _rel_l2(g.numpy(), jg) <= 1e-4
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
 def test_kernel_and_plain_impls_give_the_same_grads_on_cpu(ref, jax_loss):
     """On the CPU ``kernel_impl="kernel"`` differentiates through
     ``FlashAttentionFn`` (plain backward), "plain" through autograd."""
@@ -196,9 +227,10 @@ def _run_both(ref, opt, microbatches, steps, B=4):
     return state, jstate
 
 
-def _close_params(state, jstate):
+def _close_params(state, jstate, everywhere=True):
     """Parameters after full steps: within 1e-2 * lr_peak on all but 1%
-    of each leaf, within 3e-2 * lr_peak everywhere.  Adam moves an
+    of each leaf, within 3e-2 * lr_peak everywhere (unless
+    ``everywhere`` is False).  Adam moves an
     element by about lr * g / (|g| + eps); where the gradient element is
     at the rounding floor of its matmul (|g| ~ 1e-10, a relative
     difference of order one between the frameworks' summation orders)
@@ -208,7 +240,8 @@ def _close_params(state, jstate):
                     jax.tree_util.tree_leaves(jstate["params"])):
         d = np.abs(a.numpy() - np.asarray(b))
         assert float((d > 1e-2 * LR).mean()) <= 1e-2
-        assert float(d.max()) <= 3e-2 * LR
+        if everywhere:
+            assert float(d.max()) <= 3e-2 * LR
 
 
 def _close_moments(state, jstate):
@@ -223,11 +256,48 @@ def _close_moments(state, jstate):
             assert _rel_l2(a.numpy(), b) <= 1e-3
 
 
-@pytest.mark.parametrize("opt", ["adamw", "adamw8bit"])
-def test_three_train_steps_match_jax(ref, opt):
-    state, jstate = _run_both(ref, opt, 1, 3)
+def _smoke_ref(arch):
+    """``ref`` for another architecture's smoke config: the JAX package's
+    weights from PRNGKey(0), both models in float32."""
+    jcfg = j_get_smoke(arch)
+    jm = j_build_model(jcfg, compute_dtype=jnp.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    return (get_smoke_config(arch), jm, tree,
+            build_model(get_smoke_config(arch), torch.float32))
+
+
+# (arch, optimizer): the dense model with both optimizers (ids as they
+# were), the hybrid (the flash op at the shared block and the SSD op,
+# each through its autograd Function) and gemma2 (the softcap and the
+# window through the flash op's backward) with AdamW
+TRAIN_STEP_CASES = [(ARCH, "adamw"), (ARCH, "adamw8bit"),
+                    ("zamba2-7b", "adamw"), ("gemma2-2b", "adamw")]
+
+
+@pytest.mark.parametrize(
+    "arch,opt", TRAIN_STEP_CASES,
+    ids=[o if a == ARCH else f"{a}-{o}" for a, o in TRAIN_STEP_CASES])
+def test_three_train_steps_match_jax(ref, arch, opt):
+    """Three full train steps in both packages from the same weights and
+    batches: the step metrics (each step, in ``_run_both``), the
+    parameters and the moments (the tolerances of ``_close_params`` and
+    ``_close_moments``).  The hybrid holds its parameters on all but 1%
+    of each leaf, not on every element, and its moments after one step:
+    its gradients agree to ~1e-5 (1e-6 for the dense model), and where
+    an element's gradient sits near zero Adam's normalised step, ~lr,
+    takes another sign (one element 5e-2 lr apart after one step; after
+    three, one embedding element of 32 768, whose gradient is 8.5e-8 in
+    JAX's first moment and 2.3e-7 in the port's, 0.74 lr apart), which
+    moves the third step's gradients, and so every moment, by ~5e-4
+    (1.2e-3 at most, conv_C's second moment)."""
+    r = ref if arch == ARCH else _smoke_ref(arch)
+    state, jstate = _run_both(r, opt, 1, 3)
     assert int(state["step"]) == int(jstate["step"]) == 3
-    _close_params(state, jstate)
+    hybrid = arch == "zamba2-7b"
+    _close_params(state, jstate, everywhere=not hybrid)
+    if hybrid:
+        state, jstate = _run_both(r, opt, 1, 1)
     _close_moments(state, jstate)
 
 
