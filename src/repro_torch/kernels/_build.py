@@ -75,7 +75,9 @@ class NvccLibrary:
                 return out
             if not out.exists():
                 out.parent.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                # two libraries of one process may build the same output
+                tmp = out.with_suffix(
+                    f".{os.getpid()}.{threading.get_ident()}.tmp")
                 cmd = [_nvcc(), *self.flags, "-o", str(tmp),
                        str(self.source)]
                 res = subprocess.run(cmd, capture_output=True, text=True)

@@ -73,9 +73,12 @@
 // refuses those calls).  Causal blocks stop at the diagonal; a
 // windowed block starts at the tile that holds q0 - window + 1, so the
 // tiles left of the window are never loaded, and the left-edge tiles are
-// masked as the diagonal and T-tail tiles are.  The softcap uses the
-// accurate tanhf (tanh.approx.f32's 2^-11 relative error, times a cap of
-// 50, moves a score by up to ~0.02).
+// masked as the diagonal and T-tail tiles are.  The softcap's tanh is
+// hopper.cuh's softcap_tanh in the bf16 kernel (1 - 2 / (1 + 2^(2 log2(e)
+// x)) from ex2.approx and rcp.approx, a few 1e-7 absolute; the backward
+// recomputes P with the same function) and the accurate tanhf in the f32
+// kernel; tanh.approx.f32's 2^-11 relative error, times a cap of 50,
+// would move a score by up to ~0.02.
 //
 // hd 112 (zamba2's shared attention) and hd 256 (gemma2): the bf16 kernel
 // runs hd 112 on the 128-wide geometry: the tensor maps keep the tensor's
@@ -84,9 +87,20 @@
 // n = 128 (14% more products there), and the epilogue stores 112
 // columns.  hd 256 needs 128 accumulator registers a consumer thread and
 // ~161 KB of shared memory (Q and two K/V stages), so its instance runs
-// one CTA an SM (255 registers a thread, no setmaxnreg) and P.V as two
-// n = 128 products per k-step.  The f32 kernel takes both with a P.V
-// vector width that divides the head dim (2 at hd 112).
+// one CTA an SM (254 and 255 registers a thread without and with the cap
+// and window, no setmaxnreg, no spill), P.V as two n = 128 products per
+// k-step, and its softmax's exponentials as ex2.approx.ftz.  Two consumer
+// warpgroups over one K/V ring were measured on an H100 and not taken
+// (PERF.md): 128-row CTAs of two 64-row warpgroups need more than the 240
+// registers setmaxnreg leaves a consumer (the 192 of the accumulators, S,
+// P_hi and P_lo, plus the softmax's), and ptxas then spills and serializes
+// every wgmma (C7512), also with P through shared memory: 1.8-2.0x the
+// time; 64-row CTAs whose warpgroups score half a tile's keys each
+// (m64n32k16) and exchange row maxima and P through shared memory fit
+// (168 registers) but take 1.11-1.17x, for the two barriers a tile and
+// the narrower products.
+// The f32 kernel takes both with a P.V vector width that divides the head
+// dim (2 at hd 112).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -413,6 +427,22 @@ struct Geo {
 
 using namespace hopper;
 
+// 2^x for the softmax: at hd 256 the MUFU's ex2.approx.ftz, as the
+// backward takes its exponentials (results below 2^-126 flush to 0;
+// scripts/kernel_turns.py --variant exp2f times the exp2f form).  The
+// instances at hd <= 128 keep exp2f, the form their times were taken
+// with; ex2 has not been timed there.
+template <int HDP>
+__device__ __forceinline__ float softmax_exp2(float x) {
+  if constexpr (HDP > 128) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return exp2f(x);
+  }
+}
+
 // (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi): hi + lo
 // equals (a, b) to ~2^-17 relative, where hi alone is 2^-9
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -567,7 +597,7 @@ __global__ void __launch_bounds__(NT, Geo<HD>::CTAS_PER_SM)
     if (CW && sg.cap_out != 0.f) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i)
-        sc[i] = sg.cap_out * tanhf(sc[i] * sg.cap_in);
+        sc[i] = sg.cap_out * softcap_tanh(sc[i] * sg.cap_in);
     } else {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sc[i] *= sg.scale_log2;
@@ -591,13 +621,13 @@ __global__ void __launch_bounds__(NT, Geo<HD>::CTAS_PER_SM)
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
+      alpha[r] = softmax_exp2<HDP>(m[r] - mx[r]);
       m[r] = mx[r];
       l[r] *= alpha[r];
     }
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
-      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      sc[i] = softmax_exp2<HDP>(sc[i] - m[(i >> 1) & 1]);
       l[(i >> 1) & 1] += sc[i];
     }
   };

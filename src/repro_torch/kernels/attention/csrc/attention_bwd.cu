@@ -51,7 +51,8 @@
 // tiles).  384 threads a CTA get 168 registers a thread; the producer
 // gives its registers to the consumers (setmaxnreg: it keeps 24, each
 // consumer gets 240), which hold two 64 x 128 float32 accumulators at
-// most.
+// most.  Below: the design up to hd 128 without a cap or a window; the
+// split one (hd 256, and (a) with CW at hd 112 and 128) after it.
 // (a) flash_bwd_dkdv_wgmma_kernel: a CTA owns 128 keys of one kv head at
 //     a time, 64 a consumer warpgroup, with K and V resident in shared
 //     memory, and walks the (query head of the group, q block) steps,
@@ -101,8 +102,9 @@
 // call with neither runs CW = false, where both are compiled out, with
 // the registers and the time of a kernel without them.  With a softcap
 // the scores are s' = cap tanh(scale s / cap) in the forward's arithmetic
-// (the accurate tanhf, in the log2 domain: cap log2(e) tanh(...)), so that
-// P matches the forward's lse, and dS takes the factor 1 - t^2.  Keeping
+// (hopper.cuh's softcap_tanh, in the log2 domain: cap log2(e)
+// tanh(...)), so that P matches the forward's lse, and dS takes the
+// factor 1 - t^2.  Keeping
 // t beside the dP^T accumulators would cost 32 registers more in (a), and
 // at hd 128 those accumulators are issued late precisely so as not to
 // spill; instead (a) packs bf16(P) for the dV product and then overwrites
@@ -122,15 +124,37 @@
 // hd 256 (gemma2): two 64 x 256 float32 accumulators a warpgroup would be
 // 256 registers a thread, and 128 resident rows with two stages would not
 // fit shared memory.  So a CTA owns 64 keys ((a)) or 64 query rows ((b)),
-// and its two consumer warpgroups split the accumulators' head dims, 128
-// columns each: each warpgroup computes the whole S^T and dP^T (S and dP
-// in (b)), contracted over 256, for itself, and its dV, dK (dQ) products
-// run at n = 128 over its half of dO, Q (K).  A consumer then holds two
-// 64 x 128 accumulators and two 64 x 64, the register profile of hd 128,
-// and the warpgroups exchange nothing.  The cost is the duplicated S^T
-// and dP^T: 1.5x the products of (a) and (b).  Shared memory: the two
-// resident 64-row tiles (64 KiB) and two stages of two 64-row tiles (128
-// KiB) in both kernels, (b) with two stages, not DQ_STAGES.
+// its two consumer warpgroups split the accumulators' head dims, 128
+// columns each, and they split the score products' other operand:
+//   (a) warpgroup w computes S^T = K.Q^T and dP^T = V.dO^T only for its
+//       32 of the step's 64 queries (m64n32k16 over the 256 head dims, B
+//       32 rows into the Q and dO tiles), makes P^T and dS^T of them in
+//       registers (the softcap's 1 - t^2, the masks, the lse and D of its
+//       columns), and stores bf16(P^T) and bf16(dS^T) into two 64 x 64
+//       exchange tiles in shared memory (K-major, 128-byte swizzle,
+//       put_pair); after a named barrier over the 256 consumer threads
+//       (bar.sync 1; the producer is not in it) it issues dV += P^T.dO
+//       and dK += dS^T.Q for its 128 columns (m64n128k16, A from the
+//       exchange tiles, B MN-major) and leaves them in flight;
+//   (b) warpgroup w computes S = Q.K^T and dP = dO.V^T for its 32 of the
+//       step's 64 keys, stores bf16(dS) into a 64 x 64 exchange tile,
+//       and after the barrier issues dQ += dS.K for its 128 columns.
+// A block's S^T and dP^T (S and dP) are thus computed once, not once a
+// warpgroup: in units of one 64 x 64 x 256 product, (a) issues 4 (S^T,
+// dP^T, dV, dK) and (b) 3 (S, dP, dQ), 7 in all, where the column split
+// alone took 6 and 5; the softcap's tanh and the exponentials run once
+// too.  The exchange tiles are double-buffered by live step: a warpgroup
+// rewrites buffer u % 2 at live step u once it has passed step u - 1's
+// barrier, which the other warpgroup reaches only after waiting for its
+// own products of step u - 2, the last to read that buffer; one barrier
+// a step suffices.  A consumer holds two 64 x 128 accumulators ((a);
+// one in (b)) and two 64 x 32 score blocks.  Shared memory at hd 256: the
+// two resident 64-row tiles (64 KiB), two stages of two 64-row tiles
+// (128 KiB) with their lse and D, and the exchange tiles ((a) four, 32
+// KiB: 231 472 of the 232 448 bytes; (b) two: 215 088), (b) in two
+// stages, not DQ_STAGES.  (a) with the cap or the window splits its
+// columns the same way from 112 head dims on (GeoA), with two 64 x 64
+// accumulators and four exchange tiles.
 //
 // Rounding: dO, P and dS are rounded to bf16 for their products, as the
 // JAX package's bf16 compute rounds them; every sum is float32.  Masks:
@@ -174,13 +198,14 @@ struct Scaling {
 };
 
 // log2(e) s' - m for a raw score s: with a softcap t = tanh(scale s /
-// cap) (the forward's accurate tanhf), else t = 0 and s scale log2(e)
-// (sl2 = scale log2(e)) in the same fmaf as without CW
-template <bool CW>
+// cap) (the forward's: softcap_tanh in the bf16 kernels, TC, the accurate
+// tanhf in the float32 ones), else t = 0 and s scale log2(e) (sl2 = scale
+// log2(e)) in the same fmaf as without CW
+template <bool CW, bool TC = false>
 __device__ __forceinline__ float score2(float s, float m, float sl2,
                                         const Scaling& sg, float& t) {
   if (CW && sg.cap_out != 0.f) {
-    t = tanhf(s * sg.cap_in);
+    t = TC ? hopper::softcap_tanh(s * sg.cap_in) : tanhf(s * sg.cap_in);
     return fmaf(sg.cap_out, t, -m);
   }
   t = 0.f;
@@ -214,8 +239,10 @@ constexpr int padded() {
 
 // SPLIT: the warpgroups split the accumulators' columns and share the
 // CTA's 64 rows, else each owns 64 rows of every column; by default above
-// 128 head dims (see the note)
-template <int HD, int ST, bool SPLIT_ = (padded<HD>() > 128)>
+// 128 head dims (see the note).  A split CTA also holds NSCR shared 64 x
+// 64 bf16 tiles of P^T and dS^T ((a): two of each, double-buffered) or
+// dS ((b): two), through which its warpgroups exchange their halves.
+template <int HD, int ST, bool SPLIT_ = (padded<HD>() > 128), int NSCR_ = 0>
 struct Geo {
   static constexpr int HDP = padded<HD>();
   static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle bytes
@@ -228,24 +255,26 @@ struct Geo {
   static constexpr uint32_t TILE = BM * HDP * 2;       // a streamed tile
   static constexpr uint32_t RES_TILE = RES * HDP * 2;  // a resident tile
   static constexpr uint32_t ROWS = 2 * BM * 4;  // a stage's lse and D
+  static constexpr int NSCR = SPLIT ? NSCR_ : 0;
+  static constexpr uint32_t SCR_TILE = BM * BM * 2;  // 64 rows of 128 bytes
   // 1024 bytes of alignment slack, two resident tiles, ST x (two streamed
-  // tiles, lse and D), the mbarriers (full and empty per stage, resident
-  // full and empty)
-  static constexpr int SMEM =
-      1024 + 2 * RES_TILE + ST * (2 * TILE + ROWS) + 8 * (2 * ST + 2);
+  // tiles, lse and D), the exchange tiles, the mbarriers (full and empty
+  // per stage, resident full and empty)
+  static constexpr int SMEM = 1024 + 2 * RES_TILE + ST * (2 * TILE + ROWS) +
+                              NSCR * SCR_TILE + 8 * (2 * ST + 2);
   static_assert(HD % 16 == 0 && HA <= 128 && NP * PC == HDP, "head dim");
+  static_assert(!SPLIT || (SW == 128 && HA % 64 == 0), "split geometry");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
 // (a) with the softcap and the window (CW) splits the columns from 112
-// head dims on: its consumers hold the cap's and the window's state
-// beside two 64 x 128 accumulators, which spills (see the note)
+// head dims on (see the note); a split (a) holds four exchange tiles
 template <int HD, bool CW>
-using GeoA = Geo<HD, DKDV_STAGES, (padded<HD>() > 128 ||
-                                   (CW && padded<HD>() == 128))>;
-// (b) at hd 256 in two stages: three do not fit
+using GeoA = Geo<HD, DKDV_STAGES,
+                 (padded<HD>() > 128 || (CW && padded<HD>() == 128)), 4>;
+// (b) at hd 256 in two stages (three do not fit), with two exchange tiles
 template <int HD>
-using GeoB = Geo<HD, (HD > 128 ? 2 : DQ_STAGES)>;
+using GeoB = Geo<HD, (HD > 128 ? 2 : DQ_STAGES), (padded<HD>() > 128), 2>;
 
 // the producer's and each consumer's registers after setmaxnreg in (a):
 // with CW the producer keeps 40 (its window bounds), the consumers 232
@@ -291,16 +320,10 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// x, opaque to the compiler: keeps per-step descriptor arithmetic from
-// being hoisted out of the step loop into registers held for the kernel
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("mov.b32 %0, %0;" : "+r"(x));
-  return x;
-}
-
 // Shared-memory carve-up of both main kernels: the resident tiles R0, R1
 // ((a): K, V; (b): Q, dO), the streamed tiles A, B of each stage ((a): Q,
-// dO; (b): K, V), (a)'s lse and D rows, the barriers.
+// dO; (b): K, V), a split CTA's exchange tiles (1024-byte aligned, as the
+// 128-byte swizzle needs), (a)'s lse and D rows, the barriers.
 template <class G, int ST>
 struct Smem {
   uint32_t r0;  // the rest are fixed offsets from it (no registers held)
@@ -309,9 +332,10 @@ struct Smem {
   __device__ __forceinline__ uint32_t r1() const { return r0 + G::RES_TILE; }
   __device__ __forceinline__ uint32_t a() const { return r1() + G::RES_TILE; }
   __device__ __forceinline__ uint32_t b() const { return a() + ST * G::TILE; }
-  __device__ __forceinline__ uint32_t rows() const {
-    return b() + ST * G::TILE;
+  __device__ __forceinline__ uint32_t scr(int i) const {
+    return b() + ST * G::TILE + i * G::SCR_TILE;
   }
+  __device__ __forceinline__ uint32_t rows() const { return scr(G::NSCR); }
   __device__ __forceinline__ uint32_t full(int s) const {
     return rows() + ST * G::ROWS + 8u * s;
   }
@@ -368,14 +392,16 @@ __device__ __forceinline__ uint64_t kstep(uint32_t tile, int rows, int row0,
 }
 
 // d = A.B^T over the HD head dims that hold data: A rows row0.. of the
-// `rows`-row tile at `ta`, B the 64-row streamed tile at `tb`, both
-// K-major; issued, not committed
-template <class G, int HD>
-__device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t ta,
-                                         int rows, int row0, uint32_t tb) {
+// `rows`-row tile at `ta`, B rows brow0.. of the 64-row streamed tile at
+// `tb` (64 of them for d[32], 32 for d[16]), both K-major; issued, not
+// committed
+template <class G, int HD, int NA>
+__device__ __forceinline__ void issue_nt(float (&d)[NA], uint32_t ta,
+                                         int rows, int row0, uint32_t tb,
+                                         int brow0 = 0) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss(d, kstep<G>(ta, rows, row0, kk), kstep<G>(tb, BM, 0, kk),
+    wgmma_ss(d, kstep<G>(ta, rows, row0, kk), kstep<G>(tb, BM, brow0, kk),
              kk > 0);
 }
 
@@ -389,6 +415,27 @@ __device__ __forceinline__ void issue_nn(float (&d)[N], const uint32_t (&a)[16],
   for (int kk = 0; kk < BM / 16; ++kk)
     wgmma_rs(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
              desc_mn<G::SW>(tb + kk * 16 * G::SW, BM * G::SW));
+}
+
+// the same with A a 64 x 64 exchange tile at `x` in shared memory
+// (K-major, 128-byte swizzle)
+template <class G, int N>
+__device__ __forceinline__ void issue_xn(float (&d)[N], uint32_t x,
+                                         uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < BM / 16; ++kk)
+    wgmma_ss_mn(d, desc_k<128>(x + kk * 32),
+                desc_mn<G::SW>(tb + kk * 16 * G::SW, BM * G::SW));
+}
+
+// a bf16 pair into row r, columns c and c + 1 (c even) of the exchange
+// tile at `x`: rows of 128 bytes, 16-byte chunk c / 8 at chunk (c / 8) ^
+// (r % 8), the 128-byte swizzle the K-major descriptor reads (the tile
+// 1024-byte aligned).  A warp's 32 stores of one pair index fill 32
+// different banks.
+__device__ __forceinline__ void put_pair(uint32_t x, int r, int c,
+                                         uint32_t v) {
+  st_shared(x + r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2, v);
 }
 
 // (p) D = rowsum(dO o) and bf16(dO); lse and D into padded rows.  L =
@@ -544,9 +591,11 @@ __global__ void __launch_bounds__(GeoA<HD, CW>::NT, 1)
   const int c0 = G::SPLIT ? HA * wg : 0;  // and first column
   const uint32_t cofs = (uint32_t)(c0 / PC) * BM * SW;  // its panel
   const float sl2 = scale * kLog2e;
-  float adk[HA / 2], adv[HA / 2], st[32], dpt[32];
+  // S^T and dP^T: the block's 64 queries, or (split) this warpgroup's 32
+  constexpr int NS = G::SPLIT ? 16 : 32;
+  float adk[HA / 2], adv[HA / 2], st[NS], dpt[NS];
   uint32_t pa[16];  // P^T, then dS^T, as bf16 pairs
-  int it = 0, nt = 0;
+  int it = 0, nt = 0, u = 0;  // u: live steps (split: the exchange buffer)
   for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
        ++ti) {
     const int kb = t / (KH * B), kh = t % KH, b = t / KH % B;
@@ -565,11 +614,13 @@ __global__ void __launch_bounds__(GeoA<HD, CW>::NT, 1)
         mbar_wait(sm.full(s), (it / ST) & 1);
         if (kw0 >= Tn || (causal && kw0 > q0 + BM - 1) ||
             (CW && window > 0 && q0 >= kw0 + 63 + window)) {
-          // no pair of this warpgroup's: free the stage, and the one the
-          // product in flight reads (the next live step may reuse it)
+          // no pair of this warpgroup's (split: of the CTA's, so both
+          // warpgroups skip): free the stage, and the one the product in
+          // flight reads (the next live step may reuse it)
           if (held >= 0) {
             wg_wait<0>();
             reg_fence(adk);
+            if constexpr (G::SPLIT) reg_fence(adv);  // dV in flight too
             release(sm.empty(held), lane);
             held = -1;
           }
@@ -580,88 +631,159 @@ __global__ void __launch_bounds__(GeoA<HD, CW>::NT, 1)
         const uint32_t kres = opaque(sm.r0), vres = opaque(sm.r1());
         const uint32_t lse_s = sm.rows() + s * G::ROWS;  // shared addresses
         const uint32_t del_s = lse_s + BM * 4;
-        reg_fence(st);
-        reg_fence(dpt);
-        wg_fence();
-        issue_nt<G, HD>(st, kres, RES, rw, qs);   // S^T = K.Q^T
-        wg_commit();
-        wg_wait<0>();  // the last dK product and S^T are in
-        reg_fence(st);
-        reg_fence(adk);
-        reg_fence(pa);
-        if (held >= 0) release(sm.empty(held), lane);
-        const bool edge = (causal && kw0 + 63 > q0) || kw0 + 64 > Tn ||
-                          q0 + BM > S ||
-                          (CW && window > 0 && q0 + BM - 1 - kw0 >= window);
-        float2 l;  // the lse of columns 8 j + cq, + 1
-        if constexpr (CW) {
-          // P for dV's product, then P (1 - t^2) in P^T's registers
+        if constexpr (G::SPLIT) {
+          // S^T and dP^T of the block's 64 keys and queries qh .. qh + 31
+          // (m64n32k16, B 32 rows into the Q and dO tiles); P^T and dS^T of
+          // them into this live step's exchange tiles; after both
+          // warpgroups' halves are in, dV and dK over all 64 queries for
+          // this warpgroup's columns (A from the exchange tiles)
+          const int qh = 32 * wg;
+          const uint32_t xp = sm.scr(2 * (u & 1)), xd = xp + G::SCR_TILE;
+          reg_fence(st);
+          reg_fence(dpt);
+          wg_fence();
+          issue_nt<G, HD>(st, kres, RES, 0, qs, qh);   // S^T = K.Q^T
+          wg_commit();
+          issue_nt<G, HD>(dpt, vres, RES, 0, dos, qh);  // dP^T = V.dO^T
+          wg_commit();
+          wg_wait<1>();  // the last dV, dK products and S^T are in
+          reg_fence(st);
+          reg_fence(adk);
+          reg_fence(adv);
+          if (held >= 0) release(sm.empty(held), lane);
+          const bool edge = (causal && kw0 + 63 > q0) || kw0 + 64 > Tn ||
+                            q0 + BM > S ||
+                            (CW && window > 0 && q0 + BM - 1 - kw0 >= window);
+          float2 l;  // the lse of queries qh + 8 (j / 2) + cq, + 1
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < NS / 2; ++j) {
+            const int col = qh + 8 * (j >> 1) + cq;  // query q0 + col
+            const int key = kw0 + r0 + 8 * (j & 1);
+            if ((j & 1) == 0) l = lds2(lse_s + 4 * col);
             float p[2];
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const int e = 2 * j + u;
-              const int col = 8 * (e >> 2) + cq + u;  // query q0 + col
-              if ((e & 3) == 0) l = lds2(lse_s + 4 * col);
+            for (int e = 0; e < 2; ++e) {
               float tt;
-              p[u] = ex2(score2<CW>(st[e], u ? l.y : l.x, sl2, sg, tt));
+              p[e] = ex2(score2<CW, true>(st[2 * j + e], e ? l.y : l.x, sl2, sg, tt));
+              if (edge) {
+                const int qr_ = q0 + col + e;
+                if (key >= Tn || qr_ >= S || (causal && key > qr_) ||
+                    (CW && window > 0 && key <= qr_ - window))
+                  p[e] = 0.f;
+              }
+              st[2 * j + e] = CW ? p[e] * (1.f - tt * tt) : p[e];
+            }
+            put_pair(xp, r0 + 8 * (j & 1), col, pack(p[0], p[1]));
+          }
+          wg_wait<0>();  // dP^T is in
+          reg_fence(dpt);
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j) {
+            const float2 d = lds2(del_s + 4 * (qh + 8 * j + cq));
+#pragma unroll
+            for (int e = 4 * j; e < 4 * j + 4; ++e)
+              dpt[e] = st[e] * (dpt[e] - ((e & 1) ? d.y : d.x));
+          }
+#pragma unroll
+          for (int j = 0; j < NS / 2; ++j)
+            put_pair(xd, r0 + 8 * (j & 1), qh + 8 * (j >> 1) + cq,
+                     pack(dpt[2 * j], dpt[2 * j + 1]));
+          fence_proxy_async();
+          bar_sync<1, 128 * NWG>();  // both halves of P^T and dS^T are in
+          reg_fence(adk);
+          reg_fence(adv);
+          wg_fence();
+          issue_xn<G>(adv, xp, dos + cofs);  // dV += P^T.dO
+          issue_xn<G>(adk, xd, qs + cofs);   // dK += dS^T.Q, left in flight
+          wg_commit();
+        } else {
+          reg_fence(st);
+          reg_fence(dpt);
+          wg_fence();
+          issue_nt<G, HD>(st, kres, RES, rw, qs);   // S^T = K.Q^T
+          wg_commit();
+          wg_wait<0>();  // the last dK product and S^T are in
+          reg_fence(st);
+          reg_fence(adk);
+          reg_fence(pa);
+          if (held >= 0) release(sm.empty(held), lane);
+          const bool edge = (causal && kw0 + 63 > q0) || kw0 + 64 > Tn ||
+                            q0 + BM > S ||
+                            (CW && window > 0 && q0 + BM - 1 - kw0 >= window);
+          float2 l;  // the lse of columns 8 j + cq, + 1
+          if constexpr (CW) {
+            // P for dV's product, then P (1 - t^2) in P^T's registers
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              float p[2];
+#pragma unroll
+              for (int u2 = 0; u2 < 2; ++u2) {
+                const int e = 2 * j + u2;
+                const int col = 8 * (e >> 2) + cq + u2;  // query q0 + col
+                if ((e & 3) == 0) l = lds2(lse_s + 4 * col);
+                float tt;
+                p[u2] = ex2(score2<CW, true>(st[e], u2 ? l.y : l.x, sl2, sg, tt));
+                if (edge) {
+                  const int key = kw0 + r0 + 8 * ((e >> 1) & 1),
+                            qr_ = q0 + col;
+                  if (key >= Tn || qr_ >= S || (causal && key > qr_) ||
+                      (window > 0 && key <= qr_ - window))
+                    p[u2] = 0.f;
+                }
+                st[e] = p[u2] * (1.f - tt * tt);
+              }
+              pa[j] = pack(p[0], p[1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int col = 8 * (e >> 2) + cq + (e & 1);  // query q0 + col
+              if ((e & 3) == 0) l = lds2(lse_s + 4 * (col - (e & 1)));
+              float p = ex2(fmaf(st[e], sl2, -((e & 1) ? l.y : l.x)));
               if (edge) {
                 const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr_ = q0 + col;
-                if (key >= Tn || qr_ >= S || (causal && key > qr_) ||
-                    (window > 0 && key <= qr_ - window))
-                  p[u] = 0.f;
+                if (key >= Tn || qr_ >= S || (causal && key > qr_)) p = 0.f;
               }
-              st[e] = p[u] * (1.f - tt * tt);
+              st[e] = p;
             }
-            pa[j] = pack(p[0], p[1]);
+#pragma unroll
+            for (int j = 0; j < 16; ++j) pa[j] = pack(st[2 * j], st[2 * j + 1]);
           }
-        } else {
+          reg_fence(pa);
+          reg_fence(adv);
+          wg_fence();
+          // dV += P^T.dO, then dP^T = V.dO^T (issued only now: live beside
+          // P^T's registers, its 32 accumulators would spill at hd 128)
+          issue_nn<G>(adv, pa, dos + cofs);
+          wg_commit();
+          issue_nt<G, HD>(dpt, vres, RES, rw, dos);
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(adv);
+          reg_fence(pa);
+          reg_fence(dpt);
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int col = 8 * (e >> 2) + cq + (e & 1);  // query q0 + col
-            if ((e & 3) == 0) l = lds2(lse_s + 4 * (col - (e & 1)));
-            float p = ex2(fmaf(st[e], sl2, -((e & 1) ? l.y : l.x)));
-            if (edge) {
-              const int key = kw0 + r0 + 8 * ((e >> 1) & 1), qr_ = q0 + col;
-              if (key >= Tn || qr_ >= S || (causal && key > qr_)) p = 0.f;
-            }
-            st[e] = p;
+          for (int j = 0; j < 8; ++j) {
+            const float2 d = lds2(del_s + 8 * 4 * j + 4 * cq);
+#pragma unroll
+            for (int e = 4 * j; e < 4 * j + 4; ++e)
+              dpt[e] = st[e] * (dpt[e] - ((e & 1) ? d.y : d.x));
           }
 #pragma unroll
-          for (int j = 0; j < 16; ++j) pa[j] = pack(st[2 * j], st[2 * j + 1]);
+          for (int j = 0; j < 16; ++j)
+            pa[j] = pack(dpt[2 * j], dpt[2 * j + 1]);
+          reg_fence(pa);
+          reg_fence(adk);
+          wg_fence();
+          issue_nn<G>(adk, pa, qs + cofs);  // dK += dS^T.Q, left in flight
+          wg_commit();
         }
-        reg_fence(pa);
-        reg_fence(adv);
-        wg_fence();
-        // dV += P^T.dO, then dP^T = V.dO^T (issued only now: live beside
-        // P^T's registers, its 32 accumulators would spill at hd 128)
-        issue_nn<G>(adv, pa, dos + cofs);
-        wg_commit();
-        issue_nt<G, HD>(dpt, vres, RES, rw, dos);
-        wg_commit();
-        wg_wait<0>();
-        reg_fence(adv);
-        reg_fence(pa);
-        reg_fence(dpt);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 d = lds2(del_s + 8 * 4 * j + 4 * cq);
-#pragma unroll
-          for (int e = 4 * j; e < 4 * j + 4; ++e)
-            dpt[e] = st[e] * (dpt[e] - ((e & 1) ? d.y : d.x));
-        }
-#pragma unroll
-        for (int j = 0; j < 16; ++j) pa[j] = pack(dpt[2 * j], dpt[2 * j + 1]);
-        reg_fence(pa);
-        reg_fence(adk);
-        wg_fence();
-        issue_nn<G>(adk, pa, qs + cofs);  // dK += dS^T.Q, left in flight
-        wg_commit();
         held = s;
+        ++u;
       }
       wg_wait<0>();
       reg_fence(adk);
+      if constexpr (G::SPLIT) reg_fence(adv);
       if (held >= 0) release(sm.empty(held), lane);
       release(sm.res_empty(), lane);
     }
@@ -760,9 +882,11 @@ __global__ void __launch_bounds__(GeoB<HD>::NT, 1)
   const uint32_t cofs = (uint32_t)(c0 / PC) * BM * SW;  // its panel
   const float sl2 = scale * kLog2e;
   const size_t plane = (size_t)B * H * S_pad;
-  float adq[HA / 2], sc[32], dp[32];
+  // S and dP: the block's 64 keys, or (split) this warpgroup's 32
+  constexpr int NS = G::SPLIT ? 16 : 32;
+  float adq[HA / 2], sc[NS], dp[NS];
   uint32_t da[16];
-  int it = 0, nt = 0;
+  int it = 0, nt = 0, u = 0;  // u: live steps (split: the exchange buffer)
   for (int ti = 0, t; (t = tile_of(blockIdx.x, ti, gridDim.x, n_tiles)) >= 0;
        ++ti, ++nt) {
     const int q0 = (n_rb - 1 - t / (H * B)) * RES, qw0 = q0 + rw;
@@ -797,12 +921,14 @@ __global__ void __launch_bounds__(GeoB<HD>::NT, 1)
       }
       const uint32_t ks = sm.a() + s * G::TILE, vs = sm.b() + s * G::TILE;
       const uint32_t qres = opaque(sm.r0), dores = opaque(sm.r1());
+      // split: keys t0 + kh0 .. + 31 (B 32 rows into the K and V tiles)
+      const int kh0 = G::SPLIT ? 32 * wg : 0;
       reg_fence(sc);
       reg_fence(dp);
       wg_fence();
-      issue_nt<G, HD>(sc, qres, RES, rw, ks);  // S = Q.K^T
+      issue_nt<G, HD>(sc, qres, RES, rw, ks, kh0);  // S = Q.K^T
       wg_commit();
-      issue_nt<G, HD>(dp, dores, RES, rw, vs);  // dP = dO.V^T
+      issue_nt<G, HD>(dp, dores, RES, rw, vs, kh0);  // dP = dO.V^T
       wg_commit();
       wg_wait<1>();  // the last dQ product and S are in
       reg_fence(sc);
@@ -813,12 +939,12 @@ __global__ void __launch_bounds__(GeoB<HD>::NT, 1)
                         qw0 + 64 > S ||
                         (CW && window > 0 && qw0 + 63 - t0 >= window);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
+      for (int e = 0; e < NS; ++e) {
         const int rr = (e >> 1) & 1;
         float tt;
-        float p = ex2(score2<CW>(sc[e], lse_r[rr], sl2, sg, tt));
+        float p = ex2(score2<CW, true>(sc[e], lse_r[rr], sl2, sg, tt));
         if (edge) {
-          const int key = t0 + 8 * (e >> 2) + cq + (e & 1);
+          const int key = t0 + kh0 + 8 * (e >> 2) + cq + (e & 1);
           const int row = qw0 + r0 + 8 * rr;
           if (key >= Tn || row >= S || (causal && key > row) ||
               (CW && window > 0 && key <= row - window))
@@ -829,15 +955,33 @@ __global__ void __launch_bounds__(GeoB<HD>::NT, 1)
       wg_wait<0>();
       reg_fence(dp);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - del_r[(e >> 1) & 1]);
+      for (int e = 0; e < NS; ++e) dp[e] = sc[e] * (dp[e] - del_r[(e >> 1) & 1]);
+      if constexpr (G::SPLIT) {
+        // this warpgroup's half of dS into the live step's exchange tile;
+        // after both halves are in, dQ over all 64 keys for its columns
+        const uint32_t xs = sm.scr(u & 1);
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) da[jj] = pack(dp[2 * jj], dp[2 * jj + 1]);
-      reg_fence(da);
-      reg_fence(adq);
-      wg_fence();
-      issue_nn<G>(adq, da, ks + cofs);  // dQ += dS.K, left in flight
-      wg_commit();
+        for (int jj = 0; jj < NS / 2; ++jj)
+          put_pair(xs, r0 + 8 * (jj & 1), kh0 + 8 * (jj >> 1) + cq,
+                   pack(dp[2 * jj], dp[2 * jj + 1]));
+        fence_proxy_async();
+        bar_sync<1, 128 * NWG>();  // both halves of dS are in
+        reg_fence(adq);
+        wg_fence();
+        issue_xn<G>(adq, xs, ks + cofs);  // dQ += dS.K, left in flight
+        wg_commit();
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+          da[jj] = pack(dp[2 * jj], dp[2 * jj + 1]);
+        reg_fence(da);
+        reg_fence(adq);
+        wg_fence();
+        issue_nn<G>(adq, da, ks + cofs);  // dQ += dS.K, left in flight
+        wg_commit();
+      }
       held = s;
+      ++u;
     }
     wg_wait<0>();
     reg_fence(adq);

@@ -268,28 +268,100 @@ def _bwd_padded(hd):
     return hd if hd <= 64 else -(-hd // 64) * 64
 
 
-def _bwd_smem_bytes(hd, nwg, stages, split=None):
-    """tc::Geo<HD, ST, SPLIT>::SMEM: 1024 bytes of alignment slack, two
-    resident tiles of 64 NWG rows (64 where the warpgroups split the
+def _bwd_smem_bytes(hd, nwg, stages, split=None, xtiles=0):
+    """tc::Geo<HD, ST, SPLIT, NSCR>::SMEM: 1024 bytes of alignment slack,
+    two resident tiles of 64 NWG rows (64 where the warpgroups split the
     columns: above 128 padded head dims by default), per stage two
-    streamed 64-row tiles and 64 lse and 64 D floats, and the mbarriers;
-    tiles of the padded width."""
+    streamed 64-row tiles and 64 lse and 64 D floats, a split CTA's
+    ``xtiles`` 64 x 64 bf16 exchange tiles (P^T and dS^T double-buffered
+    in (a), dS in (b)), and the mbarriers; tiles of the padded width."""
     hdp = _bwd_padded(hd)
     split = hdp > 128 if split is None else split
     tile, res = 64 * hdp * 2, (64 if split else 64 * nwg) * hdp * 2
-    return 1024 + 2 * res + stages * (2 * tile + 2 * 64 * 4) + 8 * (
-        2 * stages + 2)
+    return (1024 + 2 * res + stages * (2 * tile + 2 * 64 * 4)
+            + (xtiles * 64 * 64 * 2 if split else 0)
+            + 8 * (2 * stages + 2))
 
 
 def _bwd_instance_smem(hd):
     """The largest of (a) without and with the softcap/window (which
-    splits the columns from 128 padded head dims on) and (b) (two stages
-    at hd 256)."""
+    splits the columns from 128 padded head dims on; four exchange tiles
+    when split) and (b) (two stages at hd 256; two exchange tiles)."""
     nwg, hdp = _BWD["NWG"], _bwd_padded(hd)
-    return max(_bwd_smem_bytes(hd, nwg, _BWD["DKDV_STAGES"]),
+    return max(_bwd_smem_bytes(hd, nwg, _BWD["DKDV_STAGES"], xtiles=4),
                _bwd_smem_bytes(hd, nwg, _BWD["DKDV_STAGES"],
-                               split=hdp >= 128),
-               _bwd_smem_bytes(hd, nwg, 2 if hd > 128 else _BWD["DQ_STAGES"]))
+                               split=hdp >= 128, xtiles=4),
+               _bwd_smem_bytes(hd, nwg, 2 if hd > 128 else _BWD["DQ_STAGES"],
+                               xtiles=2))
+
+
+def test_bwd_hd256_shared_memory_is_the_documented_layout():
+    """At hd 256 the split (a) holds its two resident and two streamed
+    stages (198 704 bytes before this design) plus four 8 KiB exchange
+    tiles: 231 472 of the 232 448 bytes; (b) two: 215 088."""
+    nwg = _BWD["NWG"]
+    assert _bwd_smem_bytes(256, nwg, _BWD["DKDV_STAGES"]) == 198704
+    assert _bwd_smem_bytes(256, nwg, _BWD["DKDV_STAGES"], xtiles=4) == \
+        231472 <= SMEM_MAX
+    assert _bwd_smem_bytes(256, nwg, 2, xtiles=2) == 215088
+
+
+_BWD_SRC = AK.SOURCE_BWD.read_text()
+
+
+def _bwd_regs(cw):
+    """tc::producer_regs / consumer_regs: (producer, consumer) registers
+    a thread after setmaxnreg in (a), read from the source."""
+    p = re.search(r"return CW \? (\d+) : PRODUCER_REGS;", _BWD_SRC)
+    c = re.search(r"return CW \? (\d+) : CONSUMER_REGS;", _BWD_SRC)
+    return ((int(p.group(1)), int(c.group(1))) if cw else
+            (_BWD["PRODUCER_REGS"], _BWD["CONSUMER_REGS"]))
+
+
+@pytest.mark.parametrize("cw", [False, True])
+def test_bwd_register_balance(cw):
+    """384 threads a CTA at 168 registers fill the SM's 65 536; the
+    producer warpgroup's setmaxnreg.dec frees at least what the two
+    consumer warpgroups' setmaxnreg.inc take, in multiples of 8 within
+    24..256."""
+    nwg = _BWD["NWG"]
+    prod, cons = _bwd_regs(cw)
+    assert 168 * 128 * (nwg + 1) <= 65536
+    assert (168 - prod) * 128 >= (cons - 168) * 128 * nwg
+    assert all(r % 8 == 0 and 24 <= r <= 256 for r in (prod, cons))
+
+
+_FWD = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                          AK.SOURCE.read_text())}
+
+
+def _fwd_smem_bytes(hd):
+    """tc::Geo<HD>::SMEM of the forward: 1024 bytes of alignment slack, a
+    64-row Q tile, STAGES K and V tiles of 64 rows, the 4 STAGES + 1
+    mbarriers; tiles of the padded width (128 at hd 112)."""
+    hdp = _bwd_padded(hd)
+    tile = 64 * hdp * 2
+    return 1024 + tile + 2 * _FWD["STAGES"] * tile + 8 * (
+        4 * _FWD["STAGES"] + 1)
+
+
+@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+def test_fwd_geometry_fits_the_sm(hd):
+    """The bf16 forward's CTA (a consumer warpgroup and a producer warp,
+    tc::NT) fits the SM at every head dim: two CTAs an SM up to 128
+    padded head dims at <= 168 registers a thread, one at hd 256 (255
+    registers), within 232 448 bytes and 65 536 registers."""
+    assert (_FWD["BQ"], _FWD["BK"], _FWD["NT"]) == (64, 64, 160)
+    ctas = 2 if _bwd_padded(hd) <= 128 else 1
+    regs = 168 if ctas == 2 else 255
+    assert _fwd_smem_bytes(hd) * ctas <= SMEM_MAX
+    assert ctas * _FWD["NT"] * regs <= 65536
+
+
+def test_fwd_shared_memory_mirror_matches_the_library(cuda):
+    for hd in AK.HEAD_DIMS:
+        assert AK.shared_memory_bytes(hd, torch.bfloat16) == \
+            _fwd_smem_bytes(hd)
 
 
 def _bwd_f32_smem_bytes(hd):
@@ -803,6 +875,20 @@ def test_flash_attention_bwd_kernels_do_not_spill(cuda):
     rep = ptxas_report(Path(str(AK.build_bwd()) + ".log").read_text())
     assert len([r for r in rep if "wgmma" in r["kernel"]]) == 4 * len(
         AK.HEAD_DIMS)
+    for r in rep:
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+
+
+def test_flash_attention_fwd_kernels_do_not_spill(cuda):
+    """ptxas's report of the forward library: its tensor-core kernels
+    (with and without the softcap and the window, every head dim) keep
+    everything in registers."""
+    from pathlib import Path
+
+    from repro_torch.kernels._build import ptxas_report
+    rep = [r for r in ptxas_report(Path(str(AK.build()) + ".log").read_text())
+           if "wgmma" in r["kernel"]]
+    assert len(rep) == 2 * len(AK.HEAD_DIMS)
     for r in rep:
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 

@@ -15,10 +15,15 @@ arithmetic are mirrored in Python:
   their rounding points (dO, P and dS rounded to bf16 for the products,
   float32 sums, dQ summed over key blocks in ascending order), the
   softcap's 1 - t^2 factor and the window's mask, hd 112 on zero-padded
-  128-wide tiles and hd 256 with the dK/dV/dQ columns split between the
-  two warpgroups, held against ``attention_bwd_ref`` and ``jax.grad`` of
-  the JAX package's attention at the bf16 tolerance the card's gate uses
-  (1e-2).
+  128-wide tiles and hd 256 split between the two warpgroups (each
+  scores its 32-wide half of a block once and exchanges bf16 P^T and
+  dS^T (dS) through shared tiles; each owns half the dK/dV/dQ columns),
+  held against ``attention_bwd_ref`` and ``jax.grad`` of the JAX
+  package's attention at the bf16 tolerance the card's gate uses (1e-2);
+* the products a block issues on the split geometry, counted from the
+  kernels' own issue calls on the path each instance compiles, with
+  the widths of their accumulators as declared: 4 units of 64 x 64 x
+  256 in (a) and 3 in (b) at hd 256.
 
 The constants (block rows, warpgroups a CTA) are read from the source.
 """
@@ -72,15 +77,24 @@ def cta_tiles(c, grid, n_tiles):
 def _split(hd):
     """hd 256's geometry: the two warpgroups split the columns of one
     64-row block (``tc::Geo::SPLIT``), so a CTA holds 64 rows, not
-    64 NWG."""
+    64 NWG, and each scores its half of the block's other side."""
     return hd > 128
+
+
+# the score accumulators a consumer thread holds, split or not
+# (``constexpr int NS = G::SPLIT ? 16 : 32;`` in both kernels): a m64nN
+# f32 accumulator is N / 2 registers a thread
+_NS = re.findall(r"constexpr int NS = G::SPLIT \? (\d+) : (\d+);", _SRC)
+HALF = 2 * int(_NS[0][0])     # a split warpgroup's score columns
 
 
 def dkdv_plan(B, S, T, H, K, causal, window=0, split=False, nwg=NWG):
     """(a)'s tiles in list order: per tile (b, kv head, key block of 64
     nwg, or 64 split) a pair (its visits, whether its key block is the
     ragged last one); the visits of each warpgroup as (b, query head, key
-    block of 64, q block of 64), a split CTA's one visit a block."""
+    block of 64, q block of 64), a split CTA's as (b, query head, key
+    block, q block, w): warpgroup w scores the block's queries 32 w ..
+    32 w + 31."""
     res, G = (BM if split else BM * nwg), H // K
     n_qb, n_kb = -(-S // BM), -(-T // res)
     tiles = []
@@ -98,7 +112,9 @@ def dkdv_plan(B, S, T, H, K, causal, window=0, split=False, nwg=NWG):
                 kw0 = k0 + BM * w
                 if (kw0 < T and (not causal or kw0 <= q0 + BM - 1)
                         and (not window or q0 < kw0 + 63 + window)):
-                    visits.append((b, h, kw0 // BM, q0 // BM))
+                    block = (b, h, kw0 // BM, q0 // BM)
+                    visits += ([block + (u,) for u in range(nwg)] if split
+                               else [block])
         tiles.append((visits, T % res != 0 and kb == n_kb - 1))
     return tiles
 
@@ -107,7 +123,8 @@ def dq_plan(B, S, T, H, K, causal, window=0, split=False, nwg=NWG):
     """(b)'s tiles in list order: per tile (b, head, q block of 64 nwg,
     or 64 split) a pair (its visits, whether its rows are the ragged last
     block); the visits of each warpgroup as (b, head, key block, q
-    block)."""
+    block), a split CTA's as (b, head, key block, q block, w): warpgroup
+    w scores the block's keys 32 w .. 32 w + 31."""
     res = BM if split else BM * nwg
     n_rb = -(-S // res)
     tiles = []
@@ -123,7 +140,9 @@ def dq_plan(B, S, T, H, K, causal, window=0, split=False, nwg=NWG):
                 qw0 = q0 + BM * w
                 if (qw0 < S and (not causal or j * BM <= qw0 + BM - 1)
                         and (not window or j * BM + 63 + window > qw0)):
-                    visits.append((b, h, j, qw0 // BM))
+                    block = (b, h, j, qw0 // BM)
+                    visits += ([block + (u,) for u in range(nwg)] if split
+                               else [block])
         tiles.append((visits, S % res != 0 and rb == n_rb - 1))
     return tiles
 
@@ -165,7 +184,12 @@ def _check_plan(plan, B, S, T, H, K, causal, window=0, split=False):
     tiles = plan(B, S, T, H, K, causal, window, split)
     visits = [v for tile, _ in tiles for v in tile]
     assert len(visits) == len(set(visits))
-    assert set(visits) == live_blocks(B, S, T, H, causal, window)
+    live = live_blocks(B, S, T, H, causal, window)
+    if split:   # each live block's two halves, one a warpgroup
+        assert set(visits) == {blk + (w,) for blk in live
+                               for w in range(NWG)}
+    else:
+        assert set(visits) == live
     work = [len(tile) for tile, ragged in tiles
             if not (ragged and plan is dq_plan)]
     if not window or (causal and S <= T):
@@ -207,6 +231,101 @@ def test_windowed_and_split_tiles_visit_every_live_block_once(
     q0 - window + 1) and on hd 256's 64-row split tiles: no block left of
     the window is visited, the causal lists stay longest first."""
     _check_plan(plan, B, S, T, H, K, causal, window, split)
+
+
+_KERNELS = {"a": "flash_bwd_dkdv_wgmma_kernel", "b": "flash_bwd_dq_wgmma_kernel"}
+_CODE = re.sub(r"//[^\n]*", "", _SRC)    # the source without comments
+
+
+def _block_end(text, i):
+    """The index past the brace block that opens at text[i]."""
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return j + 1
+    raise ValueError("unbalanced braces")
+
+
+def _kernel_path(kernel, split):
+    """The body of kernel (a) or (b) as its split (or unsplit) instances
+    compile it: each ``if constexpr (G::SPLIT) {...} else {...}`` reduced
+    to the side that instance takes."""
+    a = re.search(rf"{_KERNELS[kernel]}\([^)]*\)\s*\{{", _CODE).end() - 1
+    body, out, i = _CODE[a:_block_end(_CODE, a)], "", 0
+    key = "if constexpr (G::SPLIT) {"
+    while (j := body.find(key, i)) >= 0:
+        then_end = _block_end(body, j + len(key) - 1)
+        other = re.match(r"\s*else\s*\{", body[then_end:])
+        end = (_block_end(body, then_end + other.end() - 1) if other
+               else then_end)
+        out += body[i:j] + (body[j:then_end] if split
+                            else body[then_end:end])
+        i = end
+    return out + body[i:]
+
+
+def issue_list(kernel, hd, score_split=True):
+    """What one consumer warpgroup issues a live step, as (accumulator,
+    M, N, K) of its wgmma, read from ``tc::flash_bwd_dkdv_wgmma_kernel``
+    ("a") and ``tc::flash_bwd_dq_wgmma_kernel`` ("b") on the path their
+    instances at ``hd`` compile: every ``issue_nt``/``issue_xn``/
+    ``issue_nn`` call, N from the declared width of its accumulator
+    (``st[NS]``, ``adk[HA / 2]``: a m64nN f32 accumulator is N / 2
+    registers a thread, NS read from the kernel), K from the helper's
+    k-loop (``HD / 16`` or ``BM / 16`` k-steps).  ``score_split=False``
+    gives the split path the unsplit score width, each warpgroup scoring
+    the whole block: the column split alone, the design before."""
+    hdp = -(-hd // 64) * 64 if hd > 64 else hd
+    split = _split(hd)
+    body = _kernel_path(kernel, split)
+    ns = re.search(r"constexpr int NS = G::SPLIT \? (\d+) : (\d+);", body)
+    regs = {"NS": int(ns.group(1 if split and score_split else 2)),
+            "HA / 2": (hdp // NWG if split else hdp) // 2}
+    width = dict(re.findall(r"(\w+)\[(NS|HA / 2)\]", body))
+    ksteps = {kind: re.search(r"kk < (\w+) / 16", _CODE[_CODE.index(
+        f"void issue_{kind}("):]).group(1) for kind in ("nt", "xn", "nn")}
+    return [(acc, BM, 2 * regs[width[acc]], hd if ksteps[kind] == "HD"
+             else BM)
+            for kind, acc in re.findall(r"issue_(nt|xn|nn)<[^>]*>\((\w+),",
+                                        body)]
+
+
+def block_units(kernel, hd, score_split=True):
+    """Products a live 64 x 64 block costs, in units of one 64 x 64 x hd
+    product: every warpgroup that visits the block issues its list."""
+    per_wg = sum(m * n * kk for _, m, n, kk in issue_list(
+        kernel, hd, score_split)) / (BM * BM * hd)
+    return per_wg * (NWG if _split(hd) else 1)
+
+
+def test_split_blocks_score_once_and_issue_seven_units():
+    """At hd 256 a block's S^T and dP^T (S and dP) come from one
+    warpgroup's half each, never twice: (a) issues 4 product units and
+    (b) 3, against 6 and 5 when each warpgroup scored the whole block
+    (the unsplit design issues 4 and 3 as well); counted over gemma2's
+    windowed plan, every unit is a live block's.  The counts come from
+    the kernels' own issue calls and accumulator widths; the header
+    comment of attention_bwd.cu states the same."""
+    assert HALF == BM // NWG == 32
+    assert [acc for acc, *_ in issue_list("a", 256)] == [
+        "st", "dpt", "adv", "adk"]
+    assert [acc for acc, *_ in issue_list("b", 256)] == ["sc", "dp", "adq"]
+    assert (block_units("a", 256), block_units("b", 256)) == (4, 3)
+    assert (block_units("a", 256, score_split=False),
+            block_units("b", 256, score_split=False)) == (6, 5)
+    assert (block_units("a", 128), block_units("b", 128)) == (4, 3)
+    flat = " ".join(line.strip().lstrip("/").strip()
+                    for line in _SRC.splitlines())
+    assert "(a) issues 4 (S^T, dP^T, dV, dK) and (b) 3 (S, dP, dQ)" in flat
+    B, S, H, K = 1, 1024, 4, 2
+    live = live_blocks(B, S, S, H, True, 300)
+    for kernel, plan in (("a", dkdv_plan), ("b", dq_plan)):
+        visits = [v for tile, _ in plan(B, S, S, H, K, True, 300, True)
+                  for v in tile]
+        per_visit = block_units(kernel, 256) / NWG
+        assert len(visits) * per_visit == len(live) * block_units(
+            kernel, 256)
 
 
 @pytest.mark.parametrize("plan", [dkdv_plan, dq_plan])
@@ -316,8 +435,10 @@ def emulate_bwd(q, k, v, o, do, lse, *, causal=True, scale=None,
     bf16(dS)^T.q over the (query head, q block) steps in (a)'s order; dQ
     += bf16(dS).k over the key blocks in ascending order, as (b) sums
     them.  hd 112 runs on 128 columns, the last 16 zeros (the TMA's
-    fill), and keeps 112; at hd 256 each warpgroup's half of the columns
-    of dV, dK and dQ is its own product over the whole S and dP.  ->
+    fill), and keeps 112.  At hd 256 the plans' visits are 32-wide halves:
+    each half of a block is scored exactly once, by its warpgroup, into
+    bf16 exchange tiles (P^T and dS^T in (a), dS in (b)), which both
+    warpgroups then read for their half of the dV, dK (dQ) columns.  ->
     (dq, dk, dv) float32.  ``rounded=False`` drops the bf16 roundings
     (the blocked sums alone)."""
     B, S, H, hd = q.shape
@@ -333,7 +454,8 @@ def emulate_bwd(q, k, v, o, do, lse, *, causal=True, scale=None,
     rnd = _bf16 if rounded else (lambda x: x)
     T, K = k.shape[1], k.shape[2]
     G = H // K
-    halves = ([slice(0, hd // 2), slice(hd // 2, hd)] if _split(hd)
+    split = _split(hd)
+    halves = ([slice(0, hd // 2), slice(hd // 2, hd)] if split
               else [slice(0, hd)])
     qf, kf, vf = q.float(), k.float(), v.float()
     dof, dob = do.float(), rnd(do.float())
@@ -343,10 +465,12 @@ def emulate_bwd(q, k, v, o, do, lse, *, causal=True, scale=None,
     dv = torch.zeros(B, T, K, hd)
     keep = torch.as_tensor(keep_mask(S, T, causal, window))
 
-    def block(b, h, kb, qb):
+    def rows(lo, n, end):
+        return slice(min(lo, end), min(lo + n, end))
+
+    def part(b, h, ks, qs):
+        """P and dS (queries x keys) of the pair block (qs, ks)."""
         kh = h // G
-        ks, qs = slice(kb * BM, min(kb * BM + BM, T)), \
-            slice(qb * BM, min(qb * BM + BM, S))
         s = qf[b, qs, h] @ kf[b, ks, kh].T
         if softcap:
             t = torch.tanh(s * (scale / softcap))
@@ -357,25 +481,70 @@ def emulate_bwd(q, k, v, o, do, lse, *, causal=True, scale=None,
         p = torch.where(keep[qs, ks], p, torch.zeros(()))
         dp = dob[b, qs, h] @ vf[b, ks, kh].T
         ds = p * (1 - t * t) * (dp - delta[b, qs, h, None])
-        return kh, ks, qs, p, ds
+        return p, ds
 
     live = live_blocks(B, S, T, H, causal, window)
-    for visit in dkdv_order(B, S, T, H, K, causal, window, _split(hd)):
-        if visit not in live:
+    scored = set()      # (kernel, visit): each half scored once
+    tiles = {}          # the exchange tiles of the block in hand
+    for visit in dkdv_order(B, S, T, H, K, causal, window, split):
+        b, h, kb, qb = visit[:4]
+        if visit[:4] not in live:
             continue
-        b, h, kb, qb = visit
-        kh, ks, qs, p, ds = block(*visit)
-        for c in halves:
-            dv[b, ks, kh, c] += rnd(p).T @ dob[b, qs, h, c]
-            dk[b, ks, kh, c] += rnd(ds).T @ qf[b, qs, h, c]
-    for b in range(B):
-        for h in range(H):
-            for qb in range(-(-S // BM)):
-                for kb in range(-(-T // BM)):        # ascending
-                    if (b, h, kb, qb) in live:
-                        kh, ks, qs, _, ds = block(b, h, kb, qb)
-                        for c in halves:
-                            dq[b, qs, h, c] += rnd(ds) @ kf[b, ks, kh, c]
+        kh = h // G
+        ks, qs = rows(kb * BM, BM, T), rows(qb * BM, BM, S)
+        if split:               # warpgroup w scores queries 32 w ..
+            w = visit[4]
+            assert ("a", visit) not in scored
+            scored.add(("a", visit))
+            if w == 0:
+                n = qs.stop - qs.start
+                tiles = {"p": torch.zeros(ks.stop - ks.start, n),
+                         "ds": torch.zeros(ks.stop - ks.start, n)}
+            hs = rows(qb * BM + HALF * w, HALF, S)
+            p, ds = part(b, h, ks, hs)
+            cols = slice(hs.start - qs.start, hs.stop - qs.start)
+            tiles["p"][:, cols], tiles["ds"][:, cols] = rnd(p).T, rnd(ds).T
+            if w < NWG - 1:
+                continue
+            pt, dst = tiles["p"], tiles["ds"]
+        else:
+            p, ds = part(b, h, ks, qs)
+            pt, dst = rnd(p).T, rnd(ds).T
+        for c in halves:    # each warpgroup's columns, the whole block
+            dv[b, ks, kh, c] += pt @ dob[b, qs, h, c]
+            dk[b, ks, kh, c] += dst @ qf[b, qs, h, c]
+    if split:
+        for tile, _ in dq_plan(B, S, T, H, K, causal, window, split):
+            for visit in tile:          # key blocks ascending, halves
+                b, h, kb, qb, w = visit
+                if visit[:4] not in live:
+                    continue
+                assert ("b", visit) not in scored
+                scored.add(("b", visit))
+                kh = h // G
+                ks, qs = rows(kb * BM, BM, T), rows(qb * BM, BM, S)
+                if w == 0:
+                    tiles = {"ds": torch.zeros(qs.stop - qs.start,
+                                               ks.stop - ks.start)}
+                hk = rows(kb * BM + HALF * w, HALF, T)
+                _, ds = part(b, h, hk, qs)
+                cols = slice(hk.start - ks.start, hk.stop - ks.start)
+                tiles["ds"][:, cols] = rnd(ds)
+                if w == NWG - 1:
+                    for c in halves:
+                        dq[b, qs, h, c] += tiles["ds"] @ kf[b, ks, kh, c]
+    else:
+        for b in range(B):
+            for h in range(H):
+                for qb in range(-(-S // BM)):
+                    for kb in range(-(-T // BM)):        # ascending
+                        if (b, h, kb, qb) in live:
+                            ks = rows(kb * BM, BM, T)
+                            qs = rows(qb * BM, BM, S)
+                            _, ds = part(b, h, ks, qs)
+                            for c in halves:
+                                dq[b, qs, h, c] += rnd(ds) @ kf[
+                                    b, ks, h // G, c]
     return dq * scale, dk * scale, dv
 
 
