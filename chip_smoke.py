@@ -12,7 +12,9 @@ sharded step, the contract analyzer with its lock witness over the
 control plane, the training path of mamba2-2.7b at full width through
 the SSD's backward kernel, and the training paths of zamba2-7b and
 gemma2-2b at full width (cut in depth) through the flash backward's hd
-112 and hd 256 instances, its softcap and its window.
+112 and hd 256 instances, its softcap and its window, the SSD kernels
+under a sharding context, and the reference's four example entry points
+as the port's twins.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -252,13 +254,22 @@ failed check raises and exits non-zero):
    through the operator's registered sharding: last logits within rel
    L2 1e-6 of the unsharded prefill in the same process, the same 24
    flash launches, none under ``kernel_impl="plain"``, timed in turns
-   with the unsharded prefill; (m.3) ``moe_block_ep`` against
+   with the unsharded prefill; (m.3) the same for mamba2-2.7b (random
+   bf16 weights, Mamba-2's decay init) through the SSD kernel on the
+   local shards (the operator ``ssd_chunk_fwd``'s registered sharding):
+   last logits within rel L2 1e-6 of the unsharded prefill, the same 64
+   SSD launches, DTensor outputs, none under ``kernel_impl="plain"``,
+   timed in turns; then a float32 gradient at a 2-layer cut (B 2 x
+   1024) under the train rules, every leaf within rel L2 1e-6 of the
+   unsharded gradient, ``ssd_chunk_fwd`` and ``ssd_chunk_bwd`` once a
+   layer on the shards; (m.4) ``moe_block_ep`` against
    ``moe_block`` on a (1, 1, 1) MoE mesh at phi3.5-moe's published
    widths, one layer, float32, capacity_factor 4.0: y within 1e-4 and
    the probs within 1e-5 max-abs at (8, 1024) and at decode (8, 1), its
    NCCL all-reduce counted, device times beside ``moe_block``'s.  One
    ``{"sharded": ...}`` line; (m.2)'s launches count into
-   ``flash_attention``'s;
+   ``flash_attention``'s, (m.3)'s into ``ssd_chunk``'s and
+   ``ssd_chunk_bwd``'s;
 (n) the contract analyzer and the lock witness: (n.1) ``python -m
    repro_torch.analysis -q src/repro_torch`` in this process
    (``analysis.__main__.main``) must return 0 against the shipped
@@ -293,8 +304,8 @@ failed check raises and exits non-zero):
    forward in float32, every leaf rel L2 1e-3, which the backward
    kernel fed A x 1.02 must miss; float32 end to end 1e-3; bf16 end to
    end within 1.5x two 1-ulp controls of the plain SSD; 128 forward and
-   64 backward launches.  (o.3) ``Trainer.fit`` on mamba2-2.7b as (i.3)
-   runs it (AdamW, seq 4096, global batch 4, ``DataPipeline`` links on
+   64 backward launches.  (o.3) ``Trainer.fit`` on mamba2-2.7b cut to
+   ``SSM_TRAIN_LAYERS`` of its 64 layers, as (i.3) runs it (AdamW, seq 4096, global batch 4, ``DataPipeline`` links on
    the card, 8 steps on one repeated batch; ``SSM_TRAIN_MICRO`` x
    ``SSM_TRAIN_ROWS`` under remat "dots"): finite losses
    and grad norms, the loss down >= 10%, ``monitor_fleet`` launched by
@@ -337,6 +348,23 @@ failed check raises and exits non-zero):
    beside ``flash_instances`` and a ``{"train_hybrid": ...}`` line; the
    new launches count into ``flash_attention_bwd``'s, ``ssd_chunk_bwd``'s
    and ``ssd_chunk``'s;
+(q) the reference's four example entry points as the port's twins
+   (``examples/*_torch.py``), imported by path and run on the card at
+   the reference's defaults: the quickstart (A -> B, B at 20 000
+   items/s, 60 000 items), the paper's Fig. 16 streaming matmul (n 256)
+   and Fig. 17 Rabin-Karp (``b"foobar" * 200_000``) with the fleet and
+   closed-loop demos, ``serve_decode`` (the internlm2 smoke model, 24
+   requests of 8 tokens, 8 new) and ``train_lm`` (LM_100M, 200 steps of
+   8 x 256, remat off), the latter twice on one checkpoint directory.
+   Gated where deterministic: Fig. 16's acc allclose to A @ B, exactly
+   200 000 matches, every demo item out, 24/24 requests served, the
+   quickstart estimate converged, train_lm's loss down and the second
+   call resumed at the first's last checkpoint, ``monitor_fleet`` in
+   every twin, the flash forward and backward (hd 64) once a layer a
+   step in train_lm; rates, the quickstart's error, tokens/s and
+   steps/s printed in one ``{"examples": ...}`` line, not gated.  The
+   launches count into ``monitor_fleet``'s, ``flash_attention``'s and
+   ``flash_attention_bwd``'s;
 12. each kernel timed with CUDA events at its path's shape beside its plain
    version, its bound, the PyTorch library call where there is one and
    its launches, as one JSON line; the two monitor kernels, whose device
@@ -346,8 +374,9 @@ failed check raises and exits non-zero):
    estimate of the fold, bf16, warm-cache and per-call times in the
    ``service`` line; phases (a)-(c) in the ``control`` line, (d)-(h) in
    the ``faults`` line, and ``monitor_fleet``'s launches summed over
-   phase 4, (d)-(h) and (n.2); before them a ``{"wall_s": ...}`` line with each
-   group of phases' wall time (host clock) and the total.
+   phase 4, (d)-(h), (n.2), the trainers' links and (q); before them a
+   ``{"wall_s": ...}`` line with each group of phases' wall time (host
+   clock) and the total.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Inputs come from ``--seed`` through numpy.  Imports no JAX.
@@ -422,6 +451,7 @@ DATA_VOCAB = 92_672          # internlm2's vocabulary
 DATA_BATCHES = 64
 BWD_SHAPE = (2, 4096, 16, 8, 128)  # the training path's attention (B,S,H,K,hd)
 GRAD_B, GRAD_S = 2, 1024     # the model-gradient check (remat full)
+TRAIN_LM_RESUME_STEPS = 20   # (q): train_lm's second call, resumed
 TRAIN_SEQ = 4096             # SHAPES["train_4k"]'s length
 TRAIN_MICRO, TRAIN_ROWS = 2, 2   # global batch 4 (train_4k's 256, cut)
 TRAIN_STEPS = 8
@@ -442,9 +472,11 @@ ZAMBA_FLASH_SHAPE = (8, 1024, 32, 32, 112)   # its shared attention's prefill
 ZAMBA_SSD_SHAPE = (8, 4, 256, 112, 64, 64)   # its prefill's chunk step
 SSD_TRAIN_SHAPE = (2, 16, 256, 80, 64, 128)  # mamba2's training chunk step
 # (o.3): global batch 4 at 4096 under TrainConfig's default remat
-# "dots".  2 x 2 ran out of the card's memory (70.8 GB allocated, 7.1
-# reserved); 4 x 1 fits (61.5 GB)
+# "dots".  2 x 2 ran out of the card's memory at 64 layers (70.8 GB
+# allocated, 7.1 reserved); 4 x 1 fits (61.5 GB)
 SSM_TRAIN_MICRO, SSM_TRAIN_ROWS = 4, 1
+SSM_TRAIN_LAYERS = 16        # (o.3) 16 of 64 layers: the run's time (its
+                             # 64-layer fit took ~170 s, host-bound)
 ZAMBA_F32_GROUPS = 2         # the float32 gate's cut (16 mamba layers)
 GEMMA_ARCH = "gemma2-2b"
 GEMMA_FLASH_SHAPE = (2, 8192, 8, 4, 256)     # 2 x its published context
@@ -468,7 +500,7 @@ VLM_TEXT = 256
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
                 ("qwen2-vl-72b", "decode_32k", True))
-MOE_EP_SHAPES = ((8, 1024), (8, 1))   # (m.3) (B, S): prefill, decode
+MOE_EP_SHAPES = ((8, 1024), (8, 1))   # (m.4) (B, S): prefill, decode
 
 
 class CheckFailed(AssertionError):
@@ -3463,20 +3495,24 @@ def phase_trainer(torch, KC, K, cfgs, models, TS, D, dev, seed, *,
 
 
 def phase_ssm_trainer(torch, SK, K, cfgs, models, TS, D, dev, seed):
-    """(o.3) ``phase_trainer`` on mamba2-2.7b at full width: AdamW, seq
-    4096, a global batch of 4 as ``SSM_TRAIN_MICRO`` microbatches of
-    ``SSM_TRAIN_ROWS`` rows under remat "dots", the weights
-    given Mamba-2's decay init before the fit; the SSD forward must
-    launch exactly twice a layer a microbatch (the layer's forward and
-    its recomputation: the kernel is no operator the "dots" policy could
-    keep) and its backward once."""
+    """(o.3) ``phase_trainer`` on mamba2-2.7b at full width, cut to
+    ``SSM_TRAIN_LAYERS`` layers: AdamW, seq 4096, a global batch of 4 as
+    ``SSM_TRAIN_MICRO`` microbatches of ``SSM_TRAIN_ROWS`` rows under
+    remat "dots", the weights given Mamba-2's decay init before the fit;
+    the SSD forward must launch exactly twice a layer a microbatch (the
+    layer's forward and its recomputation: the "dots" policy keeps no
+    non-dot operator) and its backward once."""
+    import dataclasses
+    cfg = dataclasses.replace(cfgs.get_config(SSM_ARCH),
+                              n_layers=SSM_TRAIN_LAYERS)
+
     def prepare(trainer):
         g = torch.Generator(device=dev).manual_seed(seed + 3)
         with torch.no_grad():
             mamba2_decay_init(torch, trainer.state["params"]["blocks"], g)
     return phase_trainer(torch, SK, K, cfgs, models, TS, D, dev, seed,
                          arch=SSM_ARCH, micro=SSM_TRAIN_MICRO,
-                         rows=SSM_TRAIN_ROWS,
+                         rows=SSM_TRAIN_ROWS, cfg=cfg,
                          fwd="ssd_chunk", bwd="ssd_chunk_bwd", fwd_exact=2,
                          extra_flops=lambda cfg, gb, seq: 0.0,
                          prepare=prepare)
@@ -4645,35 +4681,54 @@ def counted_constrain(torch, modules):
             m.constrain = o
 
 
-def phase_sharded_prefill(torch, AK, DA, DS, LM, sites, cfgs, models, rng,
-                          seed, dev):
-    """(m.2) internlm2-1.8b at full width, random bf16 weights, an
-    8 x 1024 prefill under a sharding context on an NCCL world of one:
-    a (data 1, model 1) mesh, the parameters and tokens DTensors placed
-    by ``placements_for``, ``constrain`` live, the flash kernel on the
-    local shards through the operator's registered sharding.  Gated
-    against the unsharded prefill in the same process (last logits rel
-    L2 <= 1e-6, the same 24 flash launches); the plain attention under
-    the same context launches none.  Timed in turns (unsharded, sharded,
-    sharded, unsharded; host clock, synchronized)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    cfg = cfgs.get_config(ARCH)
+def _place_params(DS, mesh, m, p, dtype):
+    """``p`` as DTensors on ``mesh``, each leaf placed by
+    ``placements_for`` from the model's parameter axes."""
+    from torch.distributed.tensor import distribute_tensor
+    specs = DS.param_specs_tree(m.param_axes(), m.abstract_params(dtype),
+                                mesh, DS.param_rules())
+    return _map2(p, specs, lambda t, s: distribute_tensor(
+        t, mesh, DS.placements_for(s, mesh), src_data_rank=None))
+
+
+def _place_rows(DS, mesh, t, rules):
+    """A (batch, seq) tensor as a DTensor placed by ``rules``."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, DS.placements_for(DS.spec_for(
+        tuple(t.shape), ("batch", "seq"), rules, mesh), mesh),
+        src_data_rank=None)
+
+
+def phase_sharded_prefill(torch, KC, key, label, DA, DS, LM, cfgs, models,
+                          rng, seed, dev, *, arch=ARCH, sites=None,
+                          prepare=None):
+    """(m.2) internlm2-1.8b (``arch``; (m.3) mamba2-2.7b) at full width,
+    random bf16 weights (``prepare(params, generator)`` may set them up
+    after the init), an 8 x 1024 prefill under a sharding context on an
+    NCCL world of one: a (data 1, model 1) mesh, the parameters and
+    tokens DTensors placed by ``placements_for``, ``constrain`` live,
+    ``KC``'s kernel ``key`` on the local shards through its operator's
+    registered sharding.  Gated against the unsharded prefill in the
+    same process (last logits rel L2 <= 1e-6, ``key`` launched once a
+    layer in both, DTensor outputs); the plain route under the same
+    context launches none.  Where ``sites`` is given, ``constrain`` must
+    see a DTensor at every site of the dense model.  Timed in turns
+    (unsharded, sharded, sharded, unsharded; host clock, synchronized).
+    ``label`` names the launch counts in the stats."""
+    from torch.distributed.tensor import DTensor
+    cfg = cfgs.get_config(arch)
     model = models.build_model(cfg, torch.bfloat16)
     plain = models.build_model(cfg, torch.bfloat16, kernel_impl="plain")
-    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
-                               torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(g, torch.bfloat16, device=dev)
+    if prepare is not None:
+        prepare(params, g)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (SERVE_B, PREFILL_S)), device=dev)
     mesh = LM.make_local_mesh(1, 1, device=dev.type)
     rules = DS.act_rules("prefill")
-    specs = DS.param_specs_tree(model.param_axes(),
-                                model.abstract_params(torch.bfloat16), mesh,
-                                DS.param_rules())
-    dparams = _map2(params, specs, lambda t, s: distribute_tensor(
-        t, mesh, DS.placements_for(s, mesh), src_data_rank=None))
-    dtoks = distribute_tensor(toks, mesh, DS.placements_for(DS.spec_for(
-        tuple(toks.shape), ("batch", "seq"), rules, mesh), mesh),
-        src_data_rank=None)
+    dparams = _place_params(DS, mesh, model, params, torch.bfloat16)
+    dtoks = _place_rows(DS, mesh, toks, rules)
     ctx = DA.ShardingContext(mesh, rules, DS.param_rules())
 
     def unsharded():
@@ -4685,46 +4740,103 @@ def phase_sharded_prefill(torch, AK, DA, DS, LM, sites, cfgs, models, rng,
 
     with torch.no_grad():
         unsharded(), sharded()                            # warm-up
-        AK.reset_launch_counts()
+        KC.reset_launch_counts()
         (lu, _), _ = _sync_ms(torch, unsharded)
-        n_u = AK.launch_counts()["flash_attention"]
-        AK.reset_launch_counts()
-        with counted_constrain(torch, sites) as cc:
+        n_u = KC.launch_counts()[key]
+        KC.reset_launch_counts()
+        with (counted_constrain(torch, sites) if sites
+              else contextlib.nullcontext()) as cc:
             (ls, cache), _ = _sync_ms(torch, sharded)
-        n_s = AK.launch_counts()["flash_attention"]
-        AK.reset_launch_counts()
+        n_s = KC.launch_counts()[key]
+        KC.reset_launch_counts()
         sharded(plain)
-        n_p = AK.launch_counts()["flash_attention"]
+        n_p = KC.launch_counts()[key]
         turns = {"unsharded": [], "sharded": []}
         for name in ("unsharded", "sharded", "sharded", "unsharded"):
             _, ms = _sync_ms(torch, unsharded if name == "unsharded"
                              else sharded)
             turns[name].append(ms)
-    check(isinstance(ls, DTensor) and isinstance(cache["k"], DTensor),
-          "the sharded prefill did not return DTensors")
+    check(isinstance(ls, DTensor) and all(isinstance(t, DTensor)
+                                          for t in cache.values()),
+          f"the sharded {cfg.name} prefill did not return DTensors")
     rel = _rel_l2(ls.full_tensor(), lu)
-    check(rel <= 1e-6, f"sharded prefill logits vs unsharded: rel L2 {rel}")
-    check(n_s == n_u == cfg.n_layers, f"flash launches: sharded {n_s}, "
+    check(rel <= 1e-6, f"sharded {cfg.name} prefill logits vs unsharded: "
+          f"rel L2 {rel}")
+    check(n_s == n_u == cfg.n_layers, f"{key} launches: sharded {n_s}, "
           f"unsharded {n_u}, {cfg.n_layers} layers")
-    check(n_p == 0, f"the plain attention launched flash {n_p} times")
-    check(cc.calls == 2 + 3 * cfg.n_layers, f"{cc.calls} constrain calls "
-          f"saw a DTensor")
+    check(n_p == 0, f"the plain route launched {key} {n_p} times")
+    if sites:
+        check(cc.calls == 2 + 3 * cfg.n_layers, f"{cc.calls} constrain "
+              f"calls saw a DTensor")
     ms_u, ms_s = (sum(v) / len(v) for v in (turns["unsharded"],
                                             turns["sharded"]))
     stats = {"prefill_8x1024_unsharded_ms": ms_u,
              "prefill_8x1024_sharded_ms": ms_s,
              "sharded_over_unsharded": ms_s / ms_u,
              "turns_ms": turns, "logits_rel_l2": rel,
-             "flash_launches": n_s, "plain_flash_launches": n_p,
-             "constrain_calls": cc.calls}
-    log(f"(m.2) sharded prefill {SERVE_B} x {PREFILL_S}: {ms_s:.1f} ms vs "
-        f"{ms_u:.1f} ms unsharded; logits rel L2 {rel:.3e}; {n_s} flash "
-        f"launches ({n_p} under plain); {cc.calls} constrain calls on "
-        f"DTensors")
-    del model, plain, params, dparams, cache
+             f"{label}_launches": n_s, f"plain_{label}_launches": n_p}
+    if sites:
+        stats["constrain_calls"] = cc.calls
+    log(f"sharded {cfg.name} prefill {SERVE_B} x {PREFILL_S}: {ms_s:.1f} "
+        f"ms vs {ms_u:.1f} ms unsharded; logits rel L2 {rel:.3e}; {n_s} "
+        f"{key} launches ({n_p} under plain)"
+        + (f"; {cc.calls} constrain calls on DTensors" if sites else ""))
+    del model, plain, params, dparams, cache, ls, lu
     gc.collect()
     torch.cuda.empty_cache()
     return n_s, stats
+
+
+def phase_sharded_ssm_grads(torch, SK, DA, DS, LM, cfgs, models, rng, seed,
+                            dev):
+    """(m.3)'s gradient: mamba2-2.7b cut to 2 layers, float32 (B 2 x
+    1024, no remat) under the train rules on the NCCL world of one, the
+    parameters and rows DTensors placed as (m.2) places them: every leaf
+    within rel L2 1e-6 of the unsharded gradient, the loss within 1e-6,
+    the SSD forward and backward operators once a layer each on the
+    shards."""
+    import dataclasses
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.manager import _flatten
+    c2 = dataclasses.replace(cfgs.get_config(SSM_ARCH), n_layers=2)
+    m2 = models.build_model(c2, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    p2 = m2.init_params(g, torch.float32, device=dev)
+    mamba2_decay_init(torch, p2["blocks"], g)
+    rows = rng.integers(0, c2.vocab_size, (GRAD_B, GRAD_S + 1))
+    batch = {"tokens": torch.as_tensor(rows[:, :-1], device=dev),
+             "targets": torch.as_tensor(rows[:, 1:], device=dev)}
+    loss_u, grads_u = _model_grads(torch, m2, p2, batch, None)
+    mesh = LM.make_local_mesh(1, 1, device=dev.type)
+    train_rules = DS.act_rules("train")
+    dp2 = _place_params(DS, mesh, m2, p2, torch.float32)
+    dbatch = {k: _place_rows(DS, mesh, v, train_rules)
+              for k, v in batch.items()}
+    SK.reset_launch_counts()
+    with DA.use_sharding(DA.ShardingContext(mesh, train_rules,
+                                            DS.param_rules())):
+        loss_s, grads_s = _model_grads(torch, m2, dp2, dbatch, None)
+    torch.cuda.synchronize()
+    n_grad = SK.launch_counts()
+    check(all(isinstance(t, DTensor) for t in grads_s),
+          "the sharded mamba2 gradient is not DTensors")
+    rels = _rels(_flatten(p2)[1], [t.full_tensor() for t in grads_s],
+                 grads_u)
+    worst = max(rels.values())
+    check(worst <= 1e-6, f"sharded mamba2 gradient vs unsharded: worst "
+          f"leaf rel L2 {worst} ({max(rels, key=rels.get)})")
+    check(abs(loss_s - loss_u) <= 1e-6 * abs(loss_u),
+          f"sharded mamba2 loss {loss_s} vs unsharded {loss_u}")
+    check(n_grad == {"ssd_chunk": c2.n_layers,
+                     "ssd_chunk_bwd": c2.n_layers},
+          f"the sharded gradient's SSD launches {n_grad}")
+    log(f"(m.3) sharded mamba2 gradient at 2 layers (f32, {GRAD_B} x "
+        f"{GRAD_S}): worst leaf rel L2 {worst:.3e}, launches {n_grad}")
+    del m2, p2, dp2, grads_s, grads_u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_grad, {"grad_2_layers_worst_leaf_rel_l2": worst,
+                    "grad_loss": loss_s, "grad_launches": n_grad}
 
 
 def _map2(tree, other, fn):
@@ -4733,7 +4845,7 @@ def _map2(tree, other, fn):
 
 
 def phase_moe_ep(torch, MOE, LL, RC, cfgs, seed, dev):
-    """(m.3) ``moe_block_ep`` against ``moe_block`` on an NCCL world of
+    """(m.4) ``moe_block_ep`` against ``moe_block`` on an NCCL world of
     one, a (1, 1, 1) (data, expert, tp) mesh: phi3.5-moe's published
     widths at one layer (d 4096, 16 experts top 2, d_ff 6400, SwiGLU),
     random float32 weights, capacity_factor 4.0 so that nothing drops
@@ -4776,7 +4888,7 @@ def phase_moe_ep(torch, MOE, LL, RC, cfgs, seed, dev):
         out[f"{B}x{S}"] = {"y_max_abs": ey, "probs_max_abs": ep_,
                            "ep_ms": ms_ep, "dense_ms": ms_dense,
                            "collectives": coll.count_by_op}
-        log(f"(m.3) moe_block_ep ({B}, {S}, {cfg.d_model}) decode={decode}: "
+        log(f"(m.4) moe_block_ep ({B}, {S}, {cfg.d_model}) decode={decode}: "
             f"{ms_ep:.3f} ms vs moe_block {ms_dense:.3f} ms; max-abs y "
             f"{ey:.2e}, probs {ep_:.2e}; collectives {coll.count_by_op}")
     del p
@@ -5458,6 +5570,176 @@ def _wall(walls, name):
         walls[name] = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# phase (q): the reference's four example entry points, as the port's twins
+
+EXAMPLES = HERE / "examples"
+TWINS = ("quickstart_torch", "streaming_apps_torch", "serve_decode_torch",
+         "train_lm_torch")
+
+
+def load_twin(name):
+    """Import ``examples/<name>.py`` by path (the examples are scripts,
+    not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"_twin_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counted_run(torch, K, AK, fn):
+    """``fn()`` with the monitor and flash counts set to 0 just before it
+    and read just after (the card synchronized): (result, launches)."""
+    K.reset_launch_counts()
+    AK.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {"monitor_fleet": K.launch_counts()["monitor_fleet"],
+                 **AK.launch_counts(), "wall_s": wall}
+
+
+def phase_examples(torch, K, AK, dev, seed):
+    """(q) The example twins on the card at the reference's defaults,
+    each through the functions its ``main`` calls, the monitor and flash
+    counts read around each: ``quickstart_torch.run`` (A -> B, B at
+    20 000 items/s, 60 000 items), ``streaming_apps_torch``'s Fig. 16
+    (n 256) and Fig. 17 (``b"foobar" * 200_000``, 4096-byte chunks),
+    ``fleet_control_demo`` and ``closed_loop_demo``,
+    ``serve_decode_torch.serve`` (the internlm2 smoke model, 24 requests
+    of 8 tokens, 8 new), and ``train_lm_torch.train`` (LM_100M, 200 steps
+    of 8 x 256, remat off, checkpoints every 100) twice on one checkpoint
+    directory.  Gated only where the outcome is deterministic: Fig. 16's
+    acc allclose to A @ B (atol 1e-3), exactly 200 000 matches, every item
+    of the demos out, 24/24 requests served with 8 tokens each, the
+    quickstart estimate converged (epochs >= 1, rate > 0), train_lm's
+    last logged loss below its first, the second call resumed at the
+    first's last checkpoint, ``monitor_fleet`` launched in every twin
+    and the flash forward and backward once a layer a step in train_lm.
+    Every host-timed figure (rates, the quickstart's error, tokens/s,
+    steps/s) is printed, not gated."""
+    import tempfile
+    qs, apps, sd, tl = (load_twin(n) for n in TWINS)
+    out, launches = {}, {}
+
+    res, launches["quickstart"] = _counted_run(
+        torch, K, AK, lambda: qs.run(device=dev))
+    link = res["rates"]["A->B"]
+    check(res["processed"] == qs.ITEMS, f"quickstart: {res['processed']} "
+          f"of {qs.ITEMS} items out")
+    check(link["epochs"] >= 1 and res["estimate"] > 0,
+          f"quickstart: the A->B estimate did not converge: {link}")
+    out["quickstart"] = {
+        "estimate": res["estimate"], "epochs": link["epochs"],
+        "blocking_frac": link["blocking_frac"],
+        "error_vs_set_rate": (res["estimate"] - qs.SET_RATE) / qs.SET_RATE,
+        "dispatches": res["dispatches"]}
+
+    def run_apps():
+        got = {}
+        for fn in apps.ALL:
+            rows, verdict, got[fn.__name__] = fn(device=dev)
+            log(f"== {fn.__name__}: {rows[0]}; {verdict}")
+        got["fleet"] = apps.fleet_control_demo(device=dev)
+        got["loop"] = apps.closed_loop_demo(device=dev)
+        return got
+    got, launches["streaming_apps"] = _counted_run(torch, K, AK, run_apps)
+    f16, f17 = got["fig16_matmul_app"], got["fig17_rabin_karp"]
+    check(np.allclose(f16["acc"], f16["A"] @ f16["B"], atol=1e-3)
+          and f16["rows_out"] == apps.MATMUL_N,
+          "Fig. 16: acc is not A @ B")
+    check(f17["matches"] == f17["expected"] == 200_000,
+          f"Fig. 17: {f17['matches']} matches, expected 200000")
+    check(got["fleet"]["out"] == [(x * x, x * x % 7)
+                                  for x in range(30_000)],
+          "fleet_control_demo lost or changed items")
+    check(sorted(got["loop"]["out"]) == list(range(1, 12_001))
+          and got["loop"]["stats"]["crash_count"] == 0,
+          "closed_loop_demo lost items or crashed")
+    out["streaming_apps"] = {
+        "fig16_reduce_rate": f16["reduce_rate"],
+        "fig16_wall_s": f16["wall_s"], "fig16_dispatches": f16["dispatches"],
+        "fig17_verify_rate": f17["verify_rate"],
+        "fig17_blocking_frac": f17["blocking_frac"],
+        "fig17_wall_s": f17["wall_s"], "fig17_dispatches": f17["dispatches"],
+        "fleet_demo_dispatches": got["fleet"]["dispatches"],
+        "fleet_demo_rates": {k: v["service_rate"] for k, v in
+                             got["fleet"]["rates"].items()},
+        "loop_live_replicas": got["loop"]["live_replicas"],
+        "loop_decisions": got["loop"]["counts"],
+        "loop_dispatches": got["loop"]["dispatches"]}
+
+    res, launches["serve_decode"] = _counted_run(
+        torch, K, AK, lambda: sd.serve(device=dev, seed=seed))
+    check(res["served"] == 24 and res["tokens"] == 24 * 8,
+          f"serve_decode: {res['served']}/24 served, {res['tokens']} tokens")
+    check(res["stats"]["crash_count"] == 0,
+          f"serve_decode: worker crashes {res['stats']['crashes']}")
+    out["serve_decode"] = {
+        "tokens_per_s": res["tokens"] / res["wall_s"],
+        "wall_s": res["wall_s"], "service_rate": res["service_rate"],
+        "recommended_queue_capacity": res["recommended"]}
+
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        ckpt = str(Path(tmp) / "train_lm")
+        first, launches["train_lm"] = _counted_run(
+            torch, K, AK, lambda: tl.train(ckpt=ckpt, device=dev,
+                                           seed=seed))
+        second, launches["train_lm_resume"] = _counted_run(
+            torch, K, AK, lambda: tl.train(TRAIN_LM_RESUME_STEPS,
+                                           ckpt=ckpt, device=dev,
+                                           seed=seed))
+    cfg, hist = first["cfg"], first["history"]
+    check(bool(hist) and hist[-1]["loss"] < hist[0]["loss"],
+          f"train_lm: loss {hist[0]['loss'] if hist else None} -> "
+          f"{hist[-1]['loss'] if hist else None} did not fall")
+    check(first["start"] == 0 and first["ckpt_steps"][-1] == 200,
+          f"train_lm: start {first['start']}, checkpoints "
+          f"{first['ckpt_steps']}")
+    check(second["start"] == first["ckpt_steps"][-1],
+          f"train_lm: the second call resumed at {second['start']}, not at "
+          f"the last checkpoint {first['ckpt_steps'][-1]}")
+    for key, steps in (("train_lm", 200),
+                       ("train_lm_resume", TRAIN_LM_RESUME_STEPS)):
+        n = launches[key]
+        want = cfg.n_layers * steps
+        check(n["flash_attention"] == want
+              and n["flash_attention_bwd"] == want,
+              f"{key}: flash launches {n}, want {want} forward and backward "
+              f"({cfg.n_layers} layers x {steps} steps)")
+    tokens = 8 * 256 * 200
+    out["train_lm"] = {
+        "n_params": cfg.n_params(), "loss_first": hist[0]["loss"],
+        "loss_last": hist[-1]["loss"],
+        "steps_per_s": hist[-1]["steps_per_s"],
+        "tokens_per_s": tokens / first["wall_s"], "wall_s": first["wall_s"],
+        "data_rates": {k: v["service_rate"]
+                       for k, v in first["rates"].items()},
+        "stragglers": first["stragglers"],
+        "resumed_at": second["start"],
+        "resume_ckpt_steps": second["ckpt_steps"]}
+    for name in ("quickstart", "streaming_apps", "serve_decode", "train_lm",
+                 "train_lm_resume"):
+        check(launches[name]["monitor_fleet"] > 0,
+              f"{name}: monitor_fleet never launched")
+    check(launches["serve_decode"]["flash_attention"] > 0,
+          "serve_decode: flash_attention never launched")
+    out["launches"] = launches
+    log(f"(q) quickstart: estimate {out['quickstart']['estimate']:.0f}/s vs "
+        f"set {qs.SET_RATE} ({out['quickstart']['error_vs_set_rate']:+.1%}, "
+        f"host-timed), {out['quickstart']['epochs']} epochs; Fig. 16 ok, "
+        f"Fig. 17 {f17['matches']} matches; serve_decode 24/24, "
+        f"{out['serve_decode']['tokens_per_s']:.1f} tokens/s; train_lm "
+        f"{cfg.n_params() / 1e6:.0f}M loss {hist[0]['loss']:.3f} -> "
+        f"{hist[-1]['loss']:.3f}, {out['train_lm']['steps_per_s']:.2f} "
+        f"steps/s, resumed at {second['start']}; launches {launches}")
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5648,11 +5930,21 @@ def main() -> int:
             torch, AK, AT, TF, K, SV, C, MD, rng, args.seed, dev)
     with wall("m.1 dry runs"):
         sharded = {"dryrun": phase_dryrun(DR)}
-    with wall("m.2-m.3 sharded prefill, moe_block_ep"):
+    with wall("m.2-m.4 sharded prefill, mamba2, moe_block_ep"):
         with nccl_world(torch, dev):
             sharded_launches, sharded["prefill"] = phase_sharded_prefill(
-                torch, AK, DA, DS, LM, (TF, AT, MOE, WH), C, MD, rng,
-                args.seed, dev)
+                torch, AK, "flash_attention", "flash", DA, DS, LM, C, MD,
+                rng, args.seed, dev, sites=(TF, AT, MOE, WH))
+            sharded_ssd, sharded["ssm"] = phase_sharded_prefill(
+                torch, SK, "ssd_chunk", "ssd", DA, DS, LM, C, MD, rng,
+                args.seed, dev, arch=SSM_ARCH,
+                prepare=lambda p, g: mamba2_decay_init(torch, p["blocks"],
+                                                       g))
+            n_grad, grad_stats = phase_sharded_ssm_grads(
+                torch, SK, DA, DS, LM, C, MD, rng, args.seed, dev)
+            sharded["ssm"].update(grad_stats)
+            sharded_ssd += n_grad["ssd_chunk"]
+            sharded_ssd_bwd = n_grad["ssd_chunk_bwd"]
             sharded["moe_ep"] = phase_moe_ep(torch, MOE, LL, RC, C,
                                              args.seed, dev)
     with wall("n.1 analyzer"):
@@ -5680,6 +5972,10 @@ def main() -> int:
         zfit_launches, gfit_launches, hybrid_fit = phase_hybrid_trainers(
             torch, AK, SK, K, TF, C, MD, TS, D, dev, args.seed)
         torch.cuda.empty_cache()
+    with wall("q examples"):
+        ex_launches, examples = phase_examples(torch, K, AK, dev, args.seed)
+    ex = {k: sum(n[k] for n in ex_launches.values())
+          for k in ("monitor_fleet", "flash_attention", "flash_attention_bwd")}
     zg, gg = hybrid_grads["zamba2"]["launches"], \
         hybrid_grads["gemma2"]["launches"]
     g_win = hybrid_fit["gemma2"]["flash_bwd_windowed"]
@@ -5694,7 +5990,7 @@ def main() -> int:
         {"name": "monitor_fleet", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/monitor/kernel.py:120",
          "launches": (fleet_launches + sum(fault_launches.values())
-                      + witness_launches
+                      + witness_launches + ex["monitor_fleet"]
                       + sum(f["monitor_fleet_launches"] for f in fits)),
          "max_abs_err": fleet["max_abs_err"],
          "ms": fleet["ms"], "plain_ms": fleet["plain_ms"],
@@ -5713,7 +6009,8 @@ def main() -> int:
                       + zamba_launches + gemma_launches + vlm_launches
                       + sharded_launches
                       + hybrid_fit["zamba2"]["launches"]["flash_attention"]
-                      + hybrid_fit["gemma2"]["launches"]["flash_attention"]),
+                      + hybrid_fit["gemma2"]["launches"]["flash_attention"]
+                      + ex["flash_attention"]),
          "max_abs_err": max(flash["max_abs_err"],
                             whisper["flash"]["max_abs_err"], moe_flash_err,
                             flash_k["max_abs_err"], vlm_flash_err),
@@ -5723,7 +6020,7 @@ def main() -> int:
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:25",
-         "launches": (ssd_launches + zamba_ssd
+         "launches": (ssd_launches + zamba_ssd + sharded_ssd
                       + train_ssm["fit"]["launches"]["ssd_chunk"]
                       + hybrid_fit["zamba2"]["launches"]["ssd_chunk"]),
          "max_abs_err": ssd["max_abs_err"],
@@ -5735,7 +6032,7 @@ def main() -> int:
          "replaces": "src/repro/train/step.py:54 (jax.value_and_grad of "
                      "src/repro/models/attention.py)",
          "launches": (bwd_launches + wbwd_launches + zfit_launches
-                      + gfit_launches + zg + gg),
+                      + gfit_launches + zg + gg + ex["flash_attention_bwd"]),
          "max_abs_err": max(bwd["max_abs_err"], bwd_k["max_abs_err"]),
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -5744,7 +6041,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
          "replaces": "src/repro/train/step.py:54 (jax.value_and_grad of "
                      "src/repro/models/ssm.py:104)",
-         "launches": (ssm_fit_launches + ssm_grad_launches
+         "launches": (ssm_fit_launches + ssm_grad_launches + sharded_ssd_bwd
                       + hybrid_fit["zamba2"]["launches"]["ssd_chunk_bwd"]),
          "max_abs_err": ssd_bwd["max_abs_err"],
          "ms": ssd_bwd["ms"], "plain_ms": ssd_bwd["plain_ms"],
@@ -5807,6 +6104,7 @@ def main() -> int:
     log(json.dumps({"train_ssm": train_ssm}))
     log(json.dumps({"train_hybrid": {"grads": hybrid_grads,
                                      "fit": hybrid_fit}}))
+    log(json.dumps({"examples": examples}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

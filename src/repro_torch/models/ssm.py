@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._dtensor import along_shards
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import _mm
 
@@ -65,10 +66,18 @@ def mamba_param_defs(mk, prefix: str, cfg: ArchConfig, *, layers: int = 0):
     }
 
 
+def _pad_seq(t, before: int = 0, after: int = 0):
+    """``t`` zero-padded along dim 1, the sequence (on each rank's shard
+    for a DTensor: ``kernels._dtensor.along_shards``)."""
+    pad = (0, 0) * (t.dim() - 2) + (before, after)
+    shape = (t.shape[0], t.shape[1] + before + after) + tuple(t.shape[2:])
+    return along_shards(lambda u: F.pad(u, pad), t, 1, shape)
+
+
 def causal_conv1d(x, w):
     """Depthwise causal conv. x: (B, S, C); w: (K, C)."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = _pad_seq(x, K - 1)
     acc = torch.zeros_like(x)
     for i in range(K):
         acc = acc + pad[:, i:i + S] * w[i]
@@ -112,10 +121,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None,
     Q = min(chunk, S)
     if S % Q:
         pad = Q - S % Q
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
+        x, dt, Bm, Cm = (_pad_seq(t, 0, pad) for t in (x, dt, Bm, Cm))
     f32 = torch.float32
     y, hT = ssd_ops.ssd_chunked(
         x.to(f32).contiguous(), dt.to(f32).contiguous(), A.to(f32),

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing
-in ``chip_smoke.py`` or ``scripts/*.py`` (all run on the card's machine)
-imports ``jax`` or the JAX package ``repro`` (any ``repro.*`` import
-would run ``repro/core/__init__.py`` and with it jax).  The card's
+in ``chip_smoke.py``, ``scripts/*.py`` or the example twins
+``examples/*_torch.py`` (all run on the card's machine) imports ``jax``,
+the JAX package ``repro`` (any ``repro.*`` import would run
+``repro/core/__init__.py`` and with it jax) or its ``benchmarks``.  The card's
 machine has no jax.  Nor does the package import ``torch.testing``,
 PyTorch's test helpers (its tests may)."""
 
@@ -15,8 +16,9 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("*.py"))
-BANNED = ("jax", "jaxlib", "repro")
+    REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("*.py")) + sorted(
+    (REPO / "examples").glob("*_torch.py"))
+BANNED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(tree):
@@ -51,6 +53,8 @@ def test_port_has_sources():
     for extra in ("baseline.json", "README.md"):
         assert (REPO / "src" / "repro_torch" / "analysis" / extra).exists()
     assert (REPO / "chip_smoke.py").exists()
+    for twin in ("quickstart", "streaming_apps", "serve_decode", "train_lm"):
+        assert f"examples/{twin}_torch.py" in names, twin
     assert (REPO / "src" / "repro_torch" / "kernels" / "monitor" / "csrc"
             / "monitor.cu").exists()
 
@@ -83,9 +87,11 @@ def test_package_does_not_import_torch_testing():
 def test_scanner_catches_banned_imports():
     src = ("import jax.numpy as jnp\nfrom repro.core import monitor\n"
            "import importlib\nimportlib.import_module('repro.streams')\n"
-           "from repro_torch.core import stats\n")
+           "from repro_torch.core import stats\n"
+           "from benchmarks.apps import fig16_matmul_app\n")
     roots = [r for _, r in _imported_roots(ast.parse(src))]
     assert roots.count("jax") == 1 and roots.count("repro") == 2
+    assert roots.count("benchmarks") == 1
     assert "repro_torch" in roots
 
 

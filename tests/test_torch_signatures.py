@@ -97,7 +97,8 @@ PORT_ONLY = {"models.api": ["params_from_numpy"],
              "kernels.attention.ops": ["FlashAttentionFn",
                                        "flash_attention_fwd",
                                        "flash_attention_bwd", "IMPLS"],
-             "kernels.ssd.ops": ["ssd_chunked", "IMPLS", "SSDChunkFn"],
+             "kernels.ssd.ops": ["ssd_chunked", "IMPLS", "SSDChunkFn",
+                                 "ssd_chunk_fwd", "ssd_chunk_bwd"],
              "core.monitor": ["gated_rate_arrays", "fleet_state_from_numpy",
                               "fleet_state_to_numpy", "resolve_device"]}
 # the reference's HLO text parse, which has no input in PyTorch (its
