@@ -243,9 +243,10 @@ failed check raises and exits non-zero):
    ``roofline.analysis.model_flops`` and its peak from its ``HW``;
 (m) the sharded step: (m.1) ``launch.dryrun.lower_cell`` on the host
    for internlm2-1.8b x train_4k x single pod (256 ranks), phi3.5-moe x
-   prefill_32k x single (the MoE mesh, through ``moe_block_ep``) and
-   qwen2-vl-72b x decode_32k x multi-pod (512 ranks), each on a fake
-   world and meta DTensors: all three must be ok; per cell the peak GB a
+   prefill_32k x single (the MoE mesh, through ``moe_block_ep``),
+   qwen2-vl-72b, zamba2-7b x decode_32k and mamba2-2.7b x train_4k x
+   multi-pod (512 ranks), each on a fake world and meta DTensors: all
+   five must be ok; per cell the peak GB a
    rank, the dominant term, the roofline fraction and the collective
    bytes by op; (m.2) on an NCCL world of one rank, a (data 1, model 1)
    mesh: phase 7's internlm2 prefill (8 x 1024, random bf16 weights)
@@ -256,7 +257,7 @@ failed check raises and exits non-zero):
    flash launches, none under ``kernel_impl="plain"``, timed in turns
    with the unsharded prefill; (m.3) the same for mamba2-2.7b (random
    bf16 weights, Mamba-2's decay init) through the SSD kernel on the
-   local shards (the operator ``ssd_chunk_fwd``'s registered sharding):
+   local shards (``kernels.ssd.ops.ssd_chunked`` runs on the shards):
    last logits within rel L2 1e-6 of the unsharded prefill, the same 64
    SSD launches, DTensor outputs, none under ``kernel_impl="plain"``,
    timed in turns; then a float32 gradient at a 2-layer cut (B 2 x
@@ -499,7 +500,9 @@ VLM_TEXT = 256
 # (m.1) the dry run's cells: (arch, shape, multi-pod)
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
-                ("qwen2-vl-72b", "decode_32k", True))
+                ("qwen2-vl-72b", "decode_32k", True),
+                ("zamba2-7b", "decode_32k", True),
+                ("mamba2-2.7b", "train_4k", True))
 MOE_EP_SHAPES = ((8, 1024), (8, 1))   # (m.4) (B, S): prefill, decode
 
 
@@ -4614,7 +4617,7 @@ def phase_vlm(torch, AK, AT, TF, MK, serve, cfgs, models, rng, seed, dev):
 
 
 def phase_dryrun(DR):
-    """(m.1) ``launch.dryrun.lower_cell`` on the host for the three
+    """(m.1) ``launch.dryrun.lower_cell`` on the host for the five
     ``DRYRUN_CELLS``: each traces one rank's step over a fake 256- or
     512-rank world on meta DTensors (no card).  One line a cell: status,
     peak GB a rank, the dominant roofline term, the roofline fraction,
@@ -4707,8 +4710,9 @@ def phase_sharded_prefill(torch, KC, key, label, DA, DS, LM, cfgs, models,
     after the init), an 8 x 1024 prefill under a sharding context on an
     NCCL world of one: a (data 1, model 1) mesh, the parameters and
     tokens DTensors placed by ``placements_for``, ``constrain`` live,
-    ``KC``'s kernel ``key`` on the local shards through its operator's
-    registered sharding.  Gated against the unsharded prefill in the
+    ``KC``'s kernel ``key`` on the local shards (the flash operator's
+    registered sharding; the SSD op on its shards).  Gated against the
+    unsharded prefill in the
     same process (last logits rel L2 <= 1e-6, ``key`` launched once a
     layer in both, DTensor outputs); the plain route under the same
     context launches none.  Where ``sites`` is given, ``constrain`` must

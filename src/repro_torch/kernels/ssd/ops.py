@@ -12,16 +12,9 @@ package keeps both outside its kernel.
 
 The kernel route goes through two operators, ``torch.ops.repro_torch.
 ssd_chunk_fwd`` (``kernel.ssd_chunk``) and ``ssd_chunk_bwd``
-(``kernel.ssd_chunk_bwd``, under grad through ``SSDChunkFn``).  Each has its sharding registered (``register_sharding``):
-all inputs replicated; sharded on batch (dim 0 of x, dt, B, C, the
-cotangents and every output but dA, with A replicated); or sharded on
-heads where the mesh's size divides H (x, dt and dy on dim 3, A on dim
-0, dstate and ddecay on dim 2, B and C replicated; y on dim 3, the state
-and the decay on dim 2).  The backward's sums over what a strategy
-splits come back as pending partial sums: dA under batch, dB and dC
-under heads.  DTensor redistributes any other placement to one of these
-before the call, and the kernels run unchanged on each rank's local
-shards.  The plain route runs under DTensor as aten operators.
+(``kernel.ssd_chunk_bwd``, under grad through ``SSDChunkFn``).  They
+take plain tensors: DTensor inputs reach ``ssd_chunked`` on each rank's
+local shards through ``models.ssm.ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -29,10 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import register_sharding
 
-from repro_torch.kernels._dtensor import along_shards
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_batched_ref, ssd_chunk_ref
 
@@ -80,41 +70,6 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _(x, dt, A, Bm, Cm, dy, dstate, ddecay):
     return tuple(t.new_empty(t.shape, dtype=torch.float32)
                  for t in (x, dt, A, Bm, Cm))
-
-
-def _strategies(x, outs: str, ins: str) -> list:
-    """The sharding strategies of the two operators on one mesh dim:
-    (output placements, input placements) for all replicated, for batch
-    and, where the mesh's size divides the heads, for heads.  A letter
-    of ``outs`` and ``ins`` names a tensor's kind: "x" a (B,c,Q,H,...)
-    tensor, "s" a (B,c,H,...) one, "a" A or dA (H,), "b" B, C, dB or dC
-    (B,c,Q,N), "-" an absent cotangent.  Under batch dA is a partial sum
-    over the ranks' rows, under heads dB and dC over their heads."""
-    def pl(kinds, table, partial=""):
-        return [None if k == "-" else Partial() if k == partial
-                else table.get(k, Replicate()) for k in kinds]
-    batch = {"x": Shard(0), "s": Shard(0), "b": Shard(0)}
-    heads = {"x": Shard(3), "s": Shard(2), "a": Shard(0)}
-    done = [(pl(outs, {}), pl(ins, {})),
-            (pl(outs, batch, "a"), pl(ins, batch))]
-    if x.shape[3] % x.mesh.size() == 0:
-        done.append((pl(outs, heads, "b"), pl(ins, heads)))
-    return done
-
-
-@register_sharding(torch.ops.repro_torch.ssd_chunk_fwd.default)
-def _(x, dt, A, Bm, Cm):
-    # outputs (y, sstate, decay), inputs (x, dt, A, Bm, Cm)
-    return _strategies(x, "xss", "xxabb")
-
-
-@register_sharding(torch.ops.repro_torch.ssd_chunk_bwd.default)
-def _(x, dt, A, Bm, Cm, dy, dstate, ddecay):
-    # outputs (dx, ddt, dA, dB, dC), inputs (x, dt, A, Bm, Cm, dy, dstate,
-    # ddecay)
-    cots = "".join("-" if t is None else k
-                   for t, k in zip((dy, dstate, ddecay), "xss"))
-    return _strategies(x, "xxabb", "xxabb" + cots)
 
 
 class SSDChunkFn(torch.autograd.Function):
@@ -178,8 +133,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, *, h0=None,
         h = h * decay[:, k, :, None, None] + sstate[:, k]
     h_prevs = torch.stack(h_prevs, dim=1)               # (B,c,H,P,N)
 
-    acum = along_shards(lambda t: torch.cumsum(t, 2),
-                        dtc.to(f32) * A.to(f32), 2)
+    acum = torch.cumsum(dtc.to(f32) * A.to(f32), 2)
     y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", Cc.to(f32),
                            torch.exp(acum), h_prevs)
     return (y_intra + y_inter).reshape(B, S, H, P), h

@@ -37,8 +37,9 @@ Three changed:
   H100's 80 GB (``roofline.analysis.HW["hbm_bytes"]``).
 
 Memory, per rank: ``argument_bytes_per_dev`` the local bytes of the
-step's inputs (state or parameters, batch, cache); ``peak_bytes_per_dev``
-the tracker's peak of live local bytes, the inputs included;
+step's inputs (state or parameters, batch, cache) that it reads, as
+the JAX package's ``jax.jit`` keeps only those; ``peak_bytes_per_dev``
+the tracker's peak of live local bytes, those inputs included;
 ``temp_bytes_per_dev`` the peak less the inputs; ``output_bytes_per_dev``
 the outputs' local bytes in storages the inputs do not hold;
 ``alias_bytes_per_dev`` the inputs updated in place (the train state,
@@ -68,7 +69,8 @@ from repro_torch.launch.mesh import (fake_world, make_moe_mesh,
 from repro_torch.models import build_model
 from repro_torch.roofline.analysis import HW, roofline_report
 from repro_torch.roofline.analytic import analytic_bytes, analytic_flops
-from repro_torch.roofline.counters import MemoryTracker, count_collectives
+from repro_torch.roofline.counters import (MemoryTracker, count_collectives,
+                                          storage_key)
 from repro_torch.train import (OptConfig, TrainConfig,
                                make_train_state_specs, make_train_step,
                                pick_optimizer)
@@ -106,11 +108,10 @@ def _local_bytes(tree) -> int:
     once."""
     seen, total = set(), 0
     for t in (_leaves(tree) if isinstance(tree, dict) else tree):
-        local = getattr(t, "_local_tensor", t)
-        key = id(local.untyped_storage())
+        key = storage_key(t)
         if key not in seen:
             seen.add(key)
-            total += local.untyped_storage().nbytes()
+            total += getattr(t, "_local_tensor", t).untyped_storage().nbytes()
     return total
 
 
@@ -129,7 +130,8 @@ def _leaf_list(*trees) -> list:
 def _run_cell(model, cfg, shape, ctx, overrides):
     """Place the cell's inputs, run its step once under the counters.
     Returns (inputs, outputs, collectives, FLOPs, peak bytes, donated
-    inputs, extra keys, tokens per step)."""
+    inputs, extra keys, tokens per step), the inputs and the peak those
+    the step reads (``_read``)."""
     mesh = ctx.mesh
     batch_abs, batch_axes = model.input_specs(shape)
     batch = _placed(batch_abs, batch_axes, ctx)
@@ -198,8 +200,22 @@ def _run_cell(model, cfg, shape, ctx, overrides):
     with use_sharding(ctx), tracker, torch.set_grad_enabled(
             shape.kind == "train"):
         out, coll, flops = count_collectives(fn)
-    return (in_leaves, _leaf_list(out), coll, flops, tracker.peak,
-            _leaf_list(*donated), extra, tokens)
+    out = _leaf_list(out)
+    read = _read(in_leaves, out, tracker.read)
+    # an unread input is live from the step's start to its end
+    peak = tracker.peak - (_local_bytes(in_leaves) - _local_bytes(read))
+    return (read, out, coll, flops, peak,
+            _read(_leaf_list(*donated), out, tracker.read), extra, tokens)
+
+
+def _read(inputs, outputs, read) -> list:
+    """The ``inputs`` whose storage an operator of the step read (keys
+    ``read``) or an output holds.  The JAX package's ``jax.jit`` drops
+    the others from the compiled step (``keep_unused=False``), and so
+    from its argument bytes: an ssm's decode ignores the positions,
+    whisper's decode the encoder, the vlm's prefill the token table."""
+    keep = read | {storage_key(t) for t in outputs}
+    return [t for t in inputs if storage_key(t) in keep]
 
 
 def lower_cell(arch_id: str, shape_id: str, multi_pod: bool,
@@ -236,10 +252,9 @@ def lower_cell(arch_id: str, shape_id: str, multi_pod: bool,
         t_trace = time.monotonic() - t0
 
     arg_bytes = _local_bytes(inputs)
-    in_storages = {id(getattr(t, "_local_tensor", t).untyped_storage())
-                   for t in inputs}
-    out_bytes = _local_bytes([t for t in outputs if id(getattr(
-        t, "_local_tensor", t).untyped_storage()) not in in_storages])
+    in_storages = {storage_key(t) for t in inputs}
+    out_bytes = _local_bytes([t for t in outputs
+                              if storage_key(t) not in in_storages])
     alias_bytes = _local_bytes(donated)
 
     # analytic compute/memory terms, as the JAX package's

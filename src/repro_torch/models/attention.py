@@ -48,7 +48,7 @@ from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.api import as_dtensor, constrain
+from repro_torch.dist.api import as_dtensor, constrain, on_shards
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models.layers import _mm, mrope_apply, rope_apply, softcap
 
@@ -190,6 +190,33 @@ def _group_heads(q, K: int):
     return q.reshape(B, S, K, H // K, hd)
 
 
+def _einsum(eq: str, a, b, dtype=None):
+    """``torch.einsum(eq, a, b)`` of the operands cast to ``dtype`` (if
+    given); two DTensors' on each rank's shards.
+    Per mesh dim the split letter is b's (else a's; b is the cache,
+    which should not move): an operand that has it is split on it, the
+    other taken whole, and the output is split on it, or holds a partial
+    sum where the output lacks it.  DTensor's own
+    einsum flattens the batch letters for ``bmm``, which PyTorch 2.11's
+    DTensor refuses when an inner one (the kv heads) is split."""
+    def cast(t):
+        return t if dtype is None else t.to(dtype)
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return torch.einsum(eq, cast(a), cast(b))
+    (la, lb), lo = eq.split("->")[0].split(","), eq.split("->")[1]
+    pa, pb, po = [], [], []
+    for qa, qb in zip(a.placements, b.placements):
+        c = (lb[qb.dim] if qb.is_shard() else
+             la[qa.dim] if qa.is_shard() else None)
+        for letters, out in ((la, pa), (lb, pb)):
+            out.append(Shard(letters.index(c)) if c and c in letters
+                       else Replicate())
+        po.append(Replicate() if c is None else
+                  Shard(lo.index(c)) if c in lo else Partial())
+    return on_shards(lambda u, v: torch.einsum(eq, cast(u), cast(v)), a, b,
+                     ins=(pa, pb), outs=po)
+
+
 def _f32_scores(qg, k):
     """qg (B,S,K,G,hd), k (B,T,K,hd) in one dtype -> q.k^T (B,K,G,S,T)
     float32: the products of that dtype summed in float32.  On the card
@@ -199,7 +226,7 @@ def _f32_scores(qg, k):
     B, S, K, G, hd = qg.shape
     T = k.shape[1]
     if qg.dtype == torch.float32 or qg.device.type != "cuda":
-        return torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+        return _einsum("bskgh,btkh->bkgst", qg, k, torch.float32)
     a = qg.permute(0, 2, 3, 1, 4).reshape(B * K, G * S, hd)
     b = k.permute(0, 2, 1, 3).reshape(B * K, T, hd)
     return torch.bmm(a, b.transpose(1, 2),
@@ -292,6 +319,6 @@ def attention(p, x, positions, cfg: ArchConfig, *,
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(compute_dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, cv)
+    out = _einsum("bkgst,btkh->bskgh", w, cv)
     return (_out_proj(out.reshape(B, S, H, hd), p["wo"], compute_dtype),
             (cache_k, cache_v))

@@ -18,7 +18,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
-from repro_torch.dist.api import as_dtensor, reshard
+from repro_torch.dist.api import as_dtensor, hold, on_shards, reshard
 
 __all__ = [
     "Creator", "init_creator", "abstract_creator", "axes_creator",
@@ -81,16 +81,51 @@ def axes_creator() -> Creator:
 # numerics
 # ---------------------------------------------------------------------------
 
+def _rowwise(fn, x, *ws):
+    """``fn(x, *ws)`` for a norm over x's last dim with weights ``ws``
+    over it; a DTensor x's runs on its shard of rows (``on_shards``; a
+    split last dim gathered first), the weights whole, their gradients
+    partial sums over the mesh dims that split the rows."""
+    last = x.ndim - 1
+    rows = tuple(Replicate() if p.is_shard(last) else p
+                 for p in x.placements)
+    whole = (Replicate(),) * len(rows)
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    return on_shards(fn, x, *ws, ins=(rows,) + (whole,) * len(ws),
+                     outs=rows, grads=(rows,) + (sums,) * len(ws))
+
+
+def _on_rows(x) -> bool:
+    """Whether a norm of ``x`` runs on its shard of rows: a DTensor with
+    no pending partial sum (a partial sum is left to DTensor, which
+    reduces it onto a shard where it can)."""
+    return isinstance(x, DTensor) and not any(p.is_partial()
+                                              for p in x.placements)
+
+
+def _f32_node(x):
+    """``x`` in float32, through an autograd node of its own even when it
+    is float32 already (a view, which allocates and saves nothing): the
+    norm's gradient terms for ``x`` are then summed before they meet the
+    residual's, as on a DTensor's shard (``_rowwise``), so a sharded
+    gradient keeps the unsharded one's bits."""
+    return x.float() if x.dtype != torch.float32 else x.view_as(x)
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
+    if _on_rows(x):
+        return _rowwise(lambda u, v: rmsnorm(u, v, eps), x, w)
     dt = x.dtype
-    xf = x.float()
+    xf = _f32_node(x)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * (1.0 + w.float())).to(dt)
 
 
 def layernorm(x, w, b, eps: float = 1e-5):
+    if _on_rows(x):
+        return _rowwise(lambda u, v, c: layernorm(u, v, c, eps), x, w, b)
     dt = x.dtype
-    xf = x.float()
+    xf = _f32_node(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -111,15 +146,45 @@ def _mm(x, w, compute_dtype):
     (the rules put a mesh axis there when the heads don't divide it)
     runs as one product per head: flattened, that dim is strided-
     sharded, which DTensor's matrix product turns into a plain shard
-    that the result cannot be unflattened from."""
-    w = w.to(compute_dtype)
-    x = x.to(compute_dtype)
+    that the result cannot be unflattened from.  The rows of either
+    product are x's leading dims flattened (``_rows_whole``)."""
+    w = _cast(w, compute_dtype)
+    x = _cast(x, compute_dtype)
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        x = _rows_whole(x, w)
     if isinstance(w, DTensor) and w.ndim == 3 and Shard(2) in w.placements:
         x2 = x.reshape(1, -1, w.shape[0]).expand(w.shape[1], -1, -1)
         out = torch.bmm(x2, w.permute(1, 0, 2))              # (H, N, hd)
-        return out.permute(1, 0, 2).reshape(*x.shape[:-1], *w.shape[1:])
-    out = x @ w.reshape(w.shape[0], -1)
-    return out.reshape(*x.shape[:-1], *w.shape[1:])
+        out = out.permute(1, 0, 2).reshape(*x.shape[:-1], *w.shape[1:])
+    else:
+        out = x @ w.reshape(w.shape[0], -1)
+        out = out.reshape(*x.shape[:-1], *w.shape[1:])
+    return hold(out)
+
+
+def _cast(t, dtype):
+    """``t.to(dtype)``, a DTensor's on its local shard (``on_shards``: as
+    a DTensor operator, a cast's placement search on a mesh of four dims
+    took about a second a weight)."""
+    if t.dtype == dtype:
+        return t
+    return on_shards(lambda u: u.to(dtype), t)
+
+
+def _rows_whole(x, w):
+    """DTensor ``x`` with its inner leading dims (the sequence) gathered
+    on each mesh dim where ``w`` splits its output, as DTensor's own
+    choice for the product gathers them (the output cannot be split
+    twice on one mesh dim).  Left split, they would be a strided shard
+    once the rows are flattened, and DTensor's placement search would
+    then price every strategy by a graph search, seconds a candidate on
+    a mesh of three dims."""
+    want = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1
+            and q.is_shard() and q.dim >= 1 else p
+            for p, q in zip(x.placements, w.placements)]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def gelu_mlp(x, p, compute_dtype):
@@ -149,6 +214,8 @@ def _rope_angles(positions, head_dim: int, theta: float):
 
 def _rotate(x, angles):
     """x (..., S, H, hd); angles (..., S, hd//2) -> rotated x."""
+    if isinstance(x, DTensor):
+        return _rotate_on_shards(x, angles)
     dt = x.dtype
     half = x.shape[-1] // 2
     x1 = x[..., :half].float()
@@ -156,6 +223,34 @@ def _rotate(x, angles):
     c = torch.cos(angles)[..., None, :]   # (..., S, 1, hd//2) over heads
     s = torch.sin(angles)[..., None, :]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
+
+
+def _rotate_on_shards(x, angles):
+    """``_rotate`` of DTensor ``x`` on each rank's shard (``on_shards``),
+    with the rows of ``angles`` (broadcast over heads) that the shard
+    holds: a plain tensor's sliced, a DTensor's (decode's, from the
+    positions) redistributed to x's split of those rows.  A split head
+    dim (the rotation mixes its halves) or a pending partial sum is
+    gathered first.  Elementwise, so each shard's result is the whole
+    result's; as DTensor operators, on a mesh of four dims, a good part
+    of a minute a layer kind."""
+    mesh, last = x.device_mesh, x.ndim - 1
+    whole = tuple(Replicate() if p.is_partial() or p.is_shard(last) else p
+                  for p in x.placements)
+    lead = x.ndim - angles.ndim - 1      # x dims before angles' first
+    if isinstance(angles, DTensor):
+        rows = [Shard(p.dim - lead) if p.is_shard() and 0 <= p.dim - lead
+                < angles.ndim - 1 and angles.shape[p.dim - lead]
+                == x.shape[p.dim] else Replicate() for p in whole]
+        local = angles.redistribute(mesh, rows).to_local()
+    else:
+        shape, off = compute_local_shape_and_global_offset(
+            x.shape, mesh, whole)
+        local = angles[tuple(
+            slice(off[j + lead], off[j + lead] + shape[j + lead])
+            if n == x.shape[j + lead] else slice(None)
+            for j, n in enumerate(angles.shape[:-1]))]
+    return on_shards(lambda u: _rotate(u, local), x, ins=(whole,))
 
 
 def rope_apply(x, positions, theta: float):

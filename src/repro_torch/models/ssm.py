@@ -12,11 +12,14 @@ the gated RMSNorm in float32.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels._dtensor import along_shards
+from repro_torch.dist.api import on_shards, reduce_partials
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import _mm
 
@@ -67,11 +70,17 @@ def mamba_param_defs(mk, prefix: str, cfg: ArchConfig, *, layers: int = 0):
 
 
 def _pad_seq(t, before: int = 0, after: int = 0):
-    """``t`` zero-padded along dim 1, the sequence (on each rank's shard
-    for a DTensor: ``kernels._dtensor.along_shards``)."""
+    """``t`` zero-padded along dim 1, the sequence; a DTensor's on each
+    rank's shard (``on_shards``), a split sequence or a pending partial
+    sum gathered first.  (PyTorch 2.11's DTensor gives ``constant_pad_nd``
+    one output placement on a mesh of two or more dims, which a view in
+    the backward rejects.)"""
     pad = (0, 0) * (t.dim() - 2) + (before, after)
     shape = (t.shape[0], t.shape[1] + before + after) + tuple(t.shape[2:])
-    return along_shards(lambda u: F.pad(u, pad), t, 1, shape)
+    whole = (None if not isinstance(t, DTensor) else
+             tuple(Replicate() if p.is_partial() or p.is_shard(1) else p
+                   for p in t.placements))
+    return on_shards(lambda u: F.pad(u, pad), t, ins=(whole,), shape=shape)
 
 
 def causal_conv1d(x, w):
@@ -123,11 +132,48 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None,
         pad = Q - S % Q
         x, dt, Bm, Cm = (_pad_seq(t, 0, pad) for t in (x, dt, Bm, Cm))
     f32 = torch.float32
-    y, hT = ssd_ops.ssd_chunked(
+    y, hT = _ssd_on_shards(
+        lambda x, dt, A, Bm, Cm, h0: ssd_ops.ssd_chunked(
+            x, dt, A, Bm, Cm, Q, h0=h0, impl=impl),
         x.to(f32).contiguous(), dt.to(f32).contiguous(), A.to(f32),
-        Bm.to(f32).contiguous(), Cm.to(f32).contiguous(), Q, h0=h0,
-        impl=impl)
+        Bm.to(f32).contiguous(), Cm.to(f32).contiguous(), h0)
     return y[:, :S], hT
+
+
+# an SSD tensor's placement on a mesh dim that splits x on batch, or on
+# heads, by kind: "x" x, dt or y (B,S,H,...), "a" A (H,), "b" B or C
+# (B,S,N), "s" a state (B,H,P,N); under batch A's gradient sums over the
+# split, under heads B's and C's
+_SSD_SPLIT = {"x": (Shard(0), Shard(2)), "a": (Replicate(), Shard(0)),
+              "b": (Shard(0), Replicate()), "s": (Shard(0), Shard(1))}
+
+
+def _ssd_on_shards(fn, x, dt, A, Bm, Cm, h0):
+    """``fn`` (the SSD op) of DTensor inputs on each rank's shards
+    (``on_shards``), a mesh dim at a time: batch where x is split on
+    batch, heads where on heads, else whole; the other inputs are
+    redistributed to match, and their gradients come back as partial
+    sums where the split sums over them.  The SSD's products, recurrence
+    and cumsum are then operators on local tensors, which a counter sees
+    at their local shapes: as DTensor operators, on a mesh of three
+    dims, DTensor priced each product's strategies by a graph search
+    per candidate, minutes a product on the CPU (and PyTorch 2.11's
+    DTensor has no rule for the cumsum's backward, a flip).  Plain
+    inputs: ``fn`` as it is."""
+    if not isinstance(x, DTensor):
+        return fn(x, dt, A, Bm, Cm, h0)
+    splits = [0 if p.is_shard(0) else 1 if p.is_shard(2) else None
+              for p in x.placements]
+
+    def pl(kind, grad=False):
+        return tuple(Replicate() if m is None else
+                     Partial() if grad and kind == "ab"[m] else
+                     _SSD_SPLIT[kind][m] for m in splits)
+    kinds = ("x", "x", "a", "b", "b", "s")
+    return on_shards(fn, x, dt, A, Bm, Cm, h0,
+                     ins=tuple(pl(k) for k in kinds),
+                     grads=tuple(pl(k, True) for k in kinds),
+                     outs=(pl("x"), pl("s")))
 
 
 def _gated_rmsnorm(y, z, gnorm, compute_dtype):
@@ -141,6 +187,28 @@ def _gated_rmsnorm(y, z, gnorm, compute_dtype):
 def _split_conv(conv_out, di: int, n: int):
     return (conv_out[..., :di], conv_out[..., di:di + n],
             conv_out[..., di + n:])
+
+
+def _conv_seq(conv_in, w, conv_state, K: int):
+    """The causal conv of a sequence, continued from ``conv_state`` (its
+    last K - 1 inputs) when given."""
+    if conv_state is None:
+        return causal_conv1d(conv_in, w)
+    ext = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
+    return causal_conv1d(ext, w)[:, K - 1:]
+
+
+def _heads(t, H: int, P: int):
+    """(B, S, H * P) as (B, S, H, P).  A DTensor split on the last dim
+    over more ranks than divide the heads is gathered on those mesh dims
+    first (the conv keeps the inner dim's shards, ``mamba_block``)."""
+    if isinstance(t, DTensor):
+        dims = [d for d, p in enumerate(t.placements) if p.is_shard(2)]
+        if H % math.prod(t.device_mesh.size(d) for d in dims):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if d in dims else p
+                for d, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:2], H, P)
 
 
 def _conv_weight(p, compute_dtype):
@@ -168,20 +236,29 @@ def mamba_block(x, p, cfg: ArchConfig, compute_dtype=torch.bfloat16,
     # bf16 products accumulated in float32 (preferred_element_type)
     dt = x.to(cdt).float() @ p["w_dt"].to(cdt).float()
 
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_w = _conv_weight(p, cdt)
-    new_conv_state = conv_in[:, -(cfg.ssm_conv - 1):, :]
-    if conv_state is not None:
-        ext = torch.cat([conv_state.to(cdt), conv_in], dim=1)
-        conv_out = causal_conv1d(ext, conv_w)[:, cfg.ssm_conv - 1:]
+    K = cfg.ssm_conv
+    if isinstance(xin, DTensor):
+        # one conv a part (the conv is depthwise): a concat along the
+        # model-split inner dim would gather it whole on every model
+        # rank, and the SSD after it would then run whole on each
+        parts = (xin, Bm, Cm)
+        new_conv_state = torch.cat([t[:, -(K - 1):] for t in parts], dim=-1)
+        states = ((None,) * 3 if conv_state is None
+                  else _split_conv(conv_state, di, n))
+        xin, Bm, Cm = (F.silu(_conv_seq(t, p[w].to(cdt), st, K))
+                       for t, w, st in zip(parts,
+                                           ("conv_x", "conv_B", "conv_C"),
+                                           states))
     else:
-        conv_out = causal_conv1d(conv_in, conv_w)
-    xin, Bm, Cm = _split_conv(F.silu(conv_out), di, n)
+        conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+        new_conv_state = conv_in[:, -(K - 1):, :]
+        conv_out = _conv_seq(conv_in, _conv_weight(p, cdt), conv_state, K)
+        xin, Bm, Cm = _split_conv(F.silu(conv_out), di, n)
 
     dt = F.softplus(dt + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    xh = xin.reshape(B, S, H, P)
+    xh = _heads(xin, H, P)
     y, hT = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, h0=ssm_state,
                         impl=ssd_impl)
     y = y + xh.float() * p["D_skip"].float()[None, None, :, None]
@@ -201,11 +278,14 @@ def mamba_decode_step(x, p, cfg: ArchConfig, conv_state, ssm_state,
     cdt = compute_dtype
     xt = x[:, 0]
 
-    xin = _mm(xt, p["w_x"], cdt)
-    z = _mm(xt, p["w_z"], cdt)
-    Bm = _mm(xt, p["w_B"], cdt)
-    Cm = _mm(xt, p["w_C"], cdt)
-    dt = _mm(xt, p["w_dt"], cdt).float()
+    # the products' pending partial sums reduced onto the batch shards
+    # before the concat (``reduce_partials``)
+    xin, z = (reduce_partials(_mm(xt, p[w], cdt), ("batch", "ssm_inner"))
+              for w in ("w_x", "w_z"))
+    Bm, Cm = (reduce_partials(_mm(xt, p[w], cdt), ("batch", "ssm_state"))
+              for w in ("w_B", "w_C"))
+    dt = reduce_partials(_mm(xt, p["w_dt"], cdt),
+                         ("batch", "ssm_heads")).float()
 
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
     conv_out, new_conv_state = conv_decode_step(

@@ -238,7 +238,10 @@ def _mamba_layer(cfg: ArchConfig, x, bp, conv_state, ssm_state, decode,
         out, states = mamba_block(h, bp, cfg, compute_dtype,
                                   conv_state=conv_state,
                                   ssm_state=ssm_state, ssd_impl=ssd_impl)
-    return x + out, states
+    # the JAX package scans these layers, and a scan's carry keeps one
+    # sharding: pinned here, every layer takes its input as the first
+    # does (see the module's note on sharding)
+    return constrain(x + out, ("batch", "seq", "d_model")), states
 
 
 # the operators whose outputs the "dots" policies keep for the backward:

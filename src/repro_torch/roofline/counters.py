@@ -39,7 +39,8 @@ of every storage an operator's output holds, from its creation until
 it is freed, and the peak of their sum.  It stands in for
 ``torch.distributed._tools.mem_tracker.MemTracker``, which counts the
 fake global-shape tensors of DTensor's propagation as live memory
-(PyTorch 2.13).
+(PyTorch 2.13).  It also keeps the storages that local operators read
+(``read``), so a dry run can tell the inputs a step never reads.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.roofline.analysis import _MULT, CollectiveStats
 
-__all__ = ["CollectiveCounter", "MemoryTracker", "count_collectives"]
+__all__ = ["CollectiveCounter", "MemoryTracker", "count_collectives",
+           "storage_key"]
 
 # (namespace, op) -> (the JAX package's op name, index of the operand
 # argument: a tensor or a list of tensors, lists of lists included)
@@ -155,12 +157,17 @@ class MemoryTracker(TorchDispatchMode):
     """While active, the live bytes of the storages that local operators
     create, and their peak (``peak``), each storage counted once from
     its first output to its release.  ``track`` adds tensors made
-    before (a step's inputs) to the live bytes."""
+    before (a step's inputs) to the live bytes; ``read`` holds the keys
+    (``storage_key``) of the storages the operators took as arguments,
+    less those a view's output aliases (a view, such as one layer's
+    slice of stacked weights, reads nothing; ``contiguous`` that
+    copies does)."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
+        self.read: set[int] = set()
         self._seen: dict[int, int] = {}
 
     def _release(self, key: int) -> None:
@@ -172,7 +179,7 @@ class MemoryTracker(TorchDispatchMode):
             if not isinstance(t, torch.Tensor) or isinstance(t, FakeTensor):
                 continue
             st = t.untyped_storage()
-            key = st._cdata
+            key = storage_key(t)
             if key not in self._seen:
                 self._seen[key] = st.nbytes()
                 self.live += st.nbytes()
@@ -186,9 +193,19 @@ class MemoryTracker(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         if kind is None:
-            self.track(*[t for t in tree_leaves(out)
-                         if isinstance(t, torch.Tensor)])
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            views = ({storage_key(t) for t in outs} if func.is_view
+                     else set())
+            self.read.update(k for k in (storage_key(t) for t in tree_leaves(
+                (args, kwargs)) if isinstance(t, torch.Tensor))
+                if k not in views)
+            self.track(*outs)
         return out
+
+
+def storage_key(t) -> int:
+    """The key of a tensor's (a DTensor's local) storage."""
+    return getattr(t, "_local_tensor", t).untyped_storage()._cdata
 
 
 def count_collectives(fn, *args, **kwargs) -> tuple[Any, CollectiveStats,

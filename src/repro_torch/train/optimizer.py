@@ -11,6 +11,14 @@ parameter model's float32 parameters, gradients and moments fit one card
 once, not twice.  Divisions are tensor by tensor on the tensors' device
 (on the card PyTorch turns a division by a Python number into a multiply
 by its reciprocal).
+
+DTensor leaves (a sharded step) are updated on each rank's local shards
+(``_on_shards``, through ``dist.api.on_shards``), and the clip scales
+them there: the arithmetic is
+elementwise, so a shard's update is the whole update's rows.  Run as
+DTensor operators, each operator of each leaf would cost DTensor a
+placement search over every strategy of every mesh dim, minutes for a
+large model's leaves on a mesh of three or four dims (the dry run).
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.api import on_shards
 from repro_torch.dist.sharding import _tree_map
 
 __all__ = ["OptConfig", "lr_schedule", "init_opt_state", "opt_update",
@@ -141,6 +151,11 @@ def opt_state_axes(name: str, param_axes):
 # updates
 # ---------------------------------------------------------------------------
 
+def _local(t):
+    """A replicated DTensor's value as a plain tensor; else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to global norm <= max_norm, the global norm).  The
     squares are summed leaf by leaf in the JAX package's leaf order."""
@@ -148,12 +163,18 @@ def clip_by_global_norm(grads, max_norm: float):
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
     scale = torch.clamp(_const(max_norm, gn) / torch.clamp(gn, min=1e-12),
                         max=1.0)
-    return _tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    s = _local(scale)
+    return _tree_map(lambda g: on_shards(
+        lambda u: (u.float() * s).to(u.dtype), g), grads), gn
 
 
-def _q8(x):
-    """Per-row (last dim) symmetric int8 quantization."""
-    s = torch.amax(torch.abs(x), dim=-1) / _const(127.0, x)
+def _q8(x, rowmax=None):
+    """Per-row (last dim) symmetric int8 quantization; ``rowmax`` takes
+    the rows' maximum over the shards of a split last dim."""
+    s = torch.amax(torch.abs(x), dim=-1)
+    if rowmax is not None:
+        s = rowmax(s)
+    s = s / _const(127.0, x)
     safe = torch.where(s > 0, s, _const(1.0, s))[..., None]
     q = torch.clamp(torch.round(x / safe), -127, 127).to(torch.int8)
     return q, s
@@ -163,12 +184,37 @@ def _dq8(q, s):
     return q.float() * s[..., None]
 
 
+def _on_shards(upd):
+    """``upd(p, g, *state, rowmax=...)`` for one leaf; a DTensor leaf's
+    runs on the local shards (``on_shards``), its gradient taken in the
+    parameter's placements (the train step has reduced it onto them, as
+    an FSDP step reduce-scatters its gradients; the state shares the
+    parameter's rows), and ``rowmax`` all-reduces a per-row maximum over
+    the mesh dims that split the last dim."""
+    from torch.distributed._functional_collectives import all_reduce
+
+    def run(p, g, *state):
+        if not isinstance(p, DTensor):
+            return upd(p, g, *state, rowmax=None)
+        mesh = p.device_mesh
+        dims = [d for d, pl in enumerate(p.placements)
+                if p.ndim and pl.is_shard(p.ndim - 1)]
+
+        def rowmax(s):
+            for d in dims:
+                s = all_reduce(s, "max", (mesh, d))
+            return s
+        return on_shards(lambda *ts: upd(*ts, rowmax=rowmax), p, g, *state,
+                         ins=(None, p.placements) + (None,) * len(state))
+    return run
+
+
 @torch.no_grad()
 def opt_update(name: str, cfg: OptConfig, params, grads, state, step):
     """One optimizer step at ``step`` (an int32 tensor): updates
     ``params`` and ``state`` in place and returns (params, state)."""
-    lr = lr_schedule(cfg, step)
-    t = step.float() + 1.0
+    lr = _local(lr_schedule(cfg, step))
+    t = _local(step).float() + 1.0
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
 
@@ -180,16 +226,16 @@ def opt_update(name: str, cfg: OptConfig, params, grads, state, step):
                            + cfg.weight_decay * pf))
 
     if name == "adamw":
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, rowmax):
             g = g.float()
             m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * g * g)
             new_param(p, m, v)
-        _tree_map(upd, params, grads, state["m"], state["v"])
+        _tree_map(_on_shards(upd), params, grads, state["m"], state["v"])
         return params, state
 
     if name == "adamw8bit":
-        def upd(p, g, mq, ms, vq, vs):
+        def upd(p, g, mq, ms, vq, vs, rowmax):
             g = g.float()
             m = cfg.b1 * _dq8(mq, ms) + (1.0 - cfg.b1) * g
             # v is stored in sqrt space: linear int8 cannot represent v's
@@ -199,9 +245,10 @@ def opt_update(name: str, cfg: OptConfig, params, grads, state, step):
             v = cfg.b2 * v_prev + (1.0 - cfg.b2) * g * g
             new_param(p, m, v)
             for dst, src in zip((mq, ms, vq, vs),
-                                (*_q8(m), *_q8(torch.sqrt(v)))):
+                                (*_q8(m, rowmax), *_q8(torch.sqrt(v),
+                                                       rowmax))):
                 dst.copy_(src)
-        _tree_map(upd, params, grads, state["m_q"], state["m_s"],
-                  state["v_q"], state["v_s"])
+        _tree_map(_on_shards(upd), params, grads, state["m_q"],
+                  state["m_s"], state["v_q"], state["v_s"])
         return params, state
     raise ValueError(name)

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.api import Model
 from repro_torch.train.optimizer import (OptConfig, _const, _leaves,
@@ -64,6 +65,13 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         for p in leaves:
             p.grad = None
             p.requires_grad_(False)
+        # a DTensor gradient's pending partial sums reduced once, onto
+        # its parameter's placements (FSDP's reduce-scatter), before the
+        # norm and the update read it
+        grads = _tree_map(lambda g, p: (g.redistribute(p.device_mesh,
+                                                       p.placements)
+                                        if isinstance(g, DTensor) else g),
+                          grads, params)
         grads, gnorm = clip_by_global_norm(grads, ocfg.clip_norm)
         opt_update(ocfg.name, ocfg, params, grads, opt, step)
         del grads

@@ -1019,29 +1019,41 @@ def test_ssd_grad_of_a_plain_sum_goes_through_the_backward_kernel(cuda):
 
 @pytest.mark.parametrize("placement", ["heads", "batch"])
 def test_ssd_ops_run_on_local_shards_of_a_world_of_one(cuda, placement):
-    """The SSD operators on DTensors over an NCCL world of one: the
-    forward and backward kernels launch once each on the local shards,
-    the outputs keep the inputs' placement (the backward's sums over
-    what the shards split as partial sums: dB and dC under heads, dA
-    under batch), and every output equals the unsharded operator's to
+    """``models.ssm.ssd_chunked`` on DTensors over an NCCL world of one,
+    under grad: the forward and backward kernels launch once each on the
+    local shards, y and the final state keep the inputs' split, the
+    gradients come back in the split's placements (its sums over what
+    the shards split as partial sums: dB and dC under heads, dA under
+    batch), and every output and gradient equals the unsharded op's to
     the bit."""
     import socket
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import (Partial, Replicate, Shard,
                                           distribute_tensor)
-    B, c, Q, H, P, N = 2, 2, 64, 4, 64, 32
-    ins = _ssd_inputs((B, c, Q), H, P, N, seed=5, device=cuda)
+    from repro_torch.models import ssm
+    B, S, Q, H, P, N = 2, 128, 64, 4, 64, 32
+    ins = _ssd_inputs((B, S), H, P, N, seed=5, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(6)
-    cots = [torch.randn(s, generator=g, device=cuda)
-            for s in ((B, c, Q, H, P), (B, c, H, P, N), (B, c, H))]
-    with torch.no_grad():
-        want = SO.ssd_chunk_fwd(*ins)
-        want_grads = SO.ssd_chunk_bwd(*ins, *cots)
-    dims = {"heads": {0: 3, 1: 3, 2: 0}, "batch": {0: 0, 1: 0, 3: 0, 4: 0}}
-    out_pl = {"heads": ([Shard(3), Shard(2), Shard(2)],
-                        [Shard(3), Shard(3), Shard(0), Partial(), Partial()]),
-              "batch": ([Shard(0)] * 3,
+    wts = [torch.randn(s, generator=g, device=cuda)
+           for s in ((B, S, H, P), (B, H, P, N))]
+
+    def run(args, ws):
+        for t in args:
+            t.requires_grad_(True)
+        before = dict(SK.launch_counts())
+        outs = ssm.ssd_chunked(*args, Q)
+        sum((o * w).sum() for o, w in zip(outs, ws)).backward()
+        torch.cuda.synchronize()
+        after = SK.launch_counts()
+        assert after["ssd_chunk"] == before["ssd_chunk"] + 1
+        assert after["ssd_chunk_bwd"] == before["ssd_chunk_bwd"] + 1
+        return [o.detach() for o in outs], [t.grad for t in args]
+    want, want_grads = run([t.clone() for t in ins], wts)
+    dims = {"heads": {0: 2, 1: 2, 2: 0}, "batch": {0: 0, 1: 0, 3: 0, 4: 0}}
+    out_pl = {"heads": ([Shard(2), Shard(1)],
+                        [Shard(2), Shard(2), Shard(0), Partial(), Partial()]),
+              "batch": ([Shard(0)] * 2,
                         [Shard(0), Shard(0), Partial(), Shard(0),
                          Shard(0)])}[placement]
     with socket.socket() as sock:
@@ -1056,19 +1068,12 @@ def test_ssd_ops_run_on_local_shards_of_a_world_of_one(cuda, placement):
                                             if i in dims[placement]
                                             else Replicate()])
                 for i, t in enumerate(ins)]
-        before = dict(SK.launch_counts())
-        with torch.no_grad():
-            outs = SO.ssd_chunk_fwd(*dins)
-            dcots = [distribute_tensor(t, mesh, o.placements)
-                     for t, o in zip(cots, outs)]
-            grads = SO.ssd_chunk_bwd(*dins, *dcots)
-        after = SK.launch_counts()
-        assert after["ssd_chunk"] == before["ssd_chunk"] + 1
-        assert after["ssd_chunk_bwd"] == before["ssd_chunk_bwd"] + 1
+        dws = [distribute_tensor(w, mesh, [pl])
+               for w, pl in zip(wts, out_pl[0])]
+        outs, grads = run(dins, dws)
         assert [o.placements[0] for o in outs] == out_pl[0]
         assert [t.placements[0] for t in grads] == out_pl[1]
-        for got, w in zip(list(outs) + list(grads),
-                          list(want) + list(want_grads)):
+        for got, w in zip(outs + grads, want + want_grads):
             assert torch.equal(got.full_tensor(), w)
     finally:
         dist.destroy_process_group()

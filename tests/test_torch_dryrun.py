@@ -17,11 +17,27 @@ The dry run traces one rank's step over a ``fake`` 256-rank world on
   batch); it all-gathers (the parameters' FSDP shards) and all-reduces;
 * a world of one rank moves no collective bytes;
 * ``sweep.main`` skips "ok" and "skipped" results and re-runs a corrupt
-  or missing one (``subprocess.run`` replaced).
+  or missing one (``subprocess.run`` replaced);
+* on the multi-pod mesh (pod 2, data 16, model 16; 512 ranks):
+  ``zamba2-7b`` x ``decode_32k`` and ``internlm2-1.8b`` x
+  ``decode_32k`` are "ok" at full width, their per-rank argument bytes
+  equal to what the reference's specs give (bf16 parameters, the cache,
+  tokens and positions);
+* the argument bytes count the inputs the step reads: a view reads
+  nothing, a copy or a product does (``MemoryTracker.read``);
+* the same mesh's trace of mamba2's smoke config on ``train_4k``, in a
+  fresh process, computes at most ``SMOKE_PLANS`` redistribute plans and
+  misses DTensor's propagation cache at most ``SMOKE_MISSES`` times (a
+  count, not a time: a placement DTensor cannot carry as it is sends the
+  trace to a graph search per strategy, each a plan).
 """
 
 import json
 import math
+import os
+import pathlib
+import subprocess
+import sys
 import types
 
 import jax
@@ -162,3 +178,107 @@ def test_sweep_skips_done_cells_and_reruns_corrupt_ones(tmp_path,
     monkeypatch.setattr(W.subprocess, "run", run)
     assert W.main(["--mesh", "single", "--out", str(tmp_path)]) == 0
     assert ran == cells[2:]
+
+
+def test_the_arguments_are_the_inputs_the_step_reads():
+    """An input only viewed (one layer's slice of stacked weights) is not
+    read; one copied or multiplied is, and so is one the step returns:
+    the argument bytes keep those, as the reference's ``jax.jit`` keeps
+    only the arguments its step uses."""
+    import torch
+
+    from repro_torch.roofline.counters import MemoryTracker, storage_key
+    w, v, c = (torch.zeros(4, 8, 8) for _ in range(3))
+    tracker = MemoryTracker()
+    tracker.track(w, v, c)
+    with tracker:
+        w[0].t()
+        v[1].t().contiguous()
+        c[2] @ c[3]
+    assert storage_key(w) not in tracker.read
+    assert {storage_key(v), storage_key(c)} <= tracker.read
+    assert [id(t) for t in D._read([w, v, c], [], tracker.read)] == [
+        id(v), id(c)]
+    assert len(D._read([w, v, c], [w[1]], tracker.read)) == 3
+
+
+MULTI = types.SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16})
+
+
+def _local(spec, leaf, mesh=MULTI) -> int:
+    """Bytes of ``leaf``'s shard under ``spec`` (a JAX PartitionSpec)."""
+    n = math.prod(leaf.shape) * jnp.dtype(leaf.dtype).itemsize
+    for entry in spec:
+        for a in (() if entry is None else
+                  (entry if isinstance(entry, tuple) else (entry,))):
+            n //= mesh.shape[a]
+    return n
+
+
+def _reference_decode_argument_bytes(arch: str) -> int:
+    """A decode_32k cell's per-rank argument bytes on the multi-pod mesh
+    from the reference's own specs: bf16 parameters under its parameter
+    rules, the cache, the tokens and the positions under its decode
+    activation rules."""
+    jm = j_build_model(j_get_config(arch))
+    sh = J_SHAPES["decode_32k"]
+    ap = jm.abstract_params(jnp.bfloat16)
+    specs = j_sh.param_specs_tree(jm.param_axes(), ap, MULTI,
+                                  j_sh.param_rules(True))
+    total = sum(jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        _local, specs, ap, is_leaf=lambda x: isinstance(
+            x, jax.sharding.PartitionSpec))))
+    rules = j_sh.act_rules("decode", True)
+    cache, cache_axes = jm.cache_spec(sh.global_batch, sh.seq_len)
+    batch, batch_axes = jm.input_specs(sh)
+    for tree, axes in ((cache, cache_axes), (batch, batch_axes)):
+        for k, leaf in tree.items():
+            total += _local(j_sh.spec_for(leaf.shape, axes[k], rules,
+                                          MULTI), leaf)
+    return total
+
+
+@pytest.mark.parametrize("arch,want", [("zamba2-7b", 1_625_761_472),
+                                       ("internlm2-1.8b", 812_693_664)])
+def test_multi_pod_decode_argument_bytes_equal_the_reference_specs(arch,
+                                                                   want):
+    """zamba2's decode raised in the mamba layers' concat on this mesh
+    (a partial sum beside a batch shard, which DTensor cannot join)."""
+    res = D.lower_cell(arch, "decode_32k", True)
+    assert res["status"] == "ok" and res["n_chips"] == 512
+    assert _reference_decode_argument_bytes(arch) == want
+    assert res["memory"]["argument_bytes_per_dev"] == want
+
+
+# the trace of mamba2's smoke config on the multi-pod mesh (train_4k):
+# the redistribute plans it computes and its misses of DTensor's
+# propagation cache, measured on PyTorch 2.13 on the CPU; before the
+# SSD ran on its shards and the products held their gradients' layout,
+# the same trace planned by graph search and gave no result in 9 minutes
+SMOKE_PLANS = 12488
+SMOKE_MISSES = 44
+
+_SMOKE_TRACE = """
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._redistribute import _gen_transform_infos
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun as D
+D.get_config = get_smoke_config
+res = D.lower_cell("mamba2-2.7b", "train_4k", True)
+prop = DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding
+print(res["status"], _gen_transform_infos.cache_info().misses,
+      prop.cache_info().misses)
+"""
+
+
+def test_multi_pod_smoke_trace_plans_are_held():
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(src), os.environ.get("PYTHONPATH", "")])}
+    out = subprocess.run([sys.executable, "-c", _SMOKE_TRACE], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    status, plans, misses = out.stdout.split()[-3:]
+    assert status == "ok"
+    assert int(plans) <= SMOKE_PLANS, plans
+    assert int(misses) <= SMOKE_MISSES, misses

@@ -18,14 +18,17 @@ against the unsharded port and the JAX package.
   the output stays in the input's placement (the operator ran on the
   local shards) and equals the unsharded op, with its gradients, at
   1e-5.
-* The SSD operators in a second 2-process world: the mamba2 smoke model
+* The SSD in a second 2-process world: the mamba2 smoke model
   (float32, the JAX package's weights) runs a prefill and one loss with
   its gradients on a (data 2, model 1) mesh, where the SSD runs
   batch-sharded and dA comes back as a partial sum, and on (data 1,
   model 2), against the unsharded port and JAX at the same tolerances;
-  the operators alone, heads- and batch-sharded, keep the inputs'
-  placement, return the partial sums as partial (dB and dC under
-  heads, dA under batch) and equal the unsharded op at 1e-5.
+  two full train steps with each optimizer on each mesh, on the state
+  ``make_train_state_specs`` places, against the unsharded port and the
+  JAX package's train step; ``models.ssm.ssd_chunked`` alone on
+  heads- and batch-sharded DTensors keeps the inputs' split, returns
+  the partial sums as partial (dB and dC under heads, dA under batch)
+  and equals the unsharded op at 1e-5.
 * On ``fake`` worlds (collectives move nothing): ``CollectiveCounter``
   sees the redistribution a ``constrain`` call requests, with its bytes
   (8 ranks), and the model's constrain sites are what changes the
@@ -291,6 +294,13 @@ SSD = (4, 2, 8, 8, 16, 16)       # B, c, Q, H, P, N
 # batch-sharded (dA a pending partial sum); (data 1, model 2) shards the
 # projections' inner dim (the SSD's inputs reach it replicated)
 SSM_MESHES = {"data": (2, 1), "model": (1, 2)}
+# the train steps on those meshes: each optimizer, two steps (the second
+# reads the moments the first wrote, the int8 ones through their row
+# scales), at test_torch_train.py's lr
+OPTS = ("adamw", "adamw8bit")
+LR = 1e-2
+OPT_KW = dict(lr_peak=LR, warmup_steps=5, total_steps=100)
+STEPS = 2
 
 _PORT_SSM = textwrap.dedent("""
     import sys
@@ -302,13 +312,14 @@ _PORT_SSM = textwrap.dedent("""
     from repro_torch.configs import get_smoke_config
     from repro_torch.dist import api, sharding as sh
     from repro_torch.kernels.ssd import kernel as SK
-    from repro_torch.kernels._dtensor import along_shards
-    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.models import build_model, params_from_numpy, ssm
+    from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
+                                   make_train_state_specs, make_train_step)
     from repro_torch.train.optimizer import _leaves, _tree_map
 
     MESHES = MESHES_
+    OPTS = OPTS_
 
     def nest(flat):
         tree = {}
@@ -320,6 +331,12 @@ _PORT_SSM = textwrap.dedent("""
                     node = node.setdefault(k, {})
                 node[leaf] = a
         return tree
+
+    def _ssd_weights(inp):
+        # the cotangent weights of ssd_chunked's y (B,S,H,P) and final
+        # state (B,H,P,N)
+        Bsz, c, Q, H, P = inp["ssd_w0"].shape
+        return [inp["ssd_w0"].reshape(Bsz, c * Q, H, P), inp["ssd_w1"][:, 0]]
 
     def run(rank, path):
         torch.set_num_threads(1)
@@ -385,50 +402,93 @@ _PORT_SSM = textwrap.dedent("""
             for i, t in enumerate(_leaves(params)):
                 out[f"{tag}_grad_{i}"] = t.grad.full_tensor().numpy()
 
-        # the operators alone, heads- and batch-sharded over "model"
+            # full train steps from the JAX package's weights on the
+            # state ``make_train_state_specs`` places
+            for opt in OPTS:
+                tcfg = TrainConfig(opt=OptConfig(**OPT_KW, name=opt),
+                                   remat_policy=None, microbatches=1)
+                _, pl = make_train_state_specs(model, tcfg, ctx)
+                p0 = params_from_numpy(cfg, nest(inp), device="cpu",
+                                       compute_dtype=torch.float32,
+                                       param_dtype=torch.float32)
+                plain = {"params": p0, "opt": init_opt_state(opt, p0)}
+                state = _tree_map(lambda t, q: distribute_tensor(t, mesh, q),
+                                  plain, {k: pl[k] for k in plain})
+                state["step"] = distribute_tensor(
+                    torch.zeros((), dtype=torch.int32), mesh, pl["step"])
+                out[f"{tag}_{opt}_last_split"] = np.asarray(sum(
+                    any(q.is_shard(t.ndim - 1) for q in t.placements)
+                    for t in _leaves(state["params"]) if t.ndim))
+                train_step = make_train_step(model, tcfg)
+                mets = []
+                with api.use_sharding(ctx):
+                    for _ in range(STEPS):
+                        state, m = train_step(state, batch(
+                            ["tokens", "targets"], "train"))
+                        mets.append([float(m[k].full_tensor())
+                                     for k in ("loss", "grad_norm")])
+                out[f"{tag}_{opt}_metrics"] = np.asarray(mets)
+                for part in ("params", "opt"):
+                    for i, t in enumerate(_leaves(state[part])):
+                        out[f"{tag}_{opt}_{part}_{i}"] = (
+                            t.full_tensor().numpy())
+
+        # the SSD on DTensors alone, heads- and batch-sharded over "model"
         mesh = make_local_mesh(1, 2, device="cpu")
         names = ("x", "dt", "A", "Bm", "Cm")
-        for name, dims in (("heads", {"x": 3, "dt": 3, "A": 0}),
+        full = {n: inp["ssd_" + n] for n in names}
+        Bsz, c, Q = full["x"].shape[:3]
+        for n in ("x", "dt", "Bm", "Cm"):
+            full[n] = full[n].reshape(Bsz, c * Q, *full[n].shape[3:])
+        for name, dims in (("heads", {"x": 2, "dt": 2, "A": 0}),
                            ("batch", {"x": 0, "dt": 0, "Bm": 0, "Cm": 0})):
-            ins = [distribute_tensor(torch.from_numpy(inp["ssd_" + n]), mesh,
+            ins = [distribute_tensor(torch.from_numpy(full[n]), mesh,
                                      [Replicate(), Shard(dims[n]) if n in dims
                                       else Replicate()]) for n in names]
             with torch.no_grad():
-                outs = ssd_ops.ssd_chunk_fwd(*ins)
+                outs = ssm.ssd_chunked(*ins, Q)
             out[f"ssd_{name}_placements"] = np.asarray(
                 [repr(o.placements[1]) for o in outs])
             for i, o in enumerate(outs):
                 out[f"ssd_{name}_out_{i}"] = o.full_tensor().numpy()
             for t in ins:
                 t.requires_grad_(True)
-            outs = ssd_ops.SSDChunkFn.apply(*ins)
-            ws = [distribute_tensor(torch.from_numpy(inp[f"ssd_w{i}"]), mesh,
-                                    o.placements) for i, o in enumerate(outs)]
+            calls.update(fwd=0, bwd=0)
+            outs = ssm.ssd_chunked(*ins, Q)
+            ws = [distribute_tensor(torch.from_numpy(w), mesh, o.placements)
+                  for w, o in zip(_ssd_weights(inp), outs)]
             sum((o * w).sum() for o, w in zip(outs, ws)).backward()
+            out[f"ssd_{name}_calls"] = np.asarray([calls["fwd"],
+                                                   calls["bwd"]])
             out[f"ssd_{name}_grad_placements"] = np.asarray(
                 [repr(t.grad.placements[1]) for t in ins])
             for n, t in zip(names, ins):
                 out[f"ssd_{name}_d{n}"] = t.grad.full_tensor().numpy()
 
-        # along_shards: a cumsum along a split dim, a pad along a whole one
+        # on_shards along a dim: a cumsum along a split dim (taken whole),
+        # a pad along a whole one (the batch shards kept)
         u = torch.from_numpy(inp["ssd_x"][:, 0, :, 0])          # (B, Q, P)
         d = distribute_tensor(u, mesh, [Replicate(), Shard(1)])
-        got = along_shards(lambda t: torch.cumsum(t, 1), d, 1)
+        got = api.on_shards(lambda t: torch.cumsum(t, 1), d,
+                            ins=([Replicate(), Replicate()],))
         out["along_cumsum"] = got.full_tensor().numpy()
         out["along_cumsum_placement"] = np.asarray(repr(got.placements[1]))
         d = distribute_tensor(u, mesh, [Replicate(), Shard(0)])
-        got = along_shards(
-            lambda t: torch.nn.functional.pad(t, (0, 0, 3, 0)), d, 1,
-            (u.shape[0], u.shape[1] + 3, u.shape[2]))
+        got = api.on_shards(
+            lambda t: torch.nn.functional.pad(t, (0, 0, 3, 0)), d,
+            shape=(u.shape[0], u.shape[1] + 3, u.shape[2]))
         out["along_pad"] = got.full_tensor().numpy()
         out["along_pad_placement"] = np.asarray(repr(got.placements[1]))
+        out["along_pad_shape"] = np.asarray(tuple(got.shape))
         np.savez(path + f"/port_{rank}.npz", **out)
         dist.destroy_process_group()
 
     if __name__ == "__main__":
         mp.spawn(run, args=(sys.argv[1],), nprocs=2, join=True)
         print("PORT_OK")
-""").replace("ARCH", SSM_ARCH).replace("MESHES_", repr(SSM_MESHES))
+""").replace("ARCH", SSM_ARCH).replace("MESHES_", repr(SSM_MESHES)).replace(
+    "OPTS_", repr(OPTS)).replace("OPT_KW", repr(OPT_KW)).replace(
+    "STEPS", repr(STEPS))
 
 
 def _ssd_inputs(rng):
@@ -549,30 +609,45 @@ def test_sharded_mamba2_loss_and_grads_equal_the_unsharded_port_and_jax(
             assert _rel_l2(port[f"{mesh}_grad_{i}"], np.asarray(jg)) <= 1e-4, i
 
 
+def _ssd_plain(inp):
+    """The SSD's inputs as ``models.ssm.ssd_chunked`` takes them (x, dt,
+    B, C with the chunks joined into the sequence), its cotangent
+    weights, and the chunk."""
+    Bsz, c, Q, H, P = inp["ssd_x"].shape
+    ins = {n: inp["ssd_" + n] for n in ("x", "dt", "A", "Bm", "Cm")}
+    for n in ("x", "dt", "Bm", "Cm"):
+        ins[n] = ins[n].reshape(Bsz, c * Q, *ins[n].shape[3:])
+    return (ins, [inp["ssd_w0"].reshape(Bsz, c * Q, H, P),
+                  inp["ssd_w1"][:, 0]], Q)
+
+
 @pytest.mark.parametrize("placement", ["heads", "batch"])
 def test_ssd_op_runs_on_local_shards(ssm_case, placement):
-    """The forward operator's outputs keep the inputs' placement (y on
-    dim 3 and the state and decay on dim 2 under heads, dim 0 under
-    batch), so it ran on the shards; values and gradients equal the
-    unsharded op's, and the gradients summed over what the shards split
-    come back as partial sums (dB, dC under heads; dA under batch)."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
+    """``models.ssm.ssd_chunked`` on DTensor inputs: y and the final
+    state keep the inputs' split (y on dim 2 and the state on dim 1
+    under heads, dim 0 under batch), so the op ran on the shards, its
+    forward and backward operators once each under grad; values and
+    gradients equal the unsharded op's, and the gradients summed over
+    what the shards split come back as partial sums (dB, dC under
+    heads; dA under batch)."""
+    from repro_torch.models import ssm
     _, _, inp, ranks = ssm_case
     names = ("x", "dt", "A", "Bm", "Cm")
-    ins = [torch.from_numpy(inp["ssd_" + n]).requires_grad_(True)
-           for n in names]
-    outs = ssd_ops.SSDChunkFn.apply(*ins)
-    sum((o * torch.from_numpy(inp[f"ssd_w{i}"])).sum()
-        for i, o in enumerate(outs)).backward()
-    want = {"heads": (["Shard(dim=3)", "Shard(dim=2)", "Shard(dim=2)"],
-                      ["Shard(dim=3)", "Shard(dim=3)", "Shard(dim=0)",
+    full, wts, Q = _ssd_plain(inp)
+    ins = [torch.from_numpy(full[n]).requires_grad_(True) for n in names]
+    outs = ssm.ssd_chunked(*ins, Q)
+    sum((o * torch.from_numpy(w)).sum() for o, w in zip(outs, wts)
+        ).backward()
+    want = {"heads": (["Shard(dim=2)", "Shard(dim=1)"],
+                      ["Shard(dim=2)", "Shard(dim=2)", "Shard(dim=0)",
                        "Partial(sum)", "Partial(sum)"]),
-            "batch": (["Shard(dim=0)"] * 3,
+            "batch": (["Shard(dim=0)"] * 2,
                       ["Shard(dim=0)", "Shard(dim=0)", "Partial(sum)",
                        "Shard(dim=0)", "Shard(dim=0)"])}[placement]
     for port in ranks:
         assert port[f"ssd_{placement}_placements"].tolist() == want[0]
         assert port[f"ssd_{placement}_grad_placements"].tolist() == want[1]
+        assert port[f"ssd_{placement}_calls"].tolist() == [1, 1]
         for i, o in enumerate(outs):
             np.testing.assert_allclose(port[f"ssd_{placement}_out_{i}"],
                                        o.detach().numpy(), rtol=1e-5,
@@ -584,10 +659,11 @@ def test_ssd_op_runs_on_local_shards(ssm_case, placement):
 
 def test_along_shards_runs_on_the_shards_with_the_worked_dim_whole(
         ssm_case):
-    """``kernels._dtensor.along_shards``: a cumsum along a dim the
-    placement splits gathers that dim first (the result replicated
-    there), a zero-pad along a whole dim keeps the batch shards; both
-    equal the plain op."""
+    """``dist.api.on_shards`` with a function along one dim, as
+    ``models.ssm._pad_seq`` calls it: a cumsum along a dim the placement
+    splits, taken whole first (the result replicated there), a zero-pad
+    along a whole dim keeps the batch shards and takes the given global
+    shape; both equal the plain op."""
     _, _, inp, ranks = ssm_case
     u = torch.from_numpy(inp["ssd_x"][:, 0, :, 0])
     for port in ranks:
@@ -599,6 +675,90 @@ def test_along_shards_runs_on_the_shards_with_the_worked_dim_whole(
             port["along_pad"],
             torch.nn.functional.pad(u, (0, 0, 3, 0)).numpy())
         assert str(port["along_pad_placement"]) == "Shard(dim=0)"
+        assert port["along_pad_shape"].tolist() == [u.shape[0],
+                                                    u.shape[1] + 3,
+                                                    u.shape[2]]
+
+
+def _steps_unsharded_and_jax(jm, tree, inp, opt):
+    """``STEPS`` train steps of the unsharded port and of the JAX
+    package's ``make_train_step`` on the case's batch: (port state,
+    JAX state, [(loss, grad_norm)] a step for each)."""
+    from repro.train import OptConfig as JOptConfig
+    from repro.train import TrainConfig as JTrainConfig
+    from repro.train import init_opt_state as j_init_opt_state
+    from repro.train import make_train_step as j_make_train_step
+    from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
+                                   make_train_step)
+    cfg = get_smoke_config(SSM_ARCH)
+    params = params_from_numpy(cfg, tree, device="cpu",
+                               compute_dtype=torch.float32,
+                               param_dtype=torch.float32)
+    state = {"params": params, "opt": init_opt_state(opt, params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    step = make_train_step(build_model(cfg, torch.float32),
+                           TrainConfig(opt=OptConfig(**OPT_KW, name=opt),
+                                       remat_policy=None, microbatches=1))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    jstate = {"params": jp, "opt": j_init_opt_state(opt, jp),
+              "step": jnp.zeros((), jnp.int32)}
+    jstep = jax.jit(j_make_train_step(
+        jm, JTrainConfig(opt=JOptConfig(**OPT_KW, name=opt),
+                         remat_policy=None, microbatches=1)))
+    batch = {n: inp[n] for n in ("tokens", "targets")}
+    mets, jmets = [], []
+    for _ in range(STEPS):
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+        jstate, jm_ = jstep(jstate, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+        mets.append([float(m[k]) for k in ("loss", "grad_norm")])
+        jmets.append([float(jm_[k]) for k in ("loss", "grad_norm")])
+    return state, jstate, np.asarray(mets), np.asarray(jmets)
+
+
+@pytest.mark.parametrize("opt", OPTS)
+@pytest.mark.parametrize("mesh", list(SSM_MESHES))
+def test_sharded_train_steps_equal_the_unsharded_port_and_jax(ssm_case,
+                                                              mesh, opt):
+    """Two ``make_train_step`` steps on the state that
+    ``make_train_state_specs`` places (each rank updates its local
+    shards; AdamW8bit's per-row scales take their maximum over the mesh
+    dims that split a parameter's last dim, which some parameters are on
+    each mesh: d_model over data, ssm_inner over model) against the
+    unsharded port and the JAX package's step from the same weights and
+    batch: the loss and grad norm a step (1e-5 relative against the
+    port, 1e-4 against JAX), the parameters within 1e-2 * lr everywhere
+    against the port and at ``test_torch_train.py``'s tolerances against
+    JAX, the float moments and scales within 1e-5 (port) and 1e-3 (JAX)
+    relative L2, the int8 moments within one quantisation step."""
+    jm, tree, inp, ranks = ssm_case
+    state, jstate, mets, jmets = _steps_unsharded_and_jax(jm, tree, inp, opt)
+    for port in ranks:
+        assert int(port[f"{mesh}_{opt}_last_split"]) > 0
+        np.testing.assert_allclose(port[f"{mesh}_{opt}_metrics"], mets,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(port[f"{mesh}_{opt}_metrics"], jmets,
+                                   rtol=1e-4)
+        for i, (a, b) in enumerate(zip(_leaves(state["params"]),
+                                       jax.tree_util.tree_leaves(
+                                           jstate["params"]))):
+            got = port[f"{mesh}_{opt}_params_{i}"]
+            assert float(np.abs(got - a.numpy()).max()) <= 1e-2 * LR, i
+            d = np.abs(got - np.asarray(b))
+            assert float((d > 1e-2 * LR).mean()) <= 1e-2, i
+            assert float(d.max()) <= 3e-2 * LR, i
+        for i, (a, b) in enumerate(zip(_leaves(state["opt"]),
+                                       jax.tree_util.tree_leaves(
+                                           jstate["opt"]))):
+            got, b = port[f"{mesh}_{opt}_opt_{i}"], np.asarray(b)
+            assert got.dtype == b.dtype == a.numpy().dtype, i
+            if b.dtype == np.int8:
+                for want in (a.numpy(), b):
+                    assert int(np.abs(got.astype(int) - want).max()) <= 1, i
+            else:
+                assert _rel_l2(got, a.numpy()) <= 1e-5, i
+                assert _rel_l2(got, b) <= 1e-3, i
 
 
 # -- the counter on a fake 8-rank world -------------------------------------
